@@ -1,0 +1,280 @@
+"""Gray-code pattern generation, Otsu thresholds and per-pixel decode.
+
+Pattern order (the capture-file contract): frame 0 white, frame 1 black,
+then for each column bit MSB -> LSB a (pattern, inverse) pair, then each
+row bit. Decode reads the first ``n_sets`` bit pairs of each axis, inverts
+the reflected Gray code, and scales by 2^(n_bits - n_use) so coordinates
+stay full-range; patterns projected with downsample k decode in the
+k-decimated raster and scale by k.
+
+The decode itself is a kernel (``ops/kernels.decode_maps`` for raw frames,
+``decode_packed_maps`` for packed bit-planes): CUDA on a CUDA tensor, the
+plain PyTorch version on a CPU tensor. Otsu histograms are built with
+``torch.bincount`` on the frames' device and scored on the host in float64,
+so every backend picks the same bin.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from structured_light_for_3d_model_replication_tpu_torch.ops import kernels
+from structured_light_for_3d_model_replication_tpu_torch.utils.device import (
+    resolve_device,
+)
+
+__all__ = ["gray_bits", "generate_pattern_stack", "frames_per_view",
+           "otsu_threshold", "resolve_thresholds", "resolve_thresholds_views",
+           "decode_stack", "decode_packed", "DecodeResult"]
+
+
+def _n_bits(size: int) -> int:
+    return max(1, int(np.ceil(np.log2(size))))
+
+
+def gray_bits(size: int, n_bits: int | None = None) -> np.ndarray:
+    """Bit-planes of the reflected Gray code gray(x) = x ^ (x >> 1) for
+    positions [0, size): bool [n_bits, size], MSB first."""
+    if n_bits is None:
+        n_bits = _n_bits(size)
+    x = np.arange(size, dtype=np.int64)
+    g = x ^ (x >> 1)
+    shifts = np.arange(n_bits - 1, -1, -1, dtype=np.int64)
+    return ((g[None, :] >> shifts[:, None]) & 1).astype(bool)
+
+
+def frames_per_view(width: int = 1920, height: int = 1080, downsample: int = 1) -> int:
+    """Frames of one capture sequence: 2 + 2*(bits(w//k) + bits(h//k));
+    46 at 1920x1080."""
+    return 2 + 2 * (_n_bits(width // downsample) + _n_bits(height // downsample))
+
+
+def generate_pattern_stack(width: int = 1920, height: int = 1080,
+                           brightness: int = 200, downsample: int = 1) -> np.ndarray:
+    """The projector frame sequence as uint8 [F, height, width] (numpy).
+    With downsample k the stripes are computed at (width//k, height//k) and
+    nearest-upsampled to the full projector raster."""
+    w, h = width // downsample, height // downsample
+    nc, nr = _n_bits(w), _n_bits(h)
+    col = gray_bits(w, nc)
+    row = gray_bits(h, nr)
+    frames = np.zeros((2 + 2 * (nc + nr), h, w), dtype=np.uint8)
+    frames[0] = brightness
+    f = 2
+    for b in range(nc):
+        stripe = np.where(col[b], brightness, 0).astype(np.uint8)
+        frames[f] = np.broadcast_to(stripe, (h, w))
+        frames[f + 1] = brightness - frames[f]
+        f += 2
+    for b in range(nr):
+        stripe = np.where(row[b], brightness, 0).astype(np.uint8)
+        frames[f] = np.broadcast_to(stripe[:, None], (h, w))
+        frames[f + 1] = brightness - frames[f]
+        f += 2
+    if downsample > 1:
+        xi = (np.arange(width) * w) // width
+        yi = (np.arange(height) * h) // height
+        frames = frames[:, yi[:, None], xi[None, :]]
+    return frames
+
+
+# ---------------------------------------------------------------------------
+# Otsu threshold: histogram argmax of the between-class variance, scored in
+# float64 on the host (first maximum wins; empty classes score 0 — OpenCV's
+# rule)
+# ---------------------------------------------------------------------------
+
+def _otsu_from_hist(counts: np.ndarray) -> int:
+    counts = np.asarray(counts, np.float64)
+    total = counts.sum()
+    levels = np.arange(256, dtype=np.float64)
+    w1 = np.cumsum(counts)
+    m1 = np.cumsum(counts * levels)
+    mT = m1[-1]
+    w2 = total - w1
+    num = (mT * w1 - total * m1) ** 2
+    den = w1 * w2
+    sigma_b = np.where(den > 0, num / np.where(den > 0, den, 1.0), 0.0)
+    return int(np.argmax(sigma_b))
+
+
+def _hists(img_v: torch.Tensor) -> np.ndarray:
+    """256-bin histogram of each view of a u8 [V, ...] tensor, built on its
+    device in one bincount and fetched once -> int64 [V, 256]."""
+    v = img_v.shape[0]
+    offs = torch.arange(v, device=img_v.device, dtype=torch.int64) * 256
+    idx = img_v.reshape(v, -1).to(torch.int64) + offs[:, None]
+    return torch.bincount(idx.reshape(-1), minlength=256 * v).reshape(v, 256).cpu().numpy()
+
+
+def _white_diff_u8(frames_v: torch.Tensor):
+    """White frame and the white-black difference clipped to [0, 255], u8."""
+    white = frames_v[:, 0]
+    diff = (white.to(torch.float32) - frames_v[:, 1].to(torch.float32)).clamp(0, 255)
+    return white.to(torch.uint8), diff.to(torch.uint8)
+
+
+def otsu_threshold(img_u8: torch.Tensor) -> int:
+    """Otsu threshold of one uint8 image."""
+    return _otsu_from_hist(_hists(img_u8[None])[0])
+
+
+def resolve_thresholds_views(frames_v: torch.Tensor, thresh_mode: str,
+                             shadow_val: float, contrast_val: float
+                             ) -> tuple[np.ndarray, np.ndarray]:
+    """Per-view (shadow, contrast) thresholds, f32 [V] each, of a
+    [V, F, H, W] stack (only frames 0 and 1 are read). ``otsu`` scores the
+    histograms of the white frame and the clipped white-black difference;
+    any other mode returns the manual values."""
+    v = frames_v.shape[0]
+    if thresh_mode != "otsu":
+        return (np.full(v, shadow_val, np.float32),
+                np.full(v, contrast_val, np.float32))
+    white, diff = _white_diff_u8(frames_v)
+    h_w, h_d = _hists(white), _hists(diff)
+    return (np.array([_otsu_from_hist(h) for h in h_w], np.float32),
+            np.array([_otsu_from_hist(h) for h in h_d], np.float32))
+
+
+def resolve_thresholds(frames: torch.Tensor, thresh_mode: str, shadow_val: float,
+                       contrast_val: float) -> tuple[float, float]:
+    """(shadow, contrast) of one [F, H, W] stack, as Python floats."""
+    ss, cs = resolve_thresholds_views(frames[None], thresh_mode, shadow_val,
+                                      contrast_val)
+    return float(ss[0]), float(cs[0])
+
+
+def threshold_tensor(ss: np.ndarray, cs: np.ndarray,
+                     device: torch.device) -> torch.Tensor:
+    """The kernels' f32 [V, 2] (shadow, contrast) tensor on ``device``."""
+    thr = np.stack([np.asarray(ss, np.float32), np.asarray(cs, np.float32)], 1)
+    return torch.from_numpy(thr).to(device)
+
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
+
+class DecodeResult(NamedTuple):
+    """Per-pixel decode output; invalid pixels carry mask=False."""
+
+    col_map: torch.Tensor  # int32 [..., H, W], projector column
+    row_map: torch.Tensor  # int32 [..., H, W], projector row
+    mask: torch.Tensor     # bool  [..., H, W], shadow & contrast valid
+    texture: torch.Tensor  # uint8 [H, W, 3] (or [H, W, 1] gray)
+
+
+class DecodePlan(NamedTuple):
+    n_bits_col: int
+    n_bits_row: int
+    n_use_col: int
+    n_use_row: int
+    downsample: int
+
+
+def decode_plan(n_frames: int, *, n_cols: int, n_rows: int, n_sets_col: int,
+                n_sets_row: int, downsample: int,
+                skip_remaining_before_row: bool = False) -> DecodePlan:
+    """Bit counts of one decode. A stack shorter than the full sequence
+    raises unless ``skip_remaining_before_row`` (the legacy truncated-stack
+    decode: missing pairs decode as 0 in the low bits)."""
+    n_cols //= downsample
+    n_rows //= downsample
+    nbc, nbr = _n_bits(n_cols), _n_bits(n_rows)
+    need = 2 + 2 * (nbc + nbr)
+    if n_frames < need and not skip_remaining_before_row:
+        raise ValueError(
+            f"Not enough frames: got {n_frames}, need {need} "
+            f"(white + black + 2*({nbc} col + {nbr} row bit-planes)) "
+            f"for a {n_cols}x{n_rows} projector. Pass "
+            f"skip_remaining_before_row=True for the legacy truncated-stack "
+            f"decode.")
+    return DecodePlan(nbc, nbr, max(1, min(int(n_sets_col), nbc)),
+                      max(1, min(int(n_sets_row), nbr)), int(downsample))
+
+
+def decode_views(frames_v: torch.Tensor, thr_v: torch.Tensor, plan: DecodePlan):
+    """(col, row, mask) [V, H, W] of a [V, F, H, W] stack with thresholds
+    [V, 2], through the decode kernel."""
+    return kernels.decode_maps(frames_v, thr_v, **plan._asdict())
+
+
+def decode_packed_views(planes_v, white_v, black_v, thr_v, n_frames: int,
+                        plan: DecodePlan):
+    """(col, row, mask) [V, H, W] of packed stacks, through the packed
+    decode kernel."""
+    return kernels.decode_packed_maps(planes_v, white_v, black_v, thr_v,
+                                      n_pairs=(n_frames - 2) // 2,
+                                      **plan._asdict())
+
+
+def _tensor(x, device) -> torch.Tensor:
+    """A tensor stays where it is unless ``device`` is given; anything else
+    goes to ``device`` (None -> cuda)."""
+    if isinstance(x, torch.Tensor) and device is None:
+        return x
+    dev = resolve_device(device)
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+
+def decode_stack(frames, texture=None, *, n_cols: int = 1920,
+                 n_rows: int = 1080, n_sets_col: int = 11, n_sets_row: int = 11,
+                 thresh_mode: str = "otsu", shadow_val: float = 40.0,
+                 contrast_val: float = 10.0, downsample: int = 1,
+                 skip_remaining_before_row: bool = False,
+                 device=None) -> DecodeResult:
+    """Decode a [F, H, W] capture stack (numpy or tensor).
+
+    ``thresh_mode``: ``"otsu"`` (histograms on the device, scored on the
+    host in float64; ``"otsu_device"`` is taken as ``"otsu"``) or
+    ``"manual"`` (``shadow_val`` / ``contrast_val`` as given).
+    """
+    frames = _tensor(frames, device)
+    if texture is None:
+        texture = frames[0, ..., None].expand(*frames.shape[1:], 3).to(torch.uint8)
+    else:
+        texture = _tensor(texture, frames.device)
+    mode = "otsu" if thresh_mode == "otsu_device" else thresh_mode
+    ss, cs = resolve_thresholds_views(frames[None], mode, shadow_val, contrast_val)
+    plan = decode_plan(frames.shape[0], n_cols=n_cols, n_rows=n_rows,
+                       n_sets_col=n_sets_col, n_sets_row=n_sets_row,
+                       downsample=downsample,
+                       skip_remaining_before_row=skip_remaining_before_row)
+    col, row, mask = decode_views(frames[None].contiguous(),
+                                  threshold_tensor(ss, cs, frames.device), plan)
+    return DecodeResult(col[0], row[0], mask[0], texture)
+
+
+def decode_packed(planes, white, black, texture=None, *, n_frames: int,
+                  n_cols: int = 1920, n_rows: int = 1080, n_sets_col: int = 11,
+                  n_sets_row: int = 11, thresh_mode: str = "otsu",
+                  shadow_val: float = 40.0, contrast_val: float = 10.0,
+                  downsample: int = 1, skip_remaining_before_row: bool = False,
+                  device=None) -> DecodeResult:
+    """Decode a packed bit-plane stack (``io.images.pack_stack`` layout) —
+    bit-identical to ``decode_stack`` on the raw stack it was packed from:
+    thresholds and mask read only the verbatim white/black frames, and the
+    stored bits are the comparisons decode computes."""
+    planes = _tensor(planes, device)
+    white = _tensor(white, planes.device)
+    black = _tensor(black, planes.device)
+    if texture is None:
+        texture = white[..., None].expand(*white.shape, 3).to(torch.uint8)
+    else:
+        texture = _tensor(texture, planes.device)
+    mode = "otsu" if thresh_mode == "otsu_device" else thresh_mode
+    wb = torch.stack([white, black])[None]
+    ss, cs = resolve_thresholds_views(wb, mode, shadow_val, contrast_val)
+    plan = decode_plan(n_frames, n_cols=n_cols, n_rows=n_rows,
+                       n_sets_col=n_sets_col, n_sets_row=n_sets_row,
+                       downsample=downsample,
+                       skip_remaining_before_row=skip_remaining_before_row)
+    col, row, mask = decode_packed_views(
+        planes[None].contiguous(), white[None].contiguous(),
+        black[None].contiguous(), threshold_tensor(ss, cs, planes.device),
+        n_frames, plan)
+    return DecodeResult(col[0], row[0], mask[0], texture)
