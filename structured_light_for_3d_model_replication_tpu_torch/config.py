@@ -1,15 +1,16 @@
-"""Typed configuration for the scan path.
+"""Typed configuration for the scan and merge paths.
 
 The port's own copy of the JAX package's config dataclasses, cut to what
-``reconstruct`` reads. Field names and defaults are the same, so one JSON
-config file loads in both packages:
+``reconstruct`` and ``merge-360`` read. Field names and defaults are the
+same, so one JSON config file loads in both packages:
 
-  - ``projector``, ``decode`` and ``triangulate`` are whole copies; an
-    unknown key there is an error, as in the JAX package;
+  - ``projector``, ``decode``, ``triangulate`` and ``merge`` are whole
+    copies; an unknown key there is an error, as in the JAX package;
   - ``parallel`` carries ``compute_batch`` and ``io_workers``, ``pipeline``
-    carries ``packed_ingest``. Other keys of these two sections, and whole
-    sections the port does not model (``clean``, ``merge``, ``serving``, …),
-    configure stages the port does not run yet: they load without effect.
+    carries ``packed_ingest`` and ``min_views``. Other keys of these two
+    sections, and whole sections the port does not model (``clean``,
+    ``mesh``, ``serving``, …), configure stages the port does not run yet:
+    they load without effect.
 """
 from __future__ import annotations
 
@@ -20,7 +21,8 @@ from dataclasses import dataclass, field
 from typing import Any
 
 __all__ = ["ProjectorConfig", "DecodeConfig", "TriangulateConfig",
-           "ParallelConfig", "PipelineConfig", "Config", "load_config"]
+           "MergeConfig", "ParallelConfig", "PipelineConfig", "Config",
+           "load_config"]
 
 
 @dataclass
@@ -62,6 +64,27 @@ class TriangulateConfig:
 
 
 @dataclass
+class MergeConfig:
+    """360-degree merge. ``method='posegraph'`` loads but is not ported: the
+    merge raises NotImplementedError for it. ``stream``, ``pair_batch`` and
+    ``incremental`` are schedule knobs; the port reads ``pair_batch``."""
+
+    voxel_size: float = 3.0
+    icp_dist_ratio: float = 1.5
+    icp_iters: int = 30
+    ransac_trials: int = 4096
+    outlier_nb: int = 20
+    outlier_std: float = 2.0
+    sample_before: int = 0       # uniform sample every k-th point before register (0=off)
+    sample_after: int = 0
+    final_voxel: float = 0.5
+    method: str = "sequential"   # 'sequential' | 'posegraph'
+    stream: bool = True
+    pair_batch: int = 4          # pairs per registration launch group
+    incremental: bool = False
+
+
+@dataclass
 class ParallelConfig:
     """Host-side execution knobs of the reconstruct lanes."""
 
@@ -76,21 +99,24 @@ class ParallelConfig:
 
 @dataclass
 class PipelineConfig:
-    """Ingest format of the batched reconstruct lane."""
+    """Ingest format of the batched reconstruct lane, the merge's view floor."""
 
     # load each view as a packed bit-plane stack (frames.slbp where present,
     # packed at load otherwise) and decode from the bits on the device;
     # outputs are byte-identical to raw ingest (batched lane only)
     packed_ingest: bool = False
+    # merge proceeds when at least max(2, min_views) views are readable
+    min_views: int = 2
 
 
 @dataclass
 class Config:
-    """Root configuration of the scan path."""
+    """Root configuration of the scan and merge paths."""
 
     projector: ProjectorConfig = field(default_factory=ProjectorConfig)
     decode: DecodeConfig = field(default_factory=DecodeConfig)
     triangulate: TriangulateConfig = field(default_factory=TriangulateConfig)
+    merge: MergeConfig = field(default_factory=MergeConfig)
     parallel: ParallelConfig = field(default_factory=ParallelConfig)
     pipeline: PipelineConfig = field(default_factory=PipelineConfig)
 

@@ -1,19 +1,26 @@
-"""Kernel wrappers of the scan path, their plain versions, and launch counts.
+"""Kernel wrappers, their plain versions, and launch counts.
 
-The counterpart of the JAX package's ``ops/pallas_kernels.py`` for the three
-kernel families on the scan path, each a CUDA C++ kernel in
-``csrc/decode.cu``:
+The counterpart of the JAX package's ``ops/pallas_kernels.py``. Each kernel
+family is a CUDA C++ kernel, the scan path's in ``csrc/decode.cu``, the
+merge path's in ``csrc/cloud.cu``:
 
   decode_maps         Gray decode of raw frames      (_decode_kernel[_views])
   decode_packed_maps  Gray decode of packed bits     (_decode_packed_kernel[_views])
   scan_fused          decode + quadratic triangulate (_scan_fused_kernel)
+  nn1                 brute 1-NN, leading pair axis  (_nn1_kernel)
+  ransac_score        RANSAC hypothesis inlier counts (_ransac_score_kernel)
+  knn_mean            exact k-NN mean over a cloud   (_knn_mean_kernel)
+  slab_mean_knn       the same over x-sorted windows (_slab_bisect_kernel)
 
-Every wrapper takes a leading view axis V. For tensors on the CPU it runs
-its plain PyTorch version (``*_plain``, the same function written with
-tensor ops, mirroring the Pallas tile math). For CUDA tensors it checks
-device, dtype, shape and contiguity, allocates the outputs, launches the
-kernel on the current stream and raises on a non-zero CUDA error — there
-is no fallback. Each wrapper counts its launches in ``<wrapper>.launches``.
+For tensors on the CPU a wrapper runs its plain PyTorch version
+(``*_plain``, the same function written with tensor ops, in the kernel's
+float order; the plain k-NN means select the k-th distance with
+``torch.topk`` where the kernels bisect, which gives the same value). For
+CUDA tensors it checks device, dtype, shape and contiguity, allocates the
+outputs, launches the kernel on the current stream and raises on a non-zero
+CUDA error — there is no fallback. Each wrapper counts its launches in
+``<wrapper>.launches``. The plain versions chunk their rows, so none
+materializes an N x N matrix.
 """
 from __future__ import annotations
 
@@ -22,20 +29,28 @@ import ctypes
 import torch
 
 from structured_light_for_3d_model_replication_tpu_torch.ops import _build
+from structured_light_for_3d_model_replication_tpu_torch.ops.knn import sq_dist
 
 __all__ = ["decode_maps", "decode_maps_plain", "decode_packed_maps",
            "decode_packed_maps_plain", "scan_fused", "scan_fused_plain",
-           "scan_scalars", "sqrt_f32", "KERNELS", "launch_counts", "reset_launch_counts"]
+           "scan_scalars", "sqrt_f32", "nn1", "nn1_plain", "ransac_score",
+           "ransac_score_plain", "knn_mean", "knn_mean_plain", "slab_mean_knn",
+           "slab_mean_knn_plain", "KERNELS", "launch_counts",
+           "reset_launch_counts"]
 
 # ---------------------------------------------------------------------------
-# the C interface (csrc/decode.cu)
+# the C interface (csrc/decode.cu, csrc/cloud.cu)
 # ---------------------------------------------------------------------------
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     "slscan_decode_maps": [_P] * 5 + [_I, _I, _L] + [_I] * 8 + [_P],
     "slscan_decode_packed_maps": [_P] * 7 + [_I, _I, _L] + [_I] * 8 + [_P],
     "slscan_scan_fused": [_P] * 7 + [_I, _I, _L] + [_I] * 9 + [_P],
+    "slscan_nn1": [_P] * 4 + [_I] * 3 + [_P],
+    "slscan_ransac_score": [_P] * 3 + [_F, _P, _I, _I, _P],
+    "slscan_knn_mean": [_P, _I, _I, _I, _P, _P, _P],
+    "slscan_slab_mean_knn": [_P] + [_I] * 5 + [_F] + [_P] * 4,
 }
 _declared: set[int] = set()
 
@@ -328,7 +343,227 @@ def scan_fused(frames_v, thr_v, scalars, rays, *, n_bits_col: int,
     return pts, valid, tex
 
 
-KERNELS = (decode_maps, decode_packed_maps, scan_fused)
+# ---------------------------------------------------------------------------
+# merge-path kernels (csrc/cloud.cu)
+# ---------------------------------------------------------------------------
+
+_ROWS = 1 << 24          # elements per chunk of a plain version's [rows, cols] block
+_SELF_BITS = 0x7FFFFFFE  # a query's own slot: above every cutoff
+
+
+def _sq_bits(r: float) -> int:
+    """Bit pattern of the f32 square of f32(r)."""
+    r32 = torch.tensor(r, dtype=torch.float32)
+    return int((r32 * r32).view(torch.int32))
+
+
+# knn_mean's cutoff: candidates within 1e17 mm^2 are real (invalid rows park at 1e9)
+_KNN_R2_BITS = int(torch.tensor(1e17, dtype=torch.float32).view(torch.int32))
+
+
+# K4: nn1 ---------------------------------------------------------------------
+
+def nn1_plain(q: torch.Tensor, base: torch.Tensor):
+    """q f32 [P, Nq, 3], base f32 [P, Nb, 3] -> (idx i32 [P, Nq], d2 f32
+    [P, Nq]): the nearest base row of every query, lowest index on ties."""
+    p, nq, _ = q.shape
+    step = max(1, _ROWS // max(1, p * base.shape[1]))
+    idx, d2 = [], []
+    for s in range(0, nq, step):
+        d = sq_dist(q[:, s:s + step, None, :], base[:, None, :, :])
+        v, j = torch.min(d, dim=-1)
+        idx.append(j.to(torch.int32))
+        d2.append(v)
+    return torch.cat(idx, 1), torch.cat(d2, 1)
+
+
+def nn1(q: torch.Tensor, base: torch.Tensor):
+    """Brute 1-NN with a leading pair axis (see nn1_plain). Invalid base
+    rows are the caller's to park far away (registration parks them at
+    1e9, as the Pallas path does); d2 is the exact difference distance."""
+    if _on_cpu(q, base):
+        return nn1_plain(q, base)
+    if q.dim() != 3 or base.dim() != 3 or base.shape[0] != q.shape[0]:
+        raise ValueError(f"nn1: expected q [P, Nq, 3], base [P, Nb, 3], got "
+                         f"{tuple(q.shape)} and {tuple(base.shape)}")
+    p, nq, _ = q.shape
+    nb = base.shape[1]
+    if nb == 0:
+        raise ValueError("nn1: empty base")
+    _check(q, "q", torch.float32, (p, nq, 3))
+    _check(base, "base", torch.float32, (p, nb, 3))
+    idx = torch.empty((p, nq), dtype=torch.int32, device=q.device)
+    d2 = torch.empty((p, nq), dtype=torch.float32, device=q.device)
+    if p and nq:
+        _launch("slscan_nn1", q.device, q.data_ptr(), base.data_ptr(),
+                idx.data_ptr(), d2.data_ptr(), p, nq, nb)
+        nn1.launches += 1
+    return idx, d2
+
+
+# K5: ransac_score ------------------------------------------------------------
+
+def ransac_score_plain(hm: torch.Tensor, pm: torch.Tensor, sc: torch.Tensor,
+                       md2: float) -> torch.Tensor:
+    """hm f32 [T, 16], pm f32 [N, 16], sc f32 [N] (+inf = dead) -> i32 [T]:
+    count of n with sc[n] + 2 * sum_c hm[t, c] pm[n, c] <= md2, the dot
+    summed c = 0..15 in order."""
+    t, n = hm.shape[0], pm.shape[0]
+    md2 = torch.tensor(md2, dtype=torch.float32, device=hm.device)
+    step = max(1, _ROWS // max(1, n))
+    out = []
+    for s in range(0, t, step):
+        h = hm[s:s + step]
+        acc = h[:, 0:1] * pm[None, :, 0]
+        for c in range(1, 16):
+            acc = acc + h[:, c:c + 1] * pm[None, :, c]
+        out.append(((sc[None, :] + 2.0 * acc) <= md2).sum(1).to(torch.int32))
+    return torch.cat(out) if out else torch.zeros(0, dtype=torch.int32, device=hm.device)
+
+
+def ransac_score(hm: torch.Tensor, pm: torch.Tensor, sc: torch.Tensor,
+                 md2: float) -> torch.Tensor:
+    """Inlier counts i32 [T] of T hypotheses against N correspondences (see
+    ransac_score_plain): hm = [R^T t, -R9, -t, t^2/2] and pm = [s, c (x) s,
+    c, 1], the centered expansion |R s + t - c|^2 = sc + 2 H.P that
+    ``registration._score_args`` builds; sc +inf at dead correspondences."""
+    if _on_cpu(hm, pm, sc):
+        return ransac_score_plain(hm, pm, sc, md2)
+    t, n = hm.shape[0], pm.shape[0]
+    _check(hm, "H", torch.float32, (t, 16))
+    _check(pm, "P", torch.float32, (n, 16))
+    _check(sc, "sc", torch.float32, (n,))
+    counts = torch.zeros(t, dtype=torch.int32, device=hm.device)
+    if t and n:
+        _launch("slscan_ransac_score", hm.device, hm.data_ptr(), pm.data_ptr(),
+                sc.data_ptr(), md2, counts.data_ptr(), t, n)
+        ransac_score.launches += 1
+    return counts
+
+
+# K6, K7: k-NN means ------------------------------------------------------------
+
+def _knn_mean_rows(d2: torch.Tensor, self_mask: torch.Tensor, k: int, r2b: int):
+    """[rows, cands] squared distances -> (mean, count(bits <= r2b)): the
+    bisection kernels' statistic, with the k-th smallest bit pattern t taken
+    by topk (t = min(k-th, r2b + 1), what 31 bisection passes converge to)."""
+    bits = d2.view(torch.int32).masked_fill(self_mask, _SELF_BITS)
+    cnt = (bits <= r2b).sum(-1).to(torch.int32)
+    if bits.shape[-1] >= k:
+        kth = torch.topk(bits, k, dim=-1, largest=False).values[..., -1]
+        t = torch.clamp(kth, max=r2b + 1)
+    else:
+        t = torch.full(bits.shape[:-1], r2b + 1, dtype=torch.int32, device=d2.device)
+    lt = bits < t[..., None]
+    dist = torch.where(lt, sqrt_f32(d2), torch.zeros((), dtype=torch.float32, device=d2.device))
+    c_lt = lt.sum(-1).to(torch.int32)
+    tie = (k - c_lt).to(torch.float32) * sqrt_f32(t.view(torch.float32))
+    return (dist.sum(-1) + tie) / float(k), cnt
+
+
+def knn_mean_plain(pts: torch.Tensor, k: int):
+    """pts f32 [L, 3] -> (mean f32 [L], cnt i32 [L]): each row's mean
+    distance to its k nearest other rows (exact; meaningful where cnt >= k)
+    and the count of rows within the 1e17 cutoff (self excluded by index)."""
+    n = pts.shape[0]
+    step = max(1, _ROWS // max(1, n))
+    cols = torch.arange(n, device=pts.device)
+    means, cnts = [], []
+    for s in range(0, n, step):
+        q = pts[s:s + step]
+        rows = torch.arange(s, s + q.shape[0], device=pts.device)
+        m, c = _knn_mean_rows(sq_dist(q[:, None, :], pts[None, :, :]),
+                              rows[:, None] == cols[None, :], k, _KNN_R2_BITS)
+        means.append(m)
+        cnts.append(c)
+    return torch.cat(means), torch.cat(cnts)
+
+
+def knn_mean(pts: torch.Tensor, k: int):
+    """Exact k-NN mean over a whole cloud pts f32 [L, 3] (invalid rows
+    parked far away by the caller); see knn_mean_plain. Cutoff 1e17."""
+    if _on_cpu(pts):
+        return knn_mean_plain(pts, k)
+    n = pts.shape[0]
+    _check(pts, "pts", torch.float32, (n, 3))
+    mean = torch.empty(n, dtype=torch.float32, device=pts.device)
+    cnt = torch.empty(n, dtype=torch.int32, device=pts.device)
+    if n:
+        _launch("slscan_knn_mean", pts.device, pts.data_ptr(), n, int(k),
+                _KNN_R2_BITS, mean.data_ptr(), cnt.data_ptr())
+        knn_mean.launches += 1
+    return mean, cnt
+
+
+def _slab_check(L: int, tile: int, wblk: int) -> None:
+    if wblk % tile or L % wblk or L < 2 * wblk:
+        raise ValueError(f"slab_mean_knn: need tile | wblk, wblk | L and L >= 2 wblk "
+                         f"(L={L}, tile={tile}, wblk={wblk})")
+
+
+def _slab_starts(pts_sorted: torch.Tensor, r: float, tile: int, wblk: int):
+    """Each tile's window start: the sorted slot of its first x - r, aligned
+    down to wblk and clamped to leave two blocks."""
+    L = pts_sorted.shape[0]
+    x = pts_sorted[:, 0].contiguous()
+    r32 = torch.tensor(r, dtype=torch.float32, device=x.device)
+    a = torch.searchsorted(x, x[::tile] - r32)
+    return torch.clamp(a // wblk, max=max(L // wblk - 2, 0)) * wblk
+
+
+def slab_mean_knn_plain(pts_sorted: torch.Tensor, r: float, k: int, tile: int,
+                        wblk: int):
+    """pts_sorted f32 [L, 3], ascending x (invalid rows parked at a far
+    sentinel) -> (mean f32 [L], cnt i32 [L] of candidates within r, win_end
+    i32 [L]): each row against the 2*wblk window of its tile."""
+    L = pts_sorted.shape[0]
+    _slab_check(L, tile, wblk)
+    r2b = _sq_bits(r)
+    starts = _slab_starts(pts_sorted, r, tile, wblk)
+    w = 2 * wblk
+    span = torch.arange(w, device=pts_sorted.device)
+    tiles_per = max(1, _ROWS // (tile * w))
+    means, cnts = [], []
+    for s in range(0, L // tile, tiles_per):
+        c0 = starts[s:s + tiles_per]
+        cand_idx = c0[:, None] + span[None, :]                      # [nt, w]
+        cand = pts_sorted[cand_idx]                                 # [nt, w, 3]
+        q = pts_sorted[s * tile:(s + c0.shape[0]) * tile].view(-1, tile, 3)
+        qg = torch.arange(s * tile, (s + c0.shape[0]) * tile,
+                          device=pts_sorted.device).view(-1, tile)
+        m, c = _knn_mean_rows(sq_dist(q[:, :, None, :], cand[:, None, :, :]),
+                              qg[:, :, None] == cand_idx[:, None, :], k, r2b)
+        means.append(m.reshape(-1))
+        cnts.append(c.reshape(-1))
+    win_end = torch.repeat_interleave(starts + w, tile).to(torch.int32)
+    return torch.cat(means), torch.cat(cnts), win_end
+
+
+def slab_mean_knn(pts_sorted: torch.Tensor, r: float, k: int, tile: int = 64,
+                  wblk: int = 8192):
+    """Slab-window mean of the k nearest neighbours (see
+    slab_mean_knn_plain). The kernel takes 64 queries a block, so it needs
+    tile % 64 == 0."""
+    if _on_cpu(pts_sorted):
+        return slab_mean_knn_plain(pts_sorted, r, k, tile, wblk)
+    L = pts_sorted.shape[0]
+    _slab_check(L, tile, wblk)
+    if tile % 64:
+        raise ValueError(f"slab_mean_knn: the kernel needs tile % 64 == 0, got {tile}")
+    _check(pts_sorted, "pts_sorted", torch.float32, (L, 3))
+    dev = pts_sorted.device
+    mean = torch.empty(L, dtype=torch.float32, device=dev)
+    cnt = torch.empty(L, dtype=torch.int32, device=dev)
+    win_end = torch.empty(L, dtype=torch.int32, device=dev)
+    _launch("slscan_slab_mean_knn", dev, pts_sorted.data_ptr(), L, int(k), _sq_bits(r),
+            int(wblk), int(tile), float(torch.tensor(r, dtype=torch.float32)),
+            mean.data_ptr(), cnt.data_ptr(), win_end.data_ptr())
+    slab_mean_knn.launches += 1
+    return mean, cnt, win_end
+
+
+KERNELS = (decode_maps, decode_packed_maps, scan_fused, nn1, ransac_score,
+           knn_mean, slab_mean_knn)
 
 
 def reset_launch_counts() -> None:

@@ -1,4 +1,8 @@
-"""File-level scan stage: scan folders -> per-view colored PLY.
+"""File-level stages: scan folders -> per-view colored PLY -> merged cloud.
+
+``merge_views`` is the port's entry point of the merge path (the JAX
+package's ``sl3d merge-360``): a folder of per-view PLYs, ordered by their
+``<n>deg`` tag, registered and merged into one cloud (``merge_360``).
 
 ``reconstruct`` is the port's user entry point of the scan path (the JAX
 package's ``sl3d reconstruct``): it resolves the scan sources, builds one
@@ -17,6 +21,7 @@ Errors propagate; per-view retry and quarantine are not ported yet.
 from __future__ import annotations
 
 import os
+import re
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
@@ -37,7 +42,10 @@ from structured_light_for_3d_model_replication_tpu_torch.utils.device import (
     resolve_device,
 )
 
-__all__ = ["BatchReport", "reconstruct", "reconstruct_source"]
+__all__ = ["BatchReport", "reconstruct", "reconstruct_source",
+           "sort_ply_paths_by_angle", "merge_views"]
+
+_DEG_RE = re.compile(r"(\d+(?:\.\d+)?)\s*deg", re.IGNORECASE)
 
 
 @dataclass
@@ -227,3 +235,68 @@ def reconstruct(calib_path: str, target: str, mode: str = "single",
     report.elapsed_s = time.perf_counter() - t0
     log(f"[reconstruct] {report.summary}")
     return report
+
+
+def sort_ply_paths_by_angle(paths: list[str]) -> list[str]:
+    """Order merge inputs by the ``"<n>deg"`` tag in the filename, untagged
+    files after them in lexical order."""
+
+    def key(p):
+        m = _DEG_RE.search(os.path.basename(p))
+        return (0, float(m.group(1)), p) if m else (1, 0.0, p)
+
+    return sorted(paths, key=key)
+
+
+def merge_views(input_folder: str, output_ply: str, cfg: Config | None = None,
+                log=print, device=None, timings: dict | None = None):
+    """Folder of per-view PLYs -> one registered 360-degree cloud PLY, on
+    ``device`` (None -> cuda). A view that cannot be read is dropped with a
+    warning as long as max(2, pipeline.min_views) readable views remain.
+    Returns (points, colors, transforms)."""
+    from structured_light_for_3d_model_replication_tpu_torch.models import (
+        reconstruction as recon,
+    )
+
+    cfg = cfg or Config()
+    dev = resolve_device(device)
+    out_abs = os.path.abspath(output_ply)
+    paths = sort_ply_paths_by_angle([
+        p for f in os.listdir(input_folder)
+        if f.lower().endswith(".ply")
+        and os.path.abspath(p := os.path.join(input_folder, f)) != out_abs])
+    if len(paths) < 2:
+        raise ValueError(f"need >= 2 PLY views in {input_folder}, found {len(paths)}")
+    log(f"[merge] {len(paths)} views: " + ", ".join(os.path.basename(p) for p in paths))
+
+    def read_one(p):
+        try:
+            return ply.read_ply(p), None
+        except Exception as e:  # a torn or corrupt view is dropped below
+            return None, e
+
+    with ThreadPoolExecutor(max_workers=max(1, min(cfg.parallel.io_workers,
+                                                   len(paths)))) as pool:
+        datas = list(pool.map(read_one, paths))
+    dropped = [(p, e) for p, (d, e) in zip(paths, datas) if d is None]
+    for p, e in dropped:
+        log(f"[merge] WARNING: dropping unreadable view {os.path.basename(p)}: {e}")
+    floor = max(2, cfg.pipeline.min_views)
+    if len(paths) - len(dropped) < floor:
+        raise ValueError(
+            f"merge: only {len(paths) - len(dropped)}/{len(paths)} views readable, "
+            f"below the pipeline.min_views={floor} floor (unreadable: "
+            f"{[os.path.basename(p) for p, _ in dropped]})")
+    clouds = []
+    for d, _ in datas:
+        if d is None:
+            continue
+        c = d.get("colors")
+        if c is None:
+            c = np.zeros_like(d["points"], dtype=np.uint8)
+        clouds.append((np.asarray(d["points"], np.float32), np.asarray(c, np.uint8)))
+    points, colors, transforms = recon.merge_360(clouds, cfg.merge, log=log,
+                                                 timings=timings, device=dev)
+    ply.write_ply(output_ply, points, colors)
+    log(f"[merge] wrote {output_ply} ({len(points):,} points)")
+    return points, colors, transforms

@@ -21,7 +21,9 @@ from structured_light_for_3d_model_replication_tpu_torch.ops.graycode import (
 )
 
 __all__ = ["Rig", "Sphere", "Plane", "Scene", "default_rig", "render_scene",
-           "rotate_y", "sphere_on_background", "turntable_poses"]
+           "rotate_y", "sphere_on_background", "turntable_poses",
+           "three_spheres", "lumpy_views", "turntable_transforms", "pose_errors",
+           "sphere_surface_distance"]
 
 
 @dataclass
@@ -209,3 +211,71 @@ def turntable_poses(n_views: int = 12, step_deg: float = 30.0,
         R = rotate_y(step_deg * i)
         poses.append((R, pivot - R @ pivot))
     return poses
+
+
+def three_spheres() -> Scene:
+    """The flagship merge scene (bench.py's ``_merge_scene``): three spheres
+    of different sizes, asymmetric about the turntable axis. The 70 mm
+    sphere fills most of every view and carries no features, so pairwise
+    registration of this scene drifts; ``lumpy_views`` is the scene to hold
+    poses against."""
+    return Scene([
+        Sphere(np.array([0.0, 0.0, 420.0]), 70.0),
+        Sphere(np.array([55.0, -40.0, 360.0]), 28.0),
+        Sphere(np.array([-48.0, 35.0, 370.0]), 22.0),
+    ])
+
+
+def lumpy_views(poses, n_points: int = 20000, radius: float = 75.0,
+                center=(0.0, 0.0, 400.0), visible: float = 0.65,
+                noise: float = 0.05, seed: int = 0) -> list[np.ndarray]:
+    """Point-cloud views f32 [n_i, 3] of a lumpy closed surface (radius *
+    (1 + 0.25 sin(4x) cos(3y)) about ``center``, no rotational symmetry),
+    one a pose of ``turntable_poses``: the surface points moved by the pose,
+    the ``visible`` share nearest the camera (smallest z) kept, with
+    Gaussian noise of ``noise`` mm. A scene that registers, for pose checks."""
+    rng = np.random.default_rng(seed)
+    d = rng.normal(size=(n_points, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    r = radius * (1 + 0.25 * np.sin(4 * d[:, 0]) * np.cos(3 * d[:, 1]))
+    base = d * r[:, None] + np.asarray(center, np.float64)
+    views = []
+    for R, t in poses:
+        world = base @ np.asarray(R).T + np.asarray(t)
+        vis = world[:, 2] < np.percentile(world[:, 2], 100 * visible)
+        views.append((world[vis] + rng.normal(0, noise, (int(vis.sum()), 3)))
+                     .astype(np.float32))
+    return views
+
+
+def turntable_transforms(poses) -> list[np.ndarray]:
+    """The true merge transforms of ``turntable_poses``: transforms[i] maps
+    view i into view 0's frame, x_0 = R_i^T (x_i - t_i)."""
+    out = []
+    for R, t in poses:
+        T = np.eye(4)
+        T[:3, :3] = R.T
+        T[:3, 3] = -R.T @ t
+        out.append(T)
+    return out
+
+
+def pose_errors(estimated, truth) -> tuple[np.ndarray, np.ndarray]:
+    """Per view: rotation error in degrees and translation error in mm of
+    4x4 ``estimated`` transforms against ``truth``."""
+    rot, trans = [], []
+    for Te, Tt in zip(estimated, truth):
+        Te = np.asarray(Te, np.float64)
+        c = (np.trace(Tt[:3, :3].T @ Te[:3, :3]) - 1.0) / 2.0
+        rot.append(np.degrees(np.arccos(np.clip(c, -1.0, 1.0))))
+        trans.append(np.linalg.norm(Te[:3, 3] - Tt[:3, 3]))
+    return np.asarray(rot), np.asarray(trans)
+
+
+def sphere_surface_distance(points: np.ndarray, scene: Scene) -> np.ndarray:
+    """Distance [N] from each point to the nearest sphere surface of
+    ``scene`` (its Sphere objects)."""
+    p = np.asarray(points, np.float64)
+    d = [np.abs(np.linalg.norm(p - o.center[None, :], axis=1) - o.radius)
+         for o in scene.objects if isinstance(o, Sphere)]
+    return np.min(np.stack(d), axis=0)

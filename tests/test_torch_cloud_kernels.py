@@ -1,0 +1,193 @@
+"""The merge path's kernels (plain versions, on the CPU) against the JAX package.
+
+Each plain version in ``ops/kernels.py`` is what a CUDA kernel of
+``ops/csrc/cloud.cu`` is held against on the card; here it is held against
+the Pallas kernel it replaces, run in interpret mode as the JAX package's own
+tests run it, and against the package's numpy twins. Inputs are made with
+numpy from a seed. Tolerances:
+
+- nn1: indices equal wherever the best two exact distances differ by more
+  than 1e-3 mm^2 (the Pallas kernel selects on the |q|^2+|b|^2-2q.b
+  expansion, the port on exact differences, so nearer ties may split
+  either way); distances are exact differences, equal to within f32
+  rounding of the same formula (rtol 1e-6);
+- ransac_score: counts within +-1, the bound of pallas_kernels.py:325 (f32
+  products summed in another order flip borderline slots);
+- knn_mean: counts exact, means rtol 1e-4 (knn_mean_np's bound; the sums
+  differ only in order);
+- slab_mean_knn: counts and window ends exact, certified means within rtol
+  1e-5 of the Pallas kernel and of the cKDTree twin
+  (tests/test_pointcloud_ops.py:356's bound).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from structured_light_for_3d_model_replication_tpu.ops import knn as jknn
+from structured_light_for_3d_model_replication_tpu.ops import pallas_kernels as pk
+from structured_light_for_3d_model_replication_tpu.ops import pointcloud as jpc
+from structured_light_for_3d_model_replication_tpu.ops import registration as jreg
+from structured_light_for_3d_model_replication_tpu_torch.ops import kernels
+from structured_light_for_3d_model_replication_tpu_torch.ops import knn as knnlib
+from structured_light_for_3d_model_replication_tpu_torch.ops import pointcloud as pc
+from structured_light_for_3d_model_replication_tpu_torch.ops import registration as reg
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _lumpy(rng, n, scale=50.0, center=(0.0, 0.0, 400.0)):
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    r = scale * (1 + 0.2 * np.sin(3 * d[:, 0]))
+    return (d * r[:, None] + np.asarray(center)).astype(np.float32)
+
+
+@pytest.mark.parametrize("nq,nb", [(300, 500), (257, 130)])
+def test_nn1_matches_pallas_and_brute(nq, nb):
+    rng = np.random.default_rng(nq + nb)
+    q = _lumpy(rng, nq) + rng.normal(0, 0.5, (nq, 3)).astype(np.float32)
+    base = _lumpy(rng, nb)
+    base[7] = base[3]                        # an exact tie: lowest index wins
+    q[0] = base[3] + 0.25
+    valid = rng.random(nb) > 0.1
+    valid[[3, 7]] = True
+    parked = np.where(valid[:, None], base, np.float32(knnlib.FAR)).astype(np.float32)
+    idx, d2 = (a.numpy()[0] for a in kernels.nn1(_t(q)[None], _t(parked)[None]))
+    jidx, jd2 = (np.asarray(a) for a in pk.nn1(q, base, valid))
+    bidx, bd2 = (np.asarray(a) for a in jreg._nn1_brute_jnp(
+        jnp.asarray(q), jnp.asarray(base), jnp.asarray(valid)))
+    exact = ((q[:, None, :] - parked[None]) ** 2).sum(-1)
+    two = np.sort(exact, axis=1)[:, :2]
+    clear = (two[:, 1] - two[:, 0]) > 1e-3
+    assert clear.sum() > 0.9 * nq
+    np.testing.assert_array_equal(idx[clear], jidx[clear])
+    np.testing.assert_array_equal(idx[clear], bidx[clear])
+    assert valid[idx].all()
+    np.testing.assert_allclose(d2, exact[np.arange(nq), idx], rtol=1e-6)
+    np.testing.assert_allclose(d2, jd2, rtol=1e-5, atol=1e-3)
+    np.testing.assert_allclose(d2[np.isfinite(bd2)], bd2[np.isfinite(bd2)],
+                               rtol=1e-5, atol=1e-3)
+    # base rows 3 and 7 coincide: the tie goes to the lower index
+    assert idx[0] == 3 and not (idx == 7).any()
+
+
+def test_nn1_pair_axis_equals_one_pair_at_a_time():
+    rng = np.random.default_rng(4)
+    q = np.stack([_lumpy(rng, 200) for _ in range(3)])
+    b = np.stack([_lumpy(rng, 150) for _ in range(3)])
+    idx, d2 = kernels.nn1(_t(q), _t(b))
+    for p in range(3):
+        i1, d1 = kernels.nn1(_t(q[p:p + 1]), _t(b[p:p + 1]))
+        assert torch.equal(idx[p], i1[0]) and torch.equal(d2[p], d1[0])
+
+
+def _ransac_inputs(rng, t, n):
+    src = rng.uniform(-60, 60, (n, 3)).astype(np.float32)
+    dst = (src + rng.normal(0, 2.0, (n, 3))).astype(np.float32)
+    src_c, dst_cc = src - src.mean(0), dst - dst.mean(0)
+    cs9 = (dst_cc[:, :, None] * src_c[:, None, :]).reshape(n, 9)
+    ang = rng.normal(0, 0.05, (t, 3))
+    R = np.stack([np.linalg.qr(np.eye(3) + _skew(a))[0] for a in ang]).astype(np.float32)
+    R *= np.sign(np.linalg.det(R))[:, None, None]
+    tt = rng.normal(0, 1.0, (t, 3)).astype(np.float32)
+    Rt = np.einsum("tij,ti->tj", R, tt).astype(np.float32)
+    sc = ((src_c ** 2).sum(-1) + (dst_cc ** 2).sum(-1)).astype(np.float32)
+    sc[rng.random(n) < 0.1] = np.inf
+    return (R.reshape(t, 9), tt, (tt * tt).sum(-1).astype(np.float32), Rt,
+            src_c, cs9.astype(np.float32), dst_cc, sc)
+
+
+def _skew(a):
+    return np.array([[0, -a[2], a[1]], [a[2], 0, -a[0]], [-a[1], a[0], 0]])
+
+
+@pytest.mark.parametrize("t,n", [(64, 700), (37, 2100)])
+def test_ransac_score_matches_pallas_and_twin(t, n):
+    rng = np.random.default_rng(t * n)
+    args = _ransac_inputs(rng, t, n)
+    hm, pm = reg._ransac_rows(*(_t(a) for a in args[:7]))
+    got = kernels.ransac_score(hm, pm, _t(args[7]), 20.25).numpy()
+    ref = np.asarray(pk.ransac_score(*(jnp.asarray(a) for a in args), 20.25,
+                                     interpret=True))
+    twin = pk.ransac_score_np(*args, 20.25)
+    assert ref.max() > 0 and got.min() >= 0
+    assert np.abs(got - ref).max() <= 1
+    assert np.abs(got - twin).max() <= 1
+
+
+@pytest.mark.parametrize("n,n_valid", [(700, 650), (20, 6)])
+def test_knn_mean_matches_pallas_and_twin(n, n_valid):
+    """Duplicates (ties at zero), a far cluster, invalid rows; with 6 valid
+    rows every row has fewer than k neighbours and comes back +inf."""
+    rng = np.random.default_rng(9)
+    pts = rng.uniform(0, 20, (n, 3)).astype(np.float32)
+    pts[10:14] = pts[5]
+    pts[n // 2:n // 2 + 5] = rng.uniform(500, 501, (5, 3))
+    valid = np.arange(n) < n_valid
+    k = 8
+    md = pc._voxelized_knn_mean_dist(_t(pts), _t(valid), 1.0, k, selector="dense").numpy()
+    parked = np.where(valid[:, None], pts, np.float32(knnlib.FAR)).astype(np.float32)
+    _, cnt = kernels.knn_mean(_t(parked), k)
+    cnt = np.where(valid, cnt.numpy(), 0)
+    jmd, jcnt = (np.asarray(a) for a in pk.knn_mean(pts, valid, k, interpret=True))
+    tmd, tcnt = pk.knn_mean_np(pts, valid, k)
+    np.testing.assert_array_equal(cnt, jcnt)
+    np.testing.assert_array_equal(cnt, tcnt)
+    fin = np.isfinite(jmd)
+    np.testing.assert_array_equal(np.isfinite(md), fin)
+    assert fin.sum() == (n_valid if n_valid > k else 0)
+    np.testing.assert_allclose(md[fin], jmd[fin], rtol=1e-4)
+    np.testing.assert_allclose(md[fin], tmd[fin], rtol=1e-4)
+
+
+def _sorted_padded(pts, L):
+    order = np.argsort(pts[:, 0], kind="stable")
+    out = np.full((L, 3), 3e9, np.float32)
+    out[:len(pts)] = pts[order]
+    return out
+
+
+def test_slab_mean_knn_matches_pallas():
+    rng = np.random.default_rng(12)
+    pts = rng.uniform(0, 30, (6000, 3)).astype(np.float32)
+    s = _sorted_padded(pts, 6144)
+    md, cnt, end = (a.numpy() for a in kernels.slab_mean_knn(_t(s), 6.0, 20, tile=128, wblk=2048))
+    jmd, jcnt, jend = (np.asarray(a) for a in pk.slab_mean_knn(
+        jnp.asarray(s), 6.0, 20, tile=128, wblk=2048, interpret=True))
+    np.testing.assert_array_equal(cnt, jcnt)
+    np.testing.assert_array_equal(end, jend)
+    ok = cnt >= 20
+    assert ok.sum() > 5000
+    np.testing.assert_allclose(md[ok], jmd[ok], rtol=1e-5)
+
+
+def test_slab_engine_matches_pallas_engine_and_kdtree():
+    rng = np.random.default_rng(12)
+    pts = rng.uniform(0, 30, (6000, 3)).astype(np.float32)
+    v = np.ones(len(pts), bool)
+    b = pc._voxelized_knn_mean_dist(_t(pts), _t(v), 1.5, 20, tile=128, window=2048,
+                                    selector="bisect").numpy()
+    jb = np.asarray(jpc._voxelized_knn_mean_dist(
+        jnp.asarray(pts), jnp.asarray(v), jnp.float32(1.5), 20, tile=128,
+        window=2048, selector="bisect"))
+    np.testing.assert_array_equal(np.isfinite(b), np.isfinite(jb))
+    rows = np.flatnonzero(np.isfinite(b))
+    assert len(rows) > 1000
+    np.testing.assert_allclose(b[rows], jb[rows], rtol=1e-5)
+    ref = jknn.kdtree_distances_rows(pts, v, rows, 20).mean(axis=1)
+    np.testing.assert_allclose(b[rows], ref, rtol=1e-5)
+    ours = knnlib.kdtree_distances_rows(pts, v, rows, 20).mean(axis=1)
+    np.testing.assert_array_equal(ours, ref)
+
+
+def test_cuda_tensors_never_take_the_plain_version(monkeypatch):
+    """A wrapper picks the plain version by the tensor's device alone: a
+    tensor on another device raises instead."""
+    x = torch.zeros((1, 4, 3), device="meta")
+    with pytest.raises(RuntimeError, match="no kernel for device"):
+        kernels.nn1(x, x)
+    with pytest.raises(RuntimeError, match="no kernel for device"):
+        kernels.knn_mean(torch.zeros((4, 3), device="meta"), 2)

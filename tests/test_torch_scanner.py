@@ -195,8 +195,9 @@ def test_cpu_tensors_never_count_a_launch(scene):
                               np.stack([s.white for s in ps]),
                               np.stack([s.black for s in ps]),
                               n_frames=ps[0].n_frames)
-    assert kernels.launch_counts() == {"decode_maps": 0, "decode_packed_maps": 0,
-                                       "scan_fused": 0}
+    counts = kernels.launch_counts()
+    assert set(counts) >= {"decode_maps", "decode_packed_maps", "scan_fused"}
+    assert not any(counts.values()), counts
 
 
 def test_wrappers_refuse_other_devices():
