@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""On-card check of the PyTorch + CUDA port: the scan and merge paths.
+"""On-card check of the PyTorch + CUDA port: scan, merge and scan-to-print.
 
     python3 chip_smoke.py
 
@@ -43,13 +43,39 @@ Imports nothing of JAX. Phases, each of which exits non-zero on failure:
    voxel (merged cloud <= 32768 points) must launch knn_mean and not
    slab_mean_knn. A third, the pose scene (``synthetic.lumpy_views`` at the
    same 24 poses, a surface that registers), holds the recovered transforms
-   against the true turntable poses at 1.5x the JAX package's errors.
+   against the true turntable poses at 1.5x the JAX package's errors;
+6. radius_count at the clean chain's shape, on the pipeline scene
+   (``utils/synthetic.pipeline_scene``: the three spheres on a floor plane,
+   24 turntable views at 768x576, a 512x256 projector, stored as .slbp):
+   its largest view padded to its 61,440-row bucket, at r = cluster_eps and
+   r = radius, equal to the plain version exactly, timed with CUDA events
+   beside the plain version and a cdist yardstick;
+7. the main path: ``run_pipeline`` over those 24 views with the default
+   ``Config()`` (manual thresholds, the scene's projector size, the cleaned
+   views also written out), cold, then again under torch.profiler. Launch
+   counts zeroed before each run, read after: radius_count 2 a view, nn1,
+   ransac_score and slab_mean_knn at least once. Gated on the JAX package's
+   run of the same views (``PIPELINE_JAX``, from
+   ``tools/torch_pipeline_reference.py``): per-view clean counts within
+   2 %, each chain pair's landing error (``pair_landing``: median, p99)
+   within 1.5x wherever the JAX package's is under 1 mm, the merged point count
+   within 10 %, the STL with a face a merged point at least, its open and
+   non-manifold edges within 1.5x and the merged points' distance to it
+   within 1.5x. The merged cloud's and the STL's distance to the true
+   surfaces are printed beside the JAX package's: two chain pairs join
+   views of different spheres, and no transform is right there. Then the
+   true-pose arm: the pipeline's cleaned views merged under the true poses
+   and meshed, gated at 1.5x the JAX package's errors against the true
+   surfaces and the merged cloud (``PIPELINE_JAX["true_pose"]``); and the
+   mesh arm: ``mesh_cloud`` (depth 10, brick-refined) on ~188k points of the
+   three spheres' union, gated at 1.5x the JAX package's errors on the same
+   cloud (``MESH_JAX``) against the true spheres and the input cloud.
 
-Then one ``{"kernels": [...]}`` JSON line (times from phases 2 and 4,
+Then one ``{"kernels": [...]}`` JSON line (times from phases 2, 4 and 6,
 bounds from this run's shapes, and each kernel's launches from one run of
 the main path, named in ``launches_run``: its own arm of phase 3, the cold
-flagship merge, or for knn_mean the small arm) and, last, the
-``{"ok": true, "device": ...}`` line.
+flagship merge, for knn_mean the small arm, for radius_count the cold
+pipeline) and, last, the ``{"ok": true, "device": ...}`` line.
 """
 from __future__ import annotations
 
@@ -85,6 +111,103 @@ FLAGSHIP_JAX = {"surf_median_mm": 0.32119189678192406, "surf_p99_mm": 36.9329400
 POSE_JAX = {"rot_max_deg": 0.14608264300570387, "trans_max_mm": 0.952752147717066,
             "rot_median_deg": 0.10449975284444288, "trans_median_mm": 0.6840317819437964}
 GATE = 1.5
+PIPE_VIEWS = 24
+PIPE_CAM, PIPE_PROJ = (768, 576), (512, 256)
+# the pipeline phase's config: the default Config() with the scene's
+# projector size and manual thresholds (synthetic frames have no ambient
+# variation for Otsu to split)
+PIPE_OVERRIDES = {"decode.n_cols": PIPE_PROJ[0], "decode.n_rows": PIPE_PROJ[1],
+                  "decode.thresh_mode": "manual", "pipeline.write_view_plys": True}
+# A chain pair whose two cleaned views hold the same surface lands view i
+# within a fraction of a millimetre of the truth. A landing statistic
+# (median, p99) is gated where the JAX package's is under this: above it,
+# the pair joins views of different spheres (no transform is right), or
+# view i holds a sphere that view i - 1 lacks, whose place a turn about the
+# shared sphere's centre leaves open (its p99).
+LANDED_MM = 1.0
+PIPE_RADIUS_VIEW = 7   # 105 degrees: the largest view (60,563 points, bucket 61,440)
+# Pipeline gates: the JAX package's run_pipeline of the same 24 views on the
+# CPU (tools/torch_pipeline_reference.py, mesh.density_cap=false so the CPU
+# takes the card's depth-10 brick solve): per-view counts after each clean
+# step, the merged cloud's and the STL's distance to the true surfaces
+# (printed beside the port's), the cloud's extent, the STL's distance to its
+# merged cloud and its edges, each chain pair's landing error, and the
+# true-pose arm's numbers.
+PIPELINE_JAX = {
+    "merged_surf_median_mm": 38.32221603393555,
+    "merged_surf_p99_mm": 66.37399028778076,
+    "merged_points": 121715,
+    "merged_extent_mm": 202.08316040039062,
+    "pair_landing_mm": [
+        [0.26094515885259284, 0.6118204009616058], [32.38966473575448, 56.265832145638385],
+        [0.19085677717519545, 0.4966497544404599], [0.18222076660168796, 0.48032119660958833],
+        [64.08946967539998, 100.05801665690389], [0.2309864436740412, 0.543583025235896],
+        [0.3514772925330334, 9.451912277727606], [0.21170979264255152, 0.5538122917832056],
+        [0.20382908645925113, 0.5214087511674997], [0.19641371901218463, 0.47109686817222723],
+        [0.19223422249270072, 0.4721417007414134], [0.19073522348445238, 0.4771790691804057],
+        [0.19108863852353863, 0.4949946224444346], [0.19379468900724817, 0.4859008207752706],
+        [0.23729699660039216, 0.6994937961083856], [0.2025409076007776, 0.4800090951628434],
+        [0.21120663031319253, 0.49928303932477647], [0.21742070927328427, 0.5297073086953697],
+        [0.22619319304345709, 0.5328645940934962], [0.23588870750413804, 0.5503405660776811],
+        [0.24446104041987837, 0.5751242184737599], [0.24926854508504448, 0.5847840640049141],
+        [0.36475059573553636, 19.148433747377442],
+    ],
+    "true_pose": {
+        "merged_points": 175539, "merged_surf_median_mm": 0.23257017602953667,
+        "merged_surf_p99_mm": 0.545444266564161, "merged_extent_mm": 157.18994140625,
+        "stl": {"faces": 2863752, "surf_median_mm": 0.07480118549023729,
+                "surf_p99_mm": 1.5433279607896007, "to_merged_median_mm": 0.23582669458954156,
+                "to_merged_p99_mm": 3.8504302762574407,
+                "from_merged_median_mm": 0.1437089613732353,
+                "from_merged_p99_mm": 0.5337078583295153,
+                "boundary_edges": 8800, "nonmanifold_edges": 9158}},
+    "stl": {"faces": 1711852, "surf_median_mm": 36.5284423828125,
+            "surf_p99_mm": 71.30273246765137,
+            "to_merged_median_mm": 0.29920921621752694,
+            "to_merged_p99_mm": 6.882514665086437,
+            "from_merged_median_mm": 0.187049118308529,
+            "from_merged_p99_mm": 0.7256029794684776,
+            "boundary_edges": 12780, "nonmanifold_edges": 6504},
+    # per view in angle order: input, background, cluster, radius, statistical
+    "clean_counts": [
+        [54971, 32799, 16908, 16808, 16451],
+        [52427, 31211, 13848, 13766, 13340],
+        [51981, 31455, 13948, 13934, 13384],
+        [50156, 29802, 14148, 14129, 13580],
+        [51948, 31399, 14034, 14024, 13407],
+        [56186, 35098, 14618, 14582, 14234],
+        [59753, 38067, 18237, 18169, 17765],
+        [60563, 38952, 32284, 32237, 31248],
+        [59701, 38376, 20279, 20224, 19639],
+        [58264, 37164, 20547, 20513, 19935],
+        [56414, 35434, 20878, 20841, 20269],
+        [53594, 32662, 21026, 20976, 20375],
+        [49952, 29011, 20909, 20866, 20259],
+        [47084, 26835, 20801, 20755, 20175],
+        [46128, 26741, 20605, 20556, 19967],
+        [45707, 26700, 20398, 20350, 19775],
+        [45917, 26696, 20131, 20080, 19546],
+        [47493, 27329, 19838, 19774, 19246],
+        [51614, 30174, 19594, 19542, 19056],
+        [55621, 32939, 19352, 19304, 18821],
+        [58043, 35110, 19217, 19160, 18684],
+        [59691, 36681, 19099, 19045, 18559],
+        [59764, 36720, 19008, 18955, 18448],
+        [57758, 34699, 26894, 26810, 25986]],
+}
+PIPE_STEPS = ("input", "background", "cluster", "radius", "statistical")
+MESH_POINTS = 200_000
+# The mesh arm's gates: the JAX package's mesh_cloud of mesh_cloud() on the
+# CPU at depth 10 (tools/torch_pipeline_reference.py --mesh).
+MESH_JAX = {
+    "surf_median_mm": 0.041278764902799026,
+    "surf_p99_mm": 3.0775032337983745,
+    "to_merged_median_mm": 0.3172093226289097,
+    "to_merged_p99_mm": 3.1958672256731617,
+    "from_merged_median_mm": 0.06465328910326502,
+    "from_merged_p99_mm": 0.12543843958863254,
+    "boundary_edges": 8345,
+    "nonmanifold_edges": 2898}
 
 
 def fail(msg: str) -> None:
@@ -434,6 +557,138 @@ def render_merge_views(root: str):
     return data, calib, poses
 
 
+def render_pipeline_views(root: str):
+    """The scan-to-print scene (``synthetic.pipeline_scene``): 24 turntable
+    views at 768x576 stored as .slbp containers under root/scans, with
+    root/calib.npz. Returns (data dir, calib path, scene)."""
+    from structured_light_for_3d_model_replication_tpu_torch.io import images as imio
+    from structured_light_for_3d_model_replication_tpu_torch.io import matfile
+    from structured_light_for_3d_model_replication_tpu_torch.utils import (
+        synthetic as syn,
+    )
+
+    rig, scene, poses = syn.pipeline_scene(cam_size=PIPE_CAM, proj_size=PIPE_PROJ,
+                                           n_views=PIPE_VIEWS)
+    data = os.path.join(root, "scans")
+    for i, (R, t) in enumerate(poses):
+        frames, _ = syn.render_scene(rig, scene.transformed(R, t))
+        imio.save_packed_stack(
+            os.path.join(data, f"view_{round(i * 360 / PIPE_VIEWS):03d}deg"),
+            imio.pack_stack(frames))
+    calib = os.path.join(root, "calib.npz")
+    matfile.save_calibration(calib, rig.calibration())
+    return data, calib, scene
+
+
+def stl_accuracy(stl_path: str, scene, merged: np.ndarray) -> dict:
+    """An STL against the scene and against the cloud it was meshed from:
+    its vertices' distance to the true surfaces (median, 99th percentile,
+    over the file's three corners a face), the vertices' distance to the
+    merged cloud and the merged points' distance to the vertices (how
+    faithfully the mesh follows its input, whatever the registration did),
+    and its edges with vertices welded by exact coordinates:
+    ``boundary_edges`` (used by one face) and ``nonmanifold_edges`` (by more
+    than two). A closed mesh has neither."""
+    from scipy.spatial import cKDTree
+
+    from structured_light_for_3d_model_replication_tpu_torch.io import stl
+    from structured_light_for_3d_model_replication_tpu_torch.utils import (
+        synthetic as syn,
+    )
+
+    verts, _, _ = stl.read_stl(stl_path)
+    surf = syn.surface_distance(verts, scene)
+    to_cloud = cKDTree(merged).query(verts, workers=-1)[0]
+    from_cloud = cKDTree(verts).query(merged, workers=-1)[0]
+    _, inv = np.unique(verts, axis=0, return_inverse=True)
+    f = inv.reshape(-1, 3).astype(np.int64)
+    e = np.sort(np.concatenate([f[:, [0, 1]], f[:, [1, 2]], f[:, [2, 0]]]), axis=1)
+    _, uses = np.unique(e[:, 0] * (int(f.max()) + 1) + e[:, 1], return_counts=True)
+    return {"faces": int(len(f)), "verts": int(inv.max()) + 1 if len(f) else 0,
+            "surf_median_mm": float(np.median(surf)),
+            "surf_p99_mm": float(np.percentile(surf, 99)),
+            "to_merged_median_mm": float(np.median(to_cloud)),
+            "to_merged_p99_mm": float(np.percentile(to_cloud, 99)),
+            "from_merged_median_mm": float(np.median(from_cloud)),
+            "from_merged_p99_mm": float(np.percentile(from_cloud, 99)),
+            "boundary_edges": int((uses == 1).sum()),
+            "nonmanifold_edges": int((uses > 2).sum())}
+
+
+def read_clouds(ply_dir: str) -> list[tuple[np.ndarray, np.ndarray]]:
+    """The (points, colors) of every PLY of a folder, in angle order."""
+    from structured_light_for_3d_model_replication_tpu_torch.io import ply
+    from structured_light_for_3d_model_replication_tpu_torch.pipeline import stages
+
+    paths = stages.sort_ply_paths_by_angle(
+        [os.path.join(ply_dir, f) for f in os.listdir(ply_dir) if f.endswith(".ply")])
+    datas = [ply.read_ply(p) for p in paths]
+    return [(d["points"], d["colors"]) for d in datas]
+
+
+def pair_landing(views, transforms, poses, scene) -> list[list[float]]:
+    """Per chain pair i (view i onto view i - 1): view i's points moved by
+    the estimated pair transform inv(T[i-1]) T[i], then by view i - 1's
+    true pose, and their distance to the true surfaces: [median, p99] mm.
+    A pose that slides a sphere along itself, which one view pair of a
+    sphere cannot pin down, lands it just as well as the true one."""
+    from structured_light_for_3d_model_replication_tpu_torch.utils import (
+        synthetic as syn,
+    )
+
+    truth = syn.turntable_transforms(poses)
+    out = []
+    for i in range(1, len(views)):
+        T = (np.linalg.inv(np.asarray(transforms[i - 1], np.float64))
+             @ np.asarray(transforms[i], np.float64))
+        M = truth[i - 1] @ T
+        d = syn.surface_distance(np.asarray(views[i], np.float64) @ M[:3, :3].T + M[:3, 3],
+                                 scene)
+        out.append([float(np.median(d)), float(np.percentile(d, 99))])
+    return out
+
+
+def true_pair_transforms(poses) -> np.ndarray:
+    """The true chain pair transforms (view i onto view i - 1), f32 [V-1, 4, 4]."""
+    from structured_light_for_3d_model_replication_tpu_torch.utils import (
+        synthetic as syn,
+    )
+
+    truth = syn.turntable_transforms(poses)
+    return np.stack([np.linalg.inv(truth[i - 1]) @ truth[i]
+                     for i in range(1, len(truth))]).astype(np.float32)
+
+
+def cloud_accuracy(points: np.ndarray, stl_path: str, scene) -> dict:
+    """A merged cloud against the true surfaces, and the STL meshed from it
+    (``stl_accuracy``), with the cloud's largest extent: the Poisson grid's
+    cell is that extent over 2^depth, so distances between a mesh and its
+    cloud compare across clouds as shares of it."""
+    from structured_light_for_3d_model_replication_tpu_torch.utils import (
+        synthetic as syn,
+    )
+
+    surf = syn.surface_distance(points, scene)
+    return {"merged_points": int(len(points)),
+            "merged_surf_median_mm": float(np.median(surf)),
+            "merged_surf_p99_mm": float(np.percentile(surf, 99)),
+            "merged_extent_mm": float((points.max(0) - points.min(0)).max()),
+            "stl": stl_accuracy(stl_path, scene, points)}
+
+
+def mesh_cloud():
+    """The meshing arm's input: ~188k points on the outer surface of the
+    three spheres' union (0.05 mm noise, seed 0), a closed surface whose
+    distance is known; at this count the density cap keeps depth 10. Returns
+    (points f32 [N, 3], scene)."""
+    from structured_light_for_3d_model_replication_tpu_torch.utils import (
+        synthetic as syn,
+    )
+
+    scene = syn.three_spheres()
+    return syn.sphere_union_cloud(scene, MESH_POINTS), scene
+
+
 def reconstruct_merge_views(dev, data: str, calib: str, out: str) -> str:
     """The port's reconstruct (manual thresholds, row_mode 1) -> one PLY a view."""
     from structured_light_for_3d_model_replication_tpu_torch.config import Config
@@ -761,6 +1016,253 @@ def merge_phase(dev, ply_dir: str, poses, pose_dir: str, root: str,
     return launches
 
 
+def radius_phase(dev, data: str, calib: str, card: str) -> list[dict]:
+    """Phase 6: radius_count at the clean chain's shape: the scene's largest
+    view, reconstructed, padded to its 2048-multiple bucket with rows parked
+    at knn.FAR (valid = its points), at r = clean.cluster_eps and r =
+    clean.radius. The kernel must equal its plain version exactly."""
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.config import load_config
+    from structured_light_for_3d_model_replication_tpu_torch.io import matfile
+    from structured_light_for_3d_model_replication_tpu_torch.models import (
+        reconstruction as recon,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.ops import kernels
+    from structured_light_for_3d_model_replication_tpu_torch.ops import knn as knnlib
+    from structured_light_for_3d_model_replication_tpu_torch.pipeline import stages
+
+    cfg = load_config(None, PIPE_OVERRIDES)
+    view = sorted(os.listdir(data))[PIPE_RADIUS_VIEW]
+    pts, _ = stages.reconstruct_source(os.path.join(data, view),
+                                       matfile.load_calibration(calib), cfg, device=dev)
+    n = len(pts)
+    bucket = recon._bucket_pad(n)
+    check(bucket <= 65536, f"{view}: {n} points, bucket {bucket} > 65536")
+    padded = np.full((bucket, 3), knnlib.FAR, np.float32)
+    padded[:n] = pts
+    valid = torch.arange(bucket, device=dev) < n
+    parked = knnlib._parked(torch.from_numpy(padded).to(dev), valid).contiguous()
+    out = []
+    for case, r in (("cluster_eps", cfg.clean.cluster_eps), ("radius", cfg.clean.radius)):
+        k_cnt = kernels.radius_count(parked, r)
+        p_cnt, plain_ms = _timed_once(lambda: kernels.radius_count_plain(parked, r))
+        torch.cuda.synchronize()
+        err = int((k_cnt - p_cnt).abs().max())
+        check(err == 0, f"radius_count ({case}): counts off the plain version by {err}")
+        ms = time_ms(lambda: kernels.radius_count(parked, r), reps=20)
+        # the yardstick: one PyTorch expression for the same counts
+        lib_ms = time_ms(lambda: (torch.cdist(parked, parked) <= r).sum(1) - 1, reps=3, warm=1)
+        # 9 operations a (query, base) pair: 3 sub, 3 mul, 2 add, 1 compare
+        b_ms, b_by = bound(bucket * 12 + bucket * 4, bucket * bucket * 9)
+        line = {"name": "radius_count", "route": "cuda", "source": CLOUD_SOURCE,
+                "replaces": f"{PALLAS}:529", "launches": 0, "max_abs_err": err,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": lib_ms}
+        valid_cnt = k_cnt[:n].double()
+        print(json.dumps(dict(line, case=case, r=r, shape=[bucket, 3], points=n, view=view,
+                              mean_count=float(valid_cnt.mean()), card=card,
+                              clocks=clocks())), flush=True)
+        out.append(line)
+    del parked, valid
+    torch.cuda.empty_cache()
+    return out[:1]
+
+
+def pipeline_phase(dev, data: str, calib: str, scene, root: str,
+                   card: str) -> dict[str, tuple[int, str]]:
+    """Phase 7: ``run_pipeline`` over the 24 views at the default Config()
+    (the scene's projector size, manual thresholds, the cleaned views also
+    written out), cold, then again under torch.profiler for the device's
+    busy time. Launch counts are zeroed before each run and read after:
+    radius_count 2 a view (cluster and radius steps), nn1, ransac_score and
+    slab_mean_knn at least once. Gated on the JAX package's run of the same
+    views (``PIPELINE_JAX``), after both runs: per-view counts after each
+    clean step within 2 %; each chain pair's landing error
+    (``pair_landing``: median, p99) within 1.5x the JAX package's wherever
+    that is under LANDED_MM; the merged point count
+    within 10 %; the STL with at least a face a merged point, its open and
+    non-manifold edges within 1.5x, and its distance from the merged points
+    (median, p99, as shares of the cloud's extent) within 1.5x. Then the
+    true-pose arm and the mesh arm. Returns {"radius_count": (launches,
+    run)} of the cold run."""
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.config import load_config
+    from structured_light_for_3d_model_replication_tpu_torch.io import ply
+    from structured_light_for_3d_model_replication_tpu_torch.ops import kernels
+    from structured_light_for_3d_model_replication_tpu_torch.pipeline import stages
+    from structured_light_for_3d_model_replication_tpu_torch.utils import (
+        synthetic as syn,
+    )
+
+    _, _, poses = syn.pipeline_scene(cam_size=PIPE_CAM, proj_size=PIPE_PROJ,
+                                     n_views=PIPE_VIEWS)
+    results = []
+    for arm in ("cold", "profiled"):
+        cfg = load_config(None, PIPE_OVERRIDES)
+        out = os.path.join(root, f"pipeline_{arm}")
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        prof = _device_profile() if arm == "profiled" else None
+        t0 = time.perf_counter()
+        if prof is not None:
+            prof.__enter__()
+        report = stages.run_pipeline(calib, data, out, cfg=cfg, device=dev,
+                                     log=lambda m: None)
+        torch.cuda.synchronize()
+        if prof is not None:
+            prof.__exit__(None, None, None)
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        merged = ply.read_ply(report.merged_ply)["points"]
+        check(merged.ndim == 2 and len(merged) > 0 and bool(np.isfinite(merged).all()),
+              f"pipeline {arm}: bad merged cloud {merged.shape}")
+        views = read_clouds(os.path.join(out, "views"))
+        check(len(views) == PIPE_VIEWS and len(report.transforms) == PIPE_VIEWS,
+              f"pipeline {arm}: {len(views)} cleaned views, {len(report.transforms)} "
+              f"transforms")
+        acc = cloud_accuracy(merged, report.stl_path, scene)
+        land = pair_landing([p for p, _ in views], report.transforms, poses, scene)
+        line = {"pipeline": arm, "wall_s": wall, "walls_s": report.walls_s,
+                "launches": counts, "accuracy": acc, "pair_landing_mm": land,
+                "clean_counts": [[c.get(k, 0) for k in PIPE_STEPS]
+                                 for c in report.clean_counts],
+                "card": card, "clocks": clocks()}
+        if prof is not None:
+            line["device"] = _device_busy(prof)
+        print(json.dumps(line), flush=True)
+        results.append((arm, counts, acc, line["clean_counts"], land))
+    ref = PIPELINE_JAX
+    for arm, counts, acc, clean, land in results:
+        check(counts["radius_count"] == 2 * PIPE_VIEWS,
+              f"pipeline {arm}: radius_count launched {counts['radius_count']} times, "
+              f"not 2 a view")
+        for k in ("nn1", "ransac_score", "slab_mean_knn"):
+            check(counts[k] > 0, f"pipeline {arm} never launched {k}: {counts}")
+        check(len(clean) == len(ref["clean_counts"]), f"pipeline {arm}: {len(clean)} views")
+        for i, (mine, theirs) in enumerate(zip(clean, ref["clean_counts"])):
+            for step, a, b in zip(PIPE_STEPS, mine, theirs):
+                check(abs(a - b) <= 0.02 * b, f"pipeline {arm}: view {i} {step} count {a} "
+                                              f"vs the JAX package's {b}")
+        # Registration, pair by pair. A cleaned view holds one sphere (the
+        # cluster step keeps the largest cluster), so a pair is determined
+        # up to a turn of that sphere about its centre, and a pair whose
+        # views hold different spheres has no right transform: there the
+        # choice follows the preps' last bits, and the merged cloud's and
+        # the STL's distances to the truth follow it (PERF.md section 5).
+        # They are printed; the true-pose arm gates them on the same views.
+        for i, (mine, theirs) in enumerate(zip(land, ref["pair_landing_mm"]), 1):
+            for what, a, b in zip(("median", "p99"), mine, theirs):
+                check(b >= LANDED_MM or a <= GATE * b,
+                      f"pipeline {arm}: pair {i} lands view {i} {a} mm off the truth "
+                      f"({what}), > {GATE} x the JAX package's {b}")
+        check(abs(acc["merged_points"] - ref["merged_points"]) <= 0.1 * ref["merged_points"],
+              f"pipeline {arm}: {acc['merged_points']} merged points vs the JAX "
+              f"package's {ref['merged_points']}")
+        stl = acc["stl"]
+        check(stl["faces"] >= acc["merged_points"],
+              f"pipeline {arm}: STL of {stl['faces']} faces for {acc['merged_points']} "
+              f"merged points")
+        for key in ("boundary_edges", "nonmanifold_edges"):
+            check(stl[key] <= GATE * ref["stl"][key],
+                  f"pipeline {arm}: STL {key} {stl[key]} > {GATE} x the JAX "
+                  f"package's {ref['stl'][key]}")
+        for key in ("from_merged_median_mm", "from_merged_p99_mm"):
+            mine = stl[key] / acc["merged_extent_mm"]
+            theirs = ref["stl"][key] / ref["merged_extent_mm"]
+            check(mine <= GATE * theirs,
+                  f"pipeline {arm}: merged points {stl[key]} mm from the STL ({key}), "
+                  f"{mine} of the cloud's extent > {GATE} x the JAX package's {theirs}")
+    true_pose_arm(dev, os.path.join(root, "pipeline_cold", "views"), poses, scene, root,
+                  card)
+    mesh_arm(dev, root, card)
+    return {"radius_count": (results[0][1]["radius_count"], "pipeline (cold)")}
+
+
+def true_pose_arm(dev, view_dir: str, poses, scene, root: str, card: str) -> None:
+    """The pipeline's merge postprocess and meshing on its own cleaned views
+    placed by the true poses (``finalize_chain`` with the true pair
+    transforms: final voxel and outlier pass, then ``mesh_cloud``), gated at
+    1.5x the JAX package's errors on its cleaned views placed the same way
+    (``PIPELINE_JAX["true_pose"]``): the merged cloud's and the STL's
+    distance to the true surfaces, the STL's distance to its cloud both
+    ways, its edges; the merged point count within 10 % and the faces at
+    least 1/1.5 of the JAX package's."""
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.config import load_config
+    from structured_light_for_3d_model_replication_tpu_torch.io import ply
+    from structured_light_for_3d_model_replication_tpu_torch.models import (
+        reconstruction as recon,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.pipeline import stages
+
+    cfg = load_config(None, PIPE_OVERRIDES)
+    clouds = read_clouds(view_dir)
+    ones = np.ones(len(clouds) - 1, np.float32)
+    src, out = os.path.join(root, "true_pose.ply"), os.path.join(root, "true_pose.stl")
+    tm: dict = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    points, colors, _ = recon.finalize_chain(clouds, true_pair_transforms(poses), ones,
+                                             ones, 0 * ones, cfg.merge, log=lambda m: None,
+                                             timings=tm, device=dev)
+    ply.write_ply(src, points, colors)
+    stages.mesh_cloud(src, out, cfg=cfg, device=dev, log=lambda m: None, timings=tm)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    acc = cloud_accuracy(points, out, scene)
+    print(json.dumps({"pipeline": "true poses", "wall_s": wall, "walls_s": tm,
+                      "accuracy": acc, "card": card}), flush=True)
+    ref = PIPELINE_JAX["true_pose"]
+    check(abs(acc["merged_points"] - ref["merged_points"]) <= 0.1 * ref["merged_points"],
+          f"true-pose arm: {acc['merged_points']} merged points vs the JAX package's "
+          f"{ref['merged_points']}")
+    check(acc["stl"]["faces"] >= ref["stl"]["faces"] / GATE,
+          f"true-pose arm: STL of {acc['stl']['faces']} faces vs the JAX package's "
+          f"{ref['stl']['faces']}")
+    for key in ("merged_surf_median_mm", "merged_surf_p99_mm"):
+        check(acc[key] <= GATE * ref[key],
+              f"true-pose arm: {key} {acc[key]} > {GATE} x the JAX package's {ref[key]}")
+    for key in ("surf_median_mm", "surf_p99_mm", "to_merged_median_mm", "to_merged_p99_mm",
+                "from_merged_median_mm", "from_merged_p99_mm", "boundary_edges",
+                "nonmanifold_edges"):
+        check(acc["stl"][key] <= GATE * ref["stl"][key],
+              f"true-pose arm: STL {key} {acc['stl'][key]} > {GATE} x the JAX "
+              f"package's {ref['stl'][key]}")
+
+
+def mesh_arm(dev, root: str, card: str) -> None:
+    """The meshing stage against a known surface: ``mesh_cloud`` (the
+    ``mesh`` entry point: normals, depth-10 brick Poisson, extraction, trim)
+    on ``mesh_cloud()``'s points at the default Config(), gated at 1.5x the
+    JAX package's errors on the same cloud (``MESH_JAX``): the STL's
+    distance to the true spheres, to the input cloud both ways, and its
+    open and non-manifold edges."""
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.config import Config
+    from structured_light_for_3d_model_replication_tpu_torch.io import ply
+    from structured_light_for_3d_model_replication_tpu_torch.pipeline import stages
+
+    cloud, scene = mesh_cloud()
+    src, out = os.path.join(root, "mesh_cloud.ply"), os.path.join(root, "mesh_arm.stl")
+    ply.write_ply(src, cloud)
+    tm: dict = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stages.mesh_cloud(src, out, cfg=Config(), device=dev, log=lambda m: None, timings=tm)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    acc = stl_accuracy(out, scene, cloud)
+    print(json.dumps({"mesh": "sphere union", "points": int(len(cloud)), "wall_s": wall,
+                      "walls_s": tm, "stl": acc, "card": card}), flush=True)
+    for key, ref in MESH_JAX.items():
+        check(acc[key] <= GATE * ref,
+              f"mesh arm: STL {key} {acc[key]} > {GATE} x the JAX package's {ref}")
+
+
 def main() -> int:
     import torch
 
@@ -793,6 +1295,13 @@ def main() -> int:
         pose_dir, _ = write_pose_views(root)
         lines += merge_kernel_phase(dev, ply_dir, poses, card)
         launches.update(merge_phase(dev, ply_dir, poses, pose_dir, root, card))
+    with tempfile.TemporaryDirectory(prefix="slscan_pipeline_") as root:
+        t0 = time.perf_counter()
+        data, calib, scene = render_pipeline_views(root)
+        print(f"pipeline views: {PIPE_VIEWS} rendered in {time.perf_counter() - t0:.1f}s",
+              flush=True)
+        lines += radius_phase(dev, data, calib, card)
+        launches.update(pipeline_phase(dev, data, calib, scene, root, card))
     for line in lines:
         line["launches"], line["launches_run"] = launches[line["name"]]
     print(json.dumps({"kernels": lines}), flush=True)

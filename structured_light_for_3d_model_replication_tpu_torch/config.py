@@ -1,16 +1,18 @@
-"""Typed configuration for the scan and merge paths.
+"""Typed configuration for the scan-to-print path.
 
 The port's own copy of the JAX package's config dataclasses, cut to what
-``reconstruct`` and ``merge-360`` read. Field names and defaults are the
-same, so one JSON config file loads in both packages:
+``reconstruct``, ``clean``, ``merge-360``, ``mesh`` and ``pipeline`` read.
+Field names and defaults are the same, so one JSON config file loads in
+both packages:
 
-  - ``projector``, ``decode``, ``triangulate`` and ``merge`` are whole
-    copies; an unknown key there is an error, as in the JAX package;
+  - ``projector``, ``decode``, ``triangulate``, ``clean``, ``merge`` and
+    ``mesh`` are whole copies; an unknown key there is an error, as in the
+    JAX package;
   - ``parallel`` carries ``compute_batch`` and ``io_workers``, ``pipeline``
-    carries ``packed_ingest`` and ``min_views``. Other keys of these two
-    sections, and whole sections the port does not model (``clean``,
-    ``mesh``, ``serving``, …), configure stages the port does not run yet:
-    they load without effect.
+    carries ``packed_ingest``, ``min_views`` and ``cache``. Other keys of
+    these two sections, and whole sections the port does not model
+    (``serving``, ``deadlines``, …), configure features the port does not
+    have yet: they load without effect.
 """
 from __future__ import annotations
 
@@ -21,8 +23,8 @@ from dataclasses import dataclass, field
 from typing import Any
 
 __all__ = ["ProjectorConfig", "DecodeConfig", "TriangulateConfig",
-           "MergeConfig", "ParallelConfig", "PipelineConfig", "Config",
-           "load_config"]
+           "CleanConfig", "MergeConfig", "MeshConfig", "ParallelConfig",
+           "PipelineConfig", "Config", "load_config"]
 
 
 @dataclass
@@ -64,6 +66,22 @@ class TriangulateConfig:
 
 
 @dataclass
+class CleanConfig:
+    """Per-view cleaning: background plane -> largest cluster -> radius
+    outlier -> statistical outlier."""
+
+    remove_background_plane: bool = True
+    plane_ransac_dist: float = 2.0
+    plane_ransac_trials: int = 512
+    outlier_nb_neighbors: int = 20
+    outlier_std_ratio: float = 2.0
+    cluster_eps: float = 5.0
+    cluster_min_points: int = 200
+    radius_nb_points: int = 100
+    radius: float = 5.0
+
+
+@dataclass
 class MergeConfig:
     """360-degree merge. ``method='posegraph'`` loads but is not ported: the
     merge raises NotImplementedError for it. ``stream``, ``pair_batch`` and
@@ -85,6 +103,33 @@ class MergeConfig:
 
 
 @dataclass
+class MeshConfig:
+    """Meshing. ``mode='surface'`` (ball pivoting) loads but is not ported:
+    meshing raises NotImplementedError for it."""
+
+    mode: str = "watertight"     # 'watertight' (Poisson) | 'surface' (ball-pivot analog)
+    # Poisson grid = 2^depth cells an axis: <= 9 solves dense; 10 and above
+    # run the brick-refined solver on the card, and depth 10 steps down to
+    # 9 on the CPU unless density_cap=false
+    depth: int = 10
+    # clamp depth to ~log2(sqrt(N)) + 1 (a grid finer than the sampling is
+    # pure cost); false honours the requested depth
+    density_cap: bool = True
+    density_trim_quantile: float = 0.02
+    # hybrid normal search radius in world units; 0 = pure k-NN
+    normal_radius: float = 0.0
+    normal_max_nn: int = 30
+    orientation: str = "radial"  # 'radial' | 'tangent' | 'centroid'
+    smooth_iters: int = 0
+    smooth_method: str = "taubin"  # 'taubin' | 'laplacian'
+    simplify_target_faces: int = 0  # 0 = no decimation
+    simplify_method: str = "quadric"  # 'quadric' (QEM) | 'cluster' (vertex grid)
+    close_holes_max_edges: int = 0  # fill boundary loops up to this size (0=off)
+    surface_alpha_factor: float = 2.5  # mode='surface': ball radius / avg NN dist
+    surface_k: int = 12               # mode='surface': neighbor fan size
+
+
+@dataclass
 class ParallelConfig:
     """Host-side execution knobs of the reconstruct lanes."""
 
@@ -99,7 +144,8 @@ class ParallelConfig:
 
 @dataclass
 class PipelineConfig:
-    """Ingest format of the batched reconstruct lane, the merge's view floor."""
+    """Ingest format of the batched reconstruct lane, the merge's view
+    floor, the stage cache (not ported yet) and the per-view side output."""
 
     # load each view as a packed bit-plane stack (frames.slbp where present,
     # packed at load otherwise) and decode from the bits on the device;
@@ -107,16 +153,23 @@ class PipelineConfig:
     packed_ingest: bool = False
     # merge proceeds when at least max(2, min_views) views are readable
     min_views: int = 2
+    # the JAX package's content-addressed stage cache; the port has none
+    # yet and recomputes every stage (run_pipeline says so once)
+    cache: bool = True
+    # also write each cleaned per-view cloud as <out>/views/<name>.ply
+    write_view_plys: bool = False
 
 
 @dataclass
 class Config:
-    """Root configuration of the scan and merge paths."""
+    """Root configuration of the scan-to-print path."""
 
     projector: ProjectorConfig = field(default_factory=ProjectorConfig)
     decode: DecodeConfig = field(default_factory=DecodeConfig)
     triangulate: TriangulateConfig = field(default_factory=TriangulateConfig)
+    clean: CleanConfig = field(default_factory=CleanConfig)
     merge: MergeConfig = field(default_factory=MergeConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
     parallel: ParallelConfig = field(default_factory=ParallelConfig)
     pipeline: PipelineConfig = field(default_factory=PipelineConfig)
 

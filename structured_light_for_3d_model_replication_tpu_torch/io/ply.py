@@ -1,8 +1,9 @@
-"""PLY point-cloud IO, vectorized.
+"""PLY point-cloud and mesh IO, vectorized.
 
-The writer emits the binary little-endian layout the JAX package writes:
-``x y z`` float, optional ``nx ny nz`` float and ``red green blue`` uchar.
-The reader also takes ASCII files (the reference's artifacts). Colors are RGB.
+The writers emit the binary little-endian layout the JAX package writes:
+``x y z`` float, optional ``nx ny nz`` float and ``red green blue`` uchar,
+and for meshes a ``vertex_indices`` list of three ints a face. The reader
+takes vertex PLYs, also ASCII (the reference's artifacts). Colors are RGB.
 """
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ from structured_light_for_3d_model_replication_tpu_torch.io.atomic import (
     atomic_write,
 )
 
-__all__ = ["write_ply", "read_ply"]
+__all__ = ["write_ply", "read_ply", "write_mesh_ply"]
 
 _PLY_DTYPES = {
     "float": "<f4", "float32": "<f4", "double": "<f8", "float64": "<f8",
@@ -58,6 +59,27 @@ def write_ply(path: str, points: np.ndarray, colors: np.ndarray | None = None,
     with atomic_write(path) as tmp, open(tmp, "wb") as f:
         f.write(("\n".join(header) + "\n").encode("ascii"))
         rec.tofile(f)
+
+
+def write_mesh_ply(path: str, vertices: np.ndarray, faces: np.ndarray) -> None:
+    """Write a binary triangle mesh: vertices [N, 3] float, faces [M, 3]
+    int. Crash-safe (tmp + fsync + rename)."""
+    vertices = np.asarray(vertices, np.float32)
+    faces = np.asarray(faces, np.int32)
+    n, m = vertices.shape[0], faces.shape[0]
+    header = ["ply", "format binary_little_endian 1.0", f"element vertex {n}",
+              "property float x", "property float y", "property float z",
+              f"element face {m}", "property list uchar int vertex_indices",
+              "end_header"]
+    rec = np.empty(n, _vertex_dtype(False, False))
+    rec["x"], rec["y"], rec["z"] = vertices[:, 0], vertices[:, 1], vertices[:, 2]
+    frec = np.empty(m, np.dtype([("k", "u1"), ("a", "<i4"), ("b", "<i4"), ("c", "<i4")]))
+    frec["k"] = 3
+    frec["a"], frec["b"], frec["c"] = faces[:, 0], faces[:, 1], faces[:, 2]
+    with atomic_write(path) as tmp, open(tmp, "wb") as f:
+        f.write(("\n".join(header) + "\n").encode("ascii"))
+        rec.tofile(f)
+        frec.tofile(f)
 
 
 def read_ply(path: str) -> dict[str, np.ndarray]:

@@ -1,9 +1,10 @@
 """Build the CUDA kernels at first use and load them with ctypes.
 
-``nvcc`` compiles ``ops/csrc/*.cu`` into one shared library with a plain C
-interface (no PyTorch headers, so the build takes seconds). The library
-lands in ``ops/_kernel_build/<hash>/`` — the hash covers the sources and
-the flags, so an edited source builds anew — and is published with an
+``nvcc`` compiles each of ``ops/csrc/*.cu`` to an object, all sources at
+once in parallel processes, and links them into one shared library with a
+plain C interface (no PyTorch headers, so the build takes seconds). The
+library lands in ``ops/_kernel_build/<hash>/`` — the hash covers the sources
+and the flags, so an edited source builds anew — and is published with an
 atomic rename, so concurrent first users never load a torn file. A missing
 ``nvcc`` or a failed build raises; nothing here falls back.
 """
@@ -20,7 +21,7 @@ import threading
 __all__ = ["NVCC_FLAGS", "sources", "library_path", "build", "load_library"]
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _LIB_NAME = "libslscan_kernels.so"
@@ -58,16 +59,32 @@ def build() -> str:
     path = library_path()
     if os.path.isfile(path):
         return path
-    cmd = [_nvcc(), *NVCC_FLAGS]
+    nvcc = _nvcc()
     os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    proc = subprocess.run(cmd + ["-o", tmp, *sources()], capture_output=True,
-                          text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n"
-            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, path)
+    jobs = []
+    for src in sources():
+        obj = f"{tmp}.{os.path.basename(src)}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", src, "-o", obj]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.PIPE, text=True)))
+    link = [nvcc, "-shared", "-o", tmp] + [obj for _, obj, _ in jobs]
+    try:
+        for cmd, _, proc in jobs:
+            out, err = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
+                                   f"{' '.join(cmd)}\n{out}{err}")
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
+                               f"{' '.join(link)}\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, path)
+    finally:
+        for _, obj, proc in jobs:
+            proc.wait()
+            if os.path.exists(obj):
+                os.remove(obj)
     return path
 
 

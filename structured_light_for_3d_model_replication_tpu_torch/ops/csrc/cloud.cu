@@ -1,8 +1,20 @@
-// Point-cloud kernels of the merge path, for Hopper (sm_90a).
+// Point-cloud kernels of the merge path and the clean chain, for Hopper
+// (sm_90a).
 //
-// Four kernels (Pallas originals in structured_light_for_3d_model_replication_
+// Five kernels (Pallas originals in structured_light_for_3d_model_replication_
 // tpu/ops/pallas_kernels.py):
 //
+//   radius_count_kernel   replaces _radius_kernel (call _radius_call, entry
+//                         radius_count_pallas): per point, the number of other
+//                         points with d2 <= r^2, self excluded by index. One
+//                         thread per query, the cloud streamed through shared
+//                         memory in tiles, an int count in a register. d2 is
+//                         taken by coordinate differences, not by the TPU's
+//                         |q|^2+|b|^2-2q.b expansion, so a pair's verdict
+//                         depends on its two points alone (the function the
+//                         JAX package's exact twin radius_count_np computes).
+//                         Invalid rows are the caller's to park far away; the
+//                         kernel masks its own ragged edge, so no padding.
 //   nn1_kernel            replaces _nn1_kernel (call _nn1_call): brute 1-NN.
 //                         One thread per query, the base staged through shared
 //                         memory in tiles, running min/argmin in registers. The
@@ -37,8 +49,8 @@
 // correction (k - #less) * sqrt(t). Self-exclusion is by global index: the
 // query's own slot gets bits 2^31 - 2, above every cutoff.
 //
-// What bounds them: operations. nn1 does ~9 float operations per (query,
-// base) pair and reads 12 bytes a query; the k-NN means repeat ~12 per
+// What bounds them: operations. nn1 and radius_count do ~9 float operations
+// per (query, base) pair and read 12 bytes a query; the k-NN means repeat ~12 per
 // (query, candidate) pair in each of 33 passes; RANSAC scoring does 34 per
 // (hypothesis, correspondence). All are far above the card's bytes-per-
 // operation balance, so the design keeps every operand on chip: the base
@@ -62,6 +74,7 @@
 namespace {
 
 constexpr int kNnThreads = 128;     // queries per nn1 block = base tile
+constexpr int kRcThreads = 256;     // queries per radius_count block = base tile
 constexpr int kRsThreads = 128;     // hypotheses per ransac block
 constexpr int kRsChunk = 512;       // correspondences per ransac block
 constexpr int kRsTile = 128;        // correspondences staged per sync
@@ -121,6 +134,37 @@ nn1_kernel(const float* __restrict__ q, const float* __restrict__ base, int32_t*
     idx_out[p * nq + i] = best_j;
     d2_out[p * nq + i] = best;
   }
+}
+
+// ---------------------------------------------------------------------------
+// radius_count
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(kRcThreads)
+radius_count_kernel(const float* __restrict__ pts, int n, float r2, int32_t* __restrict__ counts) {
+  __shared__ float4 tile[kRcThreads];
+  const int i = blockIdx.x * kRcThreads + threadIdx.x;
+  float qx = 0.f, qy = 0.f, qz = 0.f;
+  if (i < n) {
+    qx = pts[3LL * i];
+    qy = pts[3LL * i + 1];
+    qz = pts[3LL * i + 2];
+  }
+  int cnt = 0;
+  for (int t0 = 0; t0 < n; t0 += kRcThreads) {
+    const int j = t0 + threadIdx.x;
+    if (j < n) tile[threadIdx.x] = make_float4(pts[3LL * j], pts[3LL * j + 1], pts[3LL * j + 2], 0.f);
+    __syncthreads();
+    const int m = min(kRcThreads, n - t0);
+#pragma unroll 8
+    for (int c = 0; c < m; ++c) {
+      const float4 b = tile[c];
+      const float d = d2_diff(qx, qy, qz, b.x, b.y, b.z);
+      cnt += (d <= r2 && t0 + c != i) ? 1 : 0;
+    }
+    __syncthreads();
+  }
+  if (i < n) counts[i] = cnt;
 }
 
 // ---------------------------------------------------------------------------
@@ -305,6 +349,11 @@ int slscan_nn1(const float* q, const float* base, int32_t* idx, float* d2, int p
                cudaStream_t stream) {
   const dim3 grid((nq + kNnThreads - 1) / kNnThreads, pairs);
   nn1_kernel<<<grid, kNnThreads, 0, stream>>>(q, base, idx, d2, nq, nb);
+  return (int)cudaGetLastError();
+}
+
+int slscan_radius_count(const float* pts, int n, float r2, int32_t* counts, cudaStream_t stream) {
+  radius_count_kernel<<<(n + kRcThreads - 1) / kRcThreads, kRcThreads, 0, stream>>>(pts, n, r2, counts);
   return (int)cudaGetLastError();
 }
 

@@ -2,7 +2,7 @@
 
 The counterpart of the JAX package's ``ops/pallas_kernels.py``. Each kernel
 family is a CUDA C++ kernel, the scan path's in ``csrc/decode.cu``, the
-merge path's in ``csrc/cloud.cu``:
+merge path's and the clean chain's in ``csrc/cloud.cu``:
 
   decode_maps         Gray decode of raw frames      (_decode_kernel[_views])
   decode_packed_maps  Gray decode of packed bits     (_decode_packed_kernel[_views])
@@ -11,6 +11,7 @@ merge path's in ``csrc/cloud.cu``:
   ransac_score        RANSAC hypothesis inlier counts (_ransac_score_kernel)
   knn_mean            exact k-NN mean over a cloud   (_knn_mean_kernel)
   slab_mean_knn       the same over x-sorted windows (_slab_bisect_kernel)
+  radius_count        neighbours within r, self excluded (_radius_kernel)
 
 For tensors on the CPU a wrapper runs its plain PyTorch version
 (``*_plain``, the same function written with tensor ops, in the kernel's
@@ -35,7 +36,8 @@ __all__ = ["decode_maps", "decode_maps_plain", "decode_packed_maps",
            "decode_packed_maps_plain", "scan_fused", "scan_fused_plain",
            "scan_scalars", "sqrt_f32", "nn1", "nn1_plain", "ransac_score",
            "ransac_score_plain", "knn_mean", "knn_mean_plain", "slab_mean_knn",
-           "slab_mean_knn_plain", "KERNELS", "launch_counts",
+           "slab_mean_knn_plain", "radius_count", "radius_count_plain",
+           "KERNELS", "launch_counts",
            "reset_launch_counts"]
 
 # ---------------------------------------------------------------------------
@@ -51,6 +53,7 @@ _SIGNATURES = {
     "slscan_ransac_score": [_P] * 3 + [_F, _P, _I, _I, _P],
     "slscan_knn_mean": [_P, _I, _I, _I, _P, _P, _P],
     "slscan_slab_mean_knn": [_P] + [_I] * 5 + [_F] + [_P] * 4,
+    "slscan_radius_count": [_P, _I, _F, _P, _P],
 }
 _declared: set[int] = set()
 
@@ -351,10 +354,15 @@ _ROWS = 1 << 24          # elements per chunk of a plain version's [rows, cols] 
 _SELF_BITS = 0x7FFFFFFE  # a query's own slot: above every cutoff
 
 
+def _sq_f32(r: float) -> torch.Tensor:
+    """f32(r) * f32(r), rounded to f32 (the JAX package's float32(r) ** 2)."""
+    r32 = torch.tensor(r, dtype=torch.float32)
+    return r32 * r32
+
+
 def _sq_bits(r: float) -> int:
     """Bit pattern of the f32 square of f32(r)."""
-    r32 = torch.tensor(r, dtype=torch.float32)
-    return int((r32 * r32).view(torch.int32))
+    return int(_sq_f32(r).view(torch.int32))
 
 
 # knn_mean's cutoff: candidates within 1e17 mm^2 are real (invalid rows park at 1e9)
@@ -562,8 +570,47 @@ def slab_mean_knn(pts_sorted: torch.Tensor, r: float, k: int, tile: int = 64,
     return mean, cnt, win_end
 
 
+# K8: radius_count --------------------------------------------------------------
+
+def radius_count_plain(pts: torch.Tensor, r: float) -> torch.Tensor:
+    """pts f32 [N, 3] -> i32 [N]: per row, the rows j != i with
+    ((dx*dx + dy*dy) + dz*dz) <= f32(r)^2, the kernel's float order."""
+    n = pts.shape[0]
+    r2 = _sq_f32(r).to(pts.device)
+    step = max(1, _ROWS // max(1, n))
+    cols = torch.arange(n, device=pts.device)
+    out = []
+    for s in range(0, n, step):
+        q = pts[s:s + step]
+        rows = torch.arange(s, s + q.shape[0], device=pts.device)
+        within = (sq_dist(q[:, None, :], pts[None, :, :]) <= r2) & (rows[:, None] != cols[None, :])
+        out.append(within.sum(1).to(torch.int32))
+    return torch.cat(out) if out else torch.zeros(0, dtype=torch.int32, device=pts.device)
+
+
+def radius_count(pts: torch.Tensor, r: float) -> torch.Tensor:
+    """Neighbours within ``r`` of every row of pts f32 [N, 3], self excluded
+    by index (see radius_count_plain). Invalid rows are the caller's to park
+    far away (``knn.FAR``): a parked row is no valid row's neighbour.
+
+    Replaces ``_radius_kernel`` (pallas_kernels.py, ``_radius_call``):
+    bound by operations, 9 a (query, base) pair (3 sub, 3 mul, 2 add, 1
+    compare), N^2 pairs; the kernel reads the cloud once a block through
+    shared memory, so its bytes (12 a row in, 4 out) never bind."""
+    if _on_cpu(pts):
+        return radius_count_plain(pts, r)
+    n = pts.shape[0]
+    _check(pts, "pts", torch.float32, (n, 3))
+    counts = torch.empty(n, dtype=torch.int32, device=pts.device)
+    if n:
+        _launch("slscan_radius_count", pts.device, pts.data_ptr(), n,
+                float(_sq_f32(r)), counts.data_ptr())
+        radius_count.launches += 1
+    return counts
+
+
 KERNELS = (decode_maps, decode_packed_maps, scan_fused, nn1, ransac_score,
-           knn_mean, slab_mean_knn)
+           knn_mean, slab_mean_knn, radius_count)
 
 
 def reset_launch_counts() -> None:

@@ -5,7 +5,11 @@ merge reads:
 
   sq_dist           squared distances by coordinate differences
   knn               exact k nearest valid neighbours, blocked ``torch.topk``
-                    over difference distances, at any N (feature prep)
+                    over difference distances, at any N (feature prep,
+                    normals, the cluster step's k-NN graph)
+  radius_count      valid neighbours within a radius, the ``radius_count``
+                    kernel at any N (the clean chain's cluster and radius
+                    steps)
   kdtree_build,     scipy ``cKDTree`` on the host: the exact complement of
   kdtree_distances_rows  the outlier pass's uncertified rows
 
@@ -19,10 +23,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["FAR", "sq_dist", "knn", "kdtree_build", "kdtree_distances_rows"]
+__all__ = ["FAR", "sq_dist", "knn", "radius_count", "kdtree_build",
+           "kdtree_distances_rows"]
 
 FAR = 1e9  # coordinate of invalid/padded points: far from everything
 _BLOCK = 1 << 22  # elements of one [queries, base] distance block
+_BLOCK_CUDA = 1 << 26  # on the card: fewer, larger launches, the same result
+
+
+def _parked(points: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    return torch.where(valid[:, None], points.to(torch.float32),
+                       torch.tensor(FAR, dtype=torch.float32, device=points.device))
 
 
 def sq_dist(q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -41,10 +52,9 @@ def knn(points: torch.Tensor, valid: torch.Tensor, k: int,
     points hold arbitrary (masked) results; fewer than k other rows leave
     +inf slots."""
     n = points.shape[0]
-    pts = torch.where(valid[:, None], points.to(torch.float32),
-                      torch.tensor(FAR, dtype=torch.float32, device=points.device))
+    pts = _parked(points, valid)
     kk = min(k, n)
-    block = max(1, _BLOCK // max(n, 1))
+    block = max(1, (_BLOCK_CUDA if pts.is_cuda else _BLOCK) // max(n, 1))
     cols = torch.arange(n, device=points.device)
     idx_out, d2_out = [], []
     for s in range(0, n, block):
@@ -61,6 +71,20 @@ def knn(points: torch.Tensor, valid: torch.Tensor, k: int,
         idx = torch.cat([idx, idx.new_zeros((n, k - kk))], 1)
         d2 = torch.cat([d2, d2.new_full((n, k - kk), float("inf"))], 1)
     return idx, d2
+
+
+def radius_count(points: torch.Tensor, valid: torch.Tensor, radius: float,
+                 exclude_self: bool = True) -> torch.Tensor:
+    """Number of valid points within ``radius`` of each point, i32 [N]
+    (the JAX package's ``knn.radius_count``): d2 <= float32(radius)^2 by
+    coordinate differences. Invalid rows are parked at ``FAR``, so they are
+    nobody's neighbour; their own counts are meaningless. One
+    ``kernels.radius_count`` launch on the card at every N, its plain
+    version on the CPU. ``exclude_self=False`` counts the point itself."""
+    from structured_light_for_3d_model_replication_tpu_torch.ops import kernels
+
+    counts = kernels.radius_count(_parked(points, valid).contiguous(), float(radius))
+    return counts if exclude_self else counts + 1
 
 
 # ---------------------------------------------------------------------------

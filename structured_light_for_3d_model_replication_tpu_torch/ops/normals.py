@@ -1,5 +1,6 @@
 """Normal estimation: PCA over k-neighbourhoods with a closed-form 3x3
-eigensolver (the JAX package's ``ops/normals.py``, merge part)."""
+eigensolver, and orientation away from the cloud's centre (the JAX
+package's ``ops/normals.py``)."""
 from __future__ import annotations
 
 import math
@@ -8,7 +9,7 @@ import torch
 
 from structured_light_for_3d_model_replication_tpu_torch.ops import knn as knnlib
 
-__all__ = ["smallest_eigvec_sym3", "estimate_normals"]
+__all__ = ["smallest_eigvec_sym3", "estimate_normals", "orient_normals"]
 
 
 def smallest_eigvec_sym3(cov: torch.Tensor) -> torch.Tensor:
@@ -59,3 +60,21 @@ def estimate_normals(points: torch.Tensor, valid: torch.Tensor, k: int = 30,
     d = (neigh - mean[:, None, :]) * w
     cov = torch.einsum("nki,nkj->nij", d, d) / cnt[..., None]
     return smallest_eigvec_sym3(cov)
+
+
+def orient_normals(points: torch.Tensor, normals: torch.Tensor,
+                   valid: torch.Tensor, mode: str = "radial",
+                   center: torch.Tensor | None = None,
+                   flip: bool = False) -> torch.Tensor:
+    """Orient normals away from ``center`` (default: the valid rows'
+    centroid): modes 'radial' and 'centroid' are that one rule; ``flip``
+    turns them all inward. A normal perpendicular to its radius keeps its
+    sign."""
+    if mode not in ("radial", "centroid"):
+        raise ValueError(f"unknown orientation mode: {mode}")
+    if center is None:
+        w = valid.to(points.dtype)[:, None]
+        center = (points * w).sum(0) / torch.clamp_min(w.sum(), 1.0)
+    sign = torch.sign(((points - center[None, :]) * normals).sum(-1, keepdim=True))
+    oriented = normals * torch.where(sign == 0, torch.ones_like(sign), sign)
+    return -oriented if flip else oriented

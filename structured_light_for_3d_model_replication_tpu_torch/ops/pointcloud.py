@@ -1,5 +1,13 @@
-"""Point-cloud ops of the merge path: voxel downsample and the statistical
-outlier mask (the JAX package's ``ops/pointcloud.py``, merge part).
+"""Point-cloud ops of the merge path and the clean chain: voxel downsample,
+the statistical and radius outlier masks, background plane removal, density
+clustering, and the masked clean chain (the JAX package's
+``ops/pointcloud.py``).
+
+``clean_chain`` runs the tab-3 chain (background plane -> largest cluster ->
+radius outlier -> statistical outlier) as masked steps over one padded
+cloud: each step narrows a validity mask, nothing is compacted until the
+caller takes the survivors. ``radius_count`` (the cluster step's core test
+and the radius step) is a CUDA kernel on the card at every size.
 
 ``statistical_outlier_mask`` follows Open3D's statistics exactly: mean
 distance to the k nearest neighbours, keep rows within mu + std_ratio *
@@ -21,13 +29,17 @@ accelerator arm does, on either device. The JAX package's other selectors
 """
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
 from structured_light_for_3d_model_replication_tpu_torch.ops import kernels
 from structured_light_for_3d_model_replication_tpu_torch.ops import knn as knnlib
 
-__all__ = ["voxel_downsample", "statistical_outlier_mask", "DENSE_MAX"]
+__all__ = ["voxel_downsample", "statistical_outlier_mask", "DENSE_MAX",
+           "radius_outlier_mask", "segment_plane", "cluster_labels",
+           "largest_cluster_mask", "CLEAN_STEPS", "chain_params", "clean_chain"]
 
 DENSE_MAX = 32768     # the dense engine's largest cloud
 _SLAB_FAR = 3e9
@@ -243,3 +255,195 @@ def voxel_downsample(points: torch.Tensor, colors: torch.Tensor,
     out_c[:m] = (tot[4:7].to(torch.float32) / torch.clamp_min(cnt, 1.0)).T.to(torch.uint8)
     out_v[:m] = cnt > 0
     return out_p, out_c, out_v
+
+
+# ---------------------------------------------------------------------------
+# Radius outlier removal
+# ---------------------------------------------------------------------------
+
+def radius_outlier_mask(points: torch.Tensor, valid: torch.Tensor,
+                        radius: float = 5.0, nb_points: int = 100) -> torch.Tensor:
+    """Keep points with >= nb_points valid neighbours within radius."""
+    return valid & (knnlib.radius_count(points, valid, radius) >= nb_points)
+
+
+# ---------------------------------------------------------------------------
+# Plane segmentation / background removal
+# ---------------------------------------------------------------------------
+
+def _plane_samples(valid: torch.Tensor, trials: int) -> torch.Tensor:
+    """[trials, 3] row indices drawn with replacement, weighted by
+    ``valid`` (padded and invalid rows never drawn), from a CPU generator
+    seeded with 0: the same draws on every device."""
+    w = valid.detach().to("cpu", torch.float32)
+    if not bool(w.any()):
+        return torch.zeros((trials, 3), dtype=torch.int64)
+    g = torch.Generator().manual_seed(0)
+    return torch.multinomial(w, trials * 3, replacement=True, generator=g).view(trials, 3)
+
+
+def segment_plane(points: torch.Tensor, valid: torch.Tensor,
+                  distance_threshold: float = 2.0, num_iterations: int = 512,
+                  samples=None):
+    """Batched-hypothesis RANSAC plane fit -> (plane [4] = (n, d), inlier
+    mask [N]). ``num_iterations`` triples are drawn among the valid rows
+    (``samples`` [T, 3] gives them instead); each hypothesis scores its
+    valid rows within ``distance_threshold``, the first best wins; a
+    degenerate triple (no plane) scores 0. The background step keeps the
+    inverse of the inliers."""
+    n = points.shape[0]
+    if n == 0:
+        return (torch.zeros(4, dtype=torch.float32, device=points.device),
+                torch.zeros(0, dtype=torch.bool, device=points.device))
+    from structured_light_for_3d_model_replication_tpu_torch.ops import (
+        registration as reg,
+    )
+
+    reg.exact_f32_products()
+    pts = points.to(torch.float32)
+    tri = (_plane_samples(valid, num_iterations) if samples is None
+           else torch.as_tensor(np.array(samples)))
+    tri = tri.to(device=pts.device, dtype=torch.int64)
+    p0, p1, p2 = (pts[tri[:, i]] for i in range(3))
+    nrm = torch.linalg.cross(p1 - p0, p2 - p0)
+    norm = torch.sqrt((nrm * nrm).sum(-1, keepdim=True))
+    nrm = nrm / torch.clamp_min(norm, 1e-12)
+    d = -(nrm * p0).sum(-1)
+    dist = (torch.matmul(nrm, pts.T) + d[:, None]).abs()
+    # a triple with a repeated (or collinear) point spans no plane: its zero
+    # normal would put every point within the threshold and win (the JAX
+    # package keeps such hypotheses, ROADMAP C)
+    within = (dist <= distance_threshold) & valid[None, :] & (norm > 1e-12)
+    best = torch.argmax(within.sum(1))
+    return torch.cat([nrm[best], d[best][None]]), within[best]
+
+
+# ---------------------------------------------------------------------------
+# Density clustering -> largest cluster
+# ---------------------------------------------------------------------------
+
+def cluster_labels(points: torch.Tensor, valid: torch.Tensor, eps: float = 5.0,
+                   min_points: int = 200, k: int = 16,
+                   max_iters: int = 200) -> torch.Tensor:
+    """DBSCAN-style labels i32 [N] by min-label propagation on the k-NN
+    graph: core points (>= min_points neighbours within eps) pass the
+    minimum label across core-to-core edges shorter than eps until nothing
+    changes (at most ``max_iters`` rounds, one host sync a round); border
+    points take the least label among their in-eps core neighbours; the
+    rest are noise (-1). The JAX package's fixed-shape formulation of
+    Open3D's cluster_dbscan, label for label."""
+    n = points.shape[0]
+    dev = points.device
+    if n == 0:
+        return torch.zeros(0, dtype=torch.int32, device=dev)
+    idx, d2 = knnlib.knn(points, valid, k)
+    idx = idx.long()
+    eps2 = kernels._sq_f32(eps).to(dev)
+    core = valid & (knnlib.radius_count(points, valid, eps) >= min_points)
+    edge_ok = (d2 <= eps2) & valid[idx] & valid[:, None]
+    none = torch.tensor(n, dtype=torch.int64, device=dev)
+    labels = torch.where(core, torch.arange(n, device=dev), none)
+    cc_edge = edge_ok & core[idx] & core[:, None]
+    flat_idx = idx.reshape(-1)
+    push_ok = cc_edge.reshape(-1)
+    for _ in range(max_iters):
+        pulled = torch.minimum(labels, torch.where(cc_edge, labels[idx], none).min(1).values)
+        push_val = torch.where(push_ok, labels.repeat_interleave(idx.shape[1]), none)
+        pushed = torch.full((n,), n, dtype=torch.int64, device=dev).scatter_reduce(
+            0, flat_idx, push_val, "amin")
+        new = torch.where(core, torch.minimum(pulled, pushed), none)
+        changed = bool((new != labels).any())
+        labels = new
+        if not changed:
+            break
+    neigh_core = torch.where(edge_ok & core[idx], labels[idx], none)
+    border = torch.where(valid & ~core, neigh_core.min(1).values, none)
+    final = torch.where(core, labels, border)
+    return torch.where(final >= n, -1, final).to(torch.int32)
+
+
+def largest_cluster_mask(points: torch.Tensor, valid: torch.Tensor,
+                         eps: float = 5.0, min_points: int = 200,
+                         k: int = 16) -> torch.Tensor:
+    """Keep-mask of the most populated cluster (the lowest label on ties)."""
+    n = points.shape[0]
+    if n == 0:
+        return torch.zeros(0, dtype=torch.bool, device=points.device)
+    labels = cluster_labels(points, valid, eps, min_points, k).long()
+    sizes = torch.bincount(labels[labels >= 0], minlength=n)
+    return valid & (labels == torch.argmax(sizes))
+
+
+# ---------------------------------------------------------------------------
+# Masked clean chain
+# ---------------------------------------------------------------------------
+
+CLEAN_STEPS = ("background", "cluster", "radius", "statistical")
+
+
+def chain_params(cfg, steps=CLEAN_STEPS) -> tuple:
+    """A CleanConfig and a step selection -> ((step, ((param, value), ...)),
+    ...). A disabled ``background`` step (``remove_background_plane``
+    false) vanishes; an unknown step raises."""
+    params = []
+    for step in steps:
+        if step not in CLEAN_STEPS:
+            raise ValueError(f"unknown clean step {step!r}; valid: {CLEAN_STEPS}")
+        if step == "background":
+            if not cfg.remove_background_plane:
+                continue
+            kw = (("dist", float(cfg.plane_ransac_dist)),
+                  ("trials", int(cfg.plane_ransac_trials)))
+        elif step == "cluster":
+            kw = (("eps", float(cfg.cluster_eps)),
+                  ("min_points", int(cfg.cluster_min_points)))
+        elif step == "radius":
+            kw = (("radius", float(cfg.radius)),
+                  ("nb_points", int(cfg.radius_nb_points)))
+        else:
+            kw = (("nb", int(cfg.outlier_nb_neighbors)),
+                  ("std", float(cfg.outlier_std_ratio)))
+        params.append((step, kw))
+    return tuple(params)
+
+
+def _chain_step(points, valid, step: str, kw: dict, samples=None) -> torch.Tensor:
+    """One masked step: the survivors stay where they are, the mask narrows."""
+    if step == "background":
+        _, inliers = segment_plane(points, valid, kw["dist"], kw["trials"],
+                                   samples=samples)
+        return valid & ~inliers
+    if step == "cluster":
+        return largest_cluster_mask(points, valid, eps=kw["eps"],
+                                    min_points=kw["min_points"])
+    if step == "radius":
+        return valid & radius_outlier_mask(points, valid, kw["radius"], kw["nb_points"])
+    return valid & statistical_outlier_mask(points, valid, kw["nb"], kw["std"])
+
+
+def clean_chain(points: torch.Tensor, valid: torch.Tensor, cfg,
+                steps=CLEAN_STEPS, samples=None, timings: dict | None = None):
+    """The clean chain over a padded cloud: points [N, 3] f32, valid [N].
+    Returns (masks [S, N] bool, counts [S] i32), one row per effective step
+    (``chain_params``), masks[i] the keep-mask after step i. Every step runs
+    even after one empties the cloud (the caller aborts at a zero count).
+    ``samples``: the background step's [T, 3] draws (tests inject the JAX
+    package's). ``timings``: each step's host wall is added to
+    ``clean_<step>_s`` (its count read back after it, a host sync)."""
+    params = chain_params(cfg, steps)
+    n = points.shape[0]
+    if n == 0 or not params:
+        return (torch.zeros((len(params), n), dtype=torch.bool, device=points.device),
+                torch.zeros(len(params), dtype=torch.int32, device=points.device))
+    masks, counts = [], []
+    v = valid
+    for step, kw in params:
+        t0 = time.perf_counter()
+        v = _chain_step(points, v, step, dict(kw), samples)
+        masks.append(v)
+        counts.append(v.sum())
+        if timings is not None:
+            int(counts[-1])
+            key = f"clean_{step}_s"
+            timings[key] = timings.get(key, 0.0) + time.perf_counter() - t0
+    return torch.stack(masks), torch.stack(counts).to(torch.int32)

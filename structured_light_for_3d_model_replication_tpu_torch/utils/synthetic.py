@@ -23,7 +23,8 @@ from structured_light_for_3d_model_replication_tpu_torch.ops.graycode import (
 __all__ = ["Rig", "Sphere", "Plane", "Scene", "default_rig", "render_scene",
            "rotate_y", "sphere_on_background", "turntable_poses",
            "three_spheres", "lumpy_views", "turntable_transforms", "pose_errors",
-           "sphere_surface_distance"]
+           "sphere_surface_distance", "surface_distance", "sphere_union_cloud",
+           "pipeline_scene"]
 
 
 @dataclass
@@ -279,3 +280,50 @@ def sphere_surface_distance(points: np.ndarray, scene: Scene) -> np.ndarray:
     d = [np.abs(np.linalg.norm(p - o.center[None, :], axis=1) - o.radius)
          for o in scene.objects if isinstance(o, Sphere)]
     return np.min(np.stack(d), axis=0)
+
+
+def surface_distance(points: np.ndarray, scene: Scene) -> np.ndarray:
+    """Distance [N] from each point to the nearest surface of ``scene``:
+    its spheres and its planes."""
+    p = np.asarray(points, np.float64)
+    d = [np.abs(np.linalg.norm(p - o.center[None, :], axis=1) - o.radius)
+         if isinstance(o, Sphere) else np.abs(p @ o.normal + o.d)
+         for o in scene.objects]
+    return np.min(np.stack(d), axis=0)
+
+
+def sphere_union_cloud(scene: Scene, n: int = 200_000, noise: float = 0.05,
+                       seed: int = 0) -> np.ndarray:
+    """Points f32 [m, 3] sampled uniformly on the outer surface of the union
+    of ``scene``'s spheres (samples inside another sphere dropped), with
+    Gaussian noise of ``noise`` mm: a closed surface with a known distance
+    function (``sphere_surface_distance``), for meshing checks."""
+    rng = np.random.default_rng(seed)
+    spheres = [o for o in scene.objects if isinstance(o, Sphere)]
+    area = np.array([s.radius ** 2 for s in spheres])
+    parts = []
+    for s, m in zip(spheres, rng.multinomial(n, area / area.sum())):
+        d = rng.normal(size=(m, 3))
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        p = s.center + s.radius * d
+        inside = np.zeros(m, bool)
+        for o in spheres:
+            if o is not s:
+                inside |= np.linalg.norm(p - o.center, axis=1) < o.radius
+        parts.append(p[~inside])
+    pts = np.concatenate(parts)
+    return (pts + rng.normal(0.0, noise, pts.shape)).astype(np.float32)
+
+
+def pipeline_scene(cam_size=(768, 576), proj_size=(512, 256), n_views: int = 24,
+                   step_deg: float = 15.0):
+    """The scan-to-print scene: ``three_spheres`` on a floor plane 10 mm
+    under the big sphere (y = 80, which the turntable leaves in place), at
+    ``n_views`` turntable poses ``step_deg`` apart about (0, 0, 400).
+    Rendered with manual thresholds and row_mode 1, a 768x576 view holds
+    at most ~61k points, so its clean bucket stays <= 65,536 rows.
+    Returns (rig, scene, poses)."""
+    scene = Scene(three_spheres().objects
+                  + [Plane(np.array([0.0, -1.0, 0.0]), 80.0)])
+    poses = turntable_poses(n_views, step_deg, np.array([0.0, 0.0, 400.0]))
+    return default_rig(cam_size=cam_size, proj_size=proj_size), scene, poses

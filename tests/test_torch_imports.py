@@ -85,17 +85,17 @@ def test_merge_kernel_source_carries_its_notes_and_builds_into_the_library():
 
     src = (ROOT / PKG / "ops" / "csrc" / "cloud.cu").read_text()
     for pallas in ("_nn1_kernel", "_ransac_score_kernel", "_knn_mean_kernel",
-                   "_slab_bisect_kernel"):
+                   "_slab_bisect_kernel", "_radius_kernel"):
         assert pallas in src
     for entry in ("slscan_nn1", "slscan_ransac_score", "slscan_knn_mean",
-                  "slscan_slab_mean_knn"):
+                  "slscan_slab_mean_knn", "slscan_radius_count"):
         assert f"int {entry}(" in src and entry in kernels._SIGNATURES
     assert "operations" in src and "cudaGetLastError()" in src
     assert "cudaFuncAttributeMaxDynamicSharedMemorySize" in src
-    # one nvcc call, one library: both sources, both in the content hash
+    # one library: both sources, compiled side by side, both in the content hash
     assert [os.path.basename(s) for s in _build.sources()] == ["cloud.cu", "decode.cu"]
     assert {k.__name__ for k in kernels.KERNELS} >= {
-        "nn1", "ransac_score", "knn_mean", "slab_mean_knn"}
+        "nn1", "ransac_score", "knn_mean", "slab_mean_knn", "radius_count"}
 
 
 def test_failed_or_impossible_build_raises(tmp_path, monkeypatch):
