@@ -32,7 +32,14 @@ Imports nothing of JAX. Phases, each of which exits non-zero on failure:
    1 -> 0's 4096 hypotheses, knn_mean on 32768 rows of the merged cloud,
    slab_mean_knn on the whole sorted merged cloud (tile 64, wblk 8192).
    nn1 and ransac_score must equal their plain versions exactly, the k-NN
-   means match counts exactly and means within rtol 1e-5 (sum order);
+   means match counts (and window ends) exactly and means within rtol 1e-5
+   (sum order). slab_mean_knn also meets the cases a selection kernel gets
+   wrong, every row gated: k = 1, k = 40 (the bisection kernel: above
+   kernels.SLAB_SELECT_MAX_K), every row duplicated (exact ties at the
+   k-th distance), a sparse cloud (most rows with fewer than k within r);
+   the query's own slot lies inside its window in every case. Beside each
+   kernel, one PyTorch expression for the same function is timed as a
+   yardstick (``library_ms``; the port never calls it);
 5. the merge path: ``merge_views`` over the 24 PLYs with the default
    ``Config()`` (4096 trials), three times (cold, warm, warm under
    torch.profiler). Launch counts zeroed before each run, read after: nn1,
@@ -49,7 +56,10 @@ Imports nothing of JAX. Phases, each of which exits non-zero on failure:
    24 turntable views at 768x576, a 512x256 projector, stored as .slbp):
    its largest view padded to its 61,440-row bucket, at r = cluster_eps and
    r = radius, equal to the plain version exactly, timed with CUDA events
-   beside the plain version and a cdist yardstick;
+   beside the plain version and a cdist yardstick; at both radii also the
+   view's own 60,563 rows (a ragged N) and a cloud of duplicated rows,
+   equal on every row; then slab_mean_knn at the statistical step's shape
+   (that bucket, its spacing-derived cell, k = 20), gated as in phase 4;
 7. the main path: ``run_pipeline`` over those 24 views with the default
    ``Config()`` (manual thresholds, the scene's projector size, the cleaned
    views also written out), cold, then again under torch.profiler. Launch
@@ -92,6 +102,11 @@ V = 8                 # views per kernel launch in phase 2
 CAM = PROJ = (1920, 1080)
 MEM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 OPS_PER_S = 67e12           # H100 SXM 32-bit non-tensor rate
+# one 32-bit instruction a lane a clock: 132 SMs x 128 lanes at the 1980 MHz
+# boost clock. OPS_PER_S counts an FMA as two operations; distances that
+# must not contract into FMAs issue one instruction an operation, so this
+# rate, not OPS_PER_S, is what the pair kernels can reach
+LANE_INSTR_PER_S = 132 * 128 * 1.98e9
 RECON_VIEWS = 8
 RECON_BATCH = 4
 SOURCE = "structured_light_for_3d_model_replication_tpu_torch/ops/csrc/decode.cu"
@@ -263,6 +278,11 @@ def bound(nbytes: int, ops: int) -> tuple[float, str]:
     t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
     t_ops = ops / OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def issue_ceiling(instructions: int) -> float:
+    """ms for that many lane instructions at LANE_INSTR_PER_S (no FMA)."""
+    return instructions / LANE_INSTR_PER_S * 1e3
 
 
 def render_views(rng_seed: int = 0):
@@ -757,6 +777,85 @@ def _read_views(ply_dir: str):
     return [ply.read_ply(p)["points"] for p in paths]
 
 
+def mean_row(name, k_fn, p_fn, k, n_q, n_c, extra, every_row=False, real=None):
+    """A k-NN-mean kernel against its plain version on the same inputs:
+    counts (and window ends) bit-equal, means within rtol 1e-5 (the sums
+    differ in order only) on the certified rows (count >= k), or on every
+    row where ``every_row`` (rows with fewer than k within r, parked rows).
+    The shares printed are over the ``real`` rows (all rows if None): the
+    padding rows of a slab input coincide and count each other."""
+    import torch
+
+    k_out = k_fn()
+    p_out, plain_ms = _timed_once(p_fn)
+    torch.cuda.synchronize()
+    cnt_err = int((k_out[1] - p_out[1]).abs().max())
+    check(cnt_err == 0, f"{name}: counts off the plain version by {cnt_err}")
+    if len(k_out) == 3:
+        check(bool(torch.equal(k_out[2], p_out[2])), f"{name}: window ends differ")
+    ok = torch.ones_like(k_out[1], dtype=torch.bool) if every_row else k_out[1] >= k
+    if real is None:
+        real = torch.ones_like(ok)
+    rel = ((k_out[0] - p_out[0]).abs() / p_out[0].abs().clamp_min(1e-9))[ok]
+    err = float((k_out[0] - p_out[0]).abs()[ok].max())
+    check(float(rel.max()) <= 1e-5, f"{name}: mean off by rtol {float(rel.max())}")
+    # bytes: the rows once, mean + count (+ window end) out; operations:
+    # what the function needs of a (query, candidate) pair, its d2 (3 sub,
+    # 3 mul, 2 add) and one selection compare, as nn1 (the bisection
+    # kernels' 31 extra passes are their algorithm's cost, not the
+    # function's); the issue ceiling takes 10 a pair, one to act on the compare
+    return dict(name=name.split(" ")[0], fn=k_fn, reps=5, plain_ms=plain_ms, err=err,
+                bound=bound(n_q * 12 + n_q * 4 * len(k_out), n_q * n_c * 9),
+                extra=dict(extra, case=name, issue_ceiling_ms=issue_ceiling(n_q * n_c * 10),
+                           certified_share=float((k_out[1] >= k)[real].float().mean()),
+                           fewer_than_k_share=float((p_out[1] < k)[real].float().mean())))
+
+
+def slab_library(pts_s, r: float, k: int, tile: int = 64, wblk: int = 8192):
+    """The yardstick for slab_mean_knn (timed, never used by the port): per
+    tile, torch.cdist to its 2 * wblk window (difference distances, no
+    matrix-product expansion) and torch.topk of the k smallest, meaned;
+    256 tiles a chunk. No self-exclusion or cutoff: the bulk of the work."""
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.ops import kernels
+
+    starts = kernels._slab_starts(pts_s, r, tile, wblk)
+    span = torch.arange(2 * wblk, device=pts_s.device)
+    out = []
+    for s in range(0, starts.shape[0], 256):
+        c0 = starts[s:s + 256]
+        cand = pts_s[c0[:, None] + span[None, :]]
+        q = pts_s[s * tile:(s + c0.shape[0]) * tile].view(-1, tile, 3)
+        d = torch.cdist(q, cand, compute_mode="donot_use_mm_for_euclid_dist")
+        out.append(torch.topk(d, k, dim=-1, largest=False).values.mean(-1).reshape(-1))
+    return torch.cat(out)
+
+
+def knn_library(pts, k: int):
+    """The yardstick for knn_mean: torch.cdist over the whole cloud in 4096-row
+    chunks and torch.topk of the k smallest, meaned."""
+    import torch
+
+    return torch.cat([torch.topk(torch.cdist(pts[s:s + 4096], pts,
+                                             compute_mode="donot_use_mm_for_euclid_dist"),
+                                 k, dim=-1, largest=False).values.mean(-1)
+                      for s in range(0, pts.shape[0], 4096)])
+
+
+def ransac_library(hm, pm, sc, md2: float):
+    """The yardstick for ransac_score: one matrix product in full f32 (TF32
+    off) and the compare."""
+    import torch
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return ((sc + 2 * hm @ pm.T) <= md2).sum(1)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
 def merge_kernel_phase(dev, ply_dir: str, poses, card: str) -> list[dict]:
     """Phase 4: each merge kernel against its plain version, at the merge
     path's shapes, timed with CUDA events."""
@@ -804,10 +903,14 @@ def merge_kernel_phase(dev, ply_dir: str, poses, card: str) -> list[dict]:
         check(mism == 0 and err == 0.0,
               f"{name}: {mism} indices and max |dd2| {err} off the plain version")
         nq, nb = q.shape[1], b.shape[1]
-        extra = {"case": name, "shape": [q.shape[0], nq, nb]}
+        # 10 issued a pair: the 9 operations and the select on the compare
+        extra = {"case": name, "shape": [q.shape[0], nq, nb],
+                 "issue_ceiling_ms": issue_ceiling(q.shape[0] * nq * nb * 10)}
+        lib_ms = None
         if name == "icp_group":  # a yardstick only: [P, Nq, Nb] fits here, not at chamfer size
-            extra["cdist_min_ms"] = time_ms(lambda: torch.cdist(q, b).min(dim=-1), reps=5)
+            lib_ms = time_ms(lambda: torch.cdist(q, b).min(dim=-1), reps=5)
         return dict(name="nn1", fn=lambda: kernels.nn1(q, b), reps=reps, plain_ms=plain_ms,
+                    library_ms=lib_ms,
                     err=err, bound=bound((q.numel() + b.numel()) * 4 + q.shape[0] * nq * 8,
                                          q.shape[0] * nq * nb * 9), extra=extra)
 
@@ -832,8 +935,11 @@ def merge_kernel_phase(dev, ply_dir: str, poses, card: str) -> list[dict]:
     nt, nn = hm.shape[0], pm.shape[0]
     rows.append(dict(name="ransac_score", fn=lambda: kernels.ransac_score(hm, pm, sc, md2),
                      reps=20, plain_ms=plain_ms, err=err,
+                     library_ms=time_ms(lambda: ransac_library(hm, pm, sc, md2), reps=20),
                      bound=bound(nt * 16 * 4 + nn * 17 * 4 + nt * 4, nt * nn * 34),
-                     extra={"shape": [nt, nn], "best_count": int(k_cnt.max())}))
+                     # issue ceiling: 35 a pair, the 34 operations and the count's add
+                     extra={"shape": [nt, nn], "best_count": int(k_cnt.max()),
+                            "issue_ceiling_ms": issue_ceiling(nt * nn * 35)}))
 
     # the merged cloud at the true poses, after the 0.5 mm voxel
     moved = recon.transform_views_batched(views[1:], truth[1:], device=dev)
@@ -847,36 +953,50 @@ def merge_kernel_phase(dev, ply_dir: str, poses, card: str) -> list[dict]:
     L = pts_s.shape[0]
     win = 2 * 8192
 
-    def mean_row(name, k_fn, p_fn, n_q, n_c, extra):
-        k_out = k_fn()
-        p_out, plain_ms = _timed_once(p_fn)
-        torch.cuda.synchronize()
-        cnt_err = int((k_out[1] - p_out[1]).abs().max())
-        check(cnt_err == 0, f"{name}: counts off the plain version by {cnt_err}")
-        if len(k_out) == 3:
-            check(bool(torch.equal(k_out[2], p_out[2])), f"{name}: window ends differ")
-        ok = k_out[1] >= 20
-        rel = ((k_out[0] - p_out[0]).abs() / p_out[0].abs().clamp_min(1e-9))[ok]
-        err = float((k_out[0] - p_out[0]).abs()[ok].max())
-        check(float(rel.max()) <= 1e-5, f"{name}: mean off by rtol {float(rel.max())}")
-        # bytes: the rows once, mean + count (+ window end) out; operations:
-        # what the function needs of a (query, candidate) pair, its d2 (3
-        # sub, 3 mul, 2 add) and one selection compare, as nn1 (the
-        # kernels' 31 bisection passes are their algorithm's cost, not the
-        # function's)
-        return dict(name=name, fn=k_fn, reps=5, plain_ms=plain_ms, err=err,
-                    bound=bound(n_q * 12 + n_q * 4 * len(k_out), n_q * n_c * 9),
-                    extra=dict(extra, certified_share=float(ok.float().mean())))
-
     q32 = pts_s[:32768].contiguous()
-    rows.append(mean_row("knn_mean", lambda: kernels.knn_mean(q32, 20),
-                         lambda: kernels.knn_mean_plain(q32, 20), 32768, 32768,
-                         {"shape": [32768, 3], "k": 20}))
-    rows.append(mean_row("slab_mean_knn",
-                         lambda: kernels.slab_mean_knn(pts_s, r, 20, tile=64, wblk=8192),
-                         lambda: kernels.slab_mean_knn_plain(pts_s, r, 20, 64, 8192),
-                         L, win, {"shape": [L, 3], "k": 20, "tile": 64, "wblk": 8192,
-                                  "r": r, "merged_after_voxel": n_keep}))
+    row = mean_row("knn_mean", lambda: kernels.knn_mean(q32, 20),
+                   lambda: kernels.knn_mean_plain(q32, 20), 20, 32768, 32768,
+                   {"shape": [32768, 3], "k": 20})
+    row["library_ms"] = time_ms(lambda: knn_library(q32, 20), reps=3, warm=1)
+    rows.append(row)
+    row = mean_row("slab_mean_knn",
+                   lambda: kernels.slab_mean_knn(pts_s, r, 20, tile=64, wblk=8192),
+                   lambda: kernels.slab_mean_knn_plain(pts_s, r, 20, 64, 8192),
+                   20, L, win, {"shape": [L, 3], "k": 20, "tile": 64, "wblk": 8192,
+                                "r": r, "merged_after_voxel": n_keep},
+                   real=pts_s[:, 0] < pc._SLAB_FAR)
+    row["library_ms"] = time_ms(lambda: slab_library(pts_s, r, 20), reps=3, warm=1)
+    rows.append(row)
+    # The cases a selection kernel gets wrong, each on every row: k = 1 and
+    # k = 40 (above SLAB_SELECT_MAX_K: the bisection kernel) on the same
+    # cloud; every row duplicated (exact ties at the k-th distance, the twin
+    # at d2 = 0 beside the query's own slot); a sparse cloud (most rows have
+    # fewer than k within r, so t = r2b + 1 and the tie term carries them)
+    check(kernels.SLAB_SELECT_MAX_K < 40, "k = 40 must take the bisection kernel")
+    for kk in (1, 40):
+        rows.append(mean_row(f"slab_mean_knn k={kk}",
+                             lambda kk=kk: kernels.slab_mean_knn(pts_s, r, kk, tile=64, wblk=8192),
+                             lambda kk=kk: kernels.slab_mean_knn_plain(pts_s, r, kk, 64, 8192),
+                             kk, L, win, {"shape": [L, 3], "k": kk, "r": r}, every_row=True,
+                             real=pts_s[:, 0] < pc._SLAB_FAR))
+    real = cloud[valid]
+    # a seeded eighth of the rows: ~1/8 of a row's neighbours within r remain
+    keep = torch.randperm(real.shape[0], generator=torch.Generator(device=dev).manual_seed(0),
+                          device=dev)[:real.shape[0] // 8]
+    for case, sub in (("duplicated rows", torch.cat([real[:40000], real[:40000]])),
+                      ("sparse", real[torch.sort(keep).values].contiguous())):
+        ps, _, rs = pc._slab_inputs(sub, torch.ones(sub.shape[0], dtype=torch.bool, device=dev),
+                                    0.5, 8192)
+        row = mean_row(f"slab_mean_knn {case}",
+                       lambda ps=ps, rs=rs: kernels.slab_mean_knn(ps, rs, 20, tile=64, wblk=8192),
+                       lambda ps=ps, rs=rs: kernels.slab_mean_knn_plain(ps, rs, 20, 64, 8192),
+                       20, ps.shape[0], win, {"shape": list(ps.shape), "k": 20, "r": rs},
+                       every_row=True, real=ps[:, 0] < pc._SLAB_FAR)
+        if case == "sparse":
+            few = row["extra"]["fewer_than_k_share"]
+            check(few > 0.5, f"sparse slab case: only {few} of the real rows have fewer than "
+                             f"k within r")
+        rows.append(row)
 
     # nn1 at chamfer size: the merged cloud against a jittered copy of itself
     cq = cloud[valid][None].contiguous()
@@ -894,7 +1014,7 @@ def merge_kernel_phase(dev, ply_dir: str, poses, card: str) -> list[dict]:
         line = {"name": r_["name"], "route": "cuda", "source": CLOUD_SOURCE,
                 "replaces": replaces[r_["name"]], "launches": 0,
                 "max_abs_err": r_["err"], "ms": ms, "plain_ms": r_["plain_ms"],
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": r_.get("library_ms")}
         print(json.dumps(dict(line, card=card, clocks=clocks(), **r_["extra"])), flush=True)
         out.append(line)
     del preps, q4, b4, pts, p, cloud, pts_s, cq, cb
@@ -1020,7 +1140,10 @@ def radius_phase(dev, data: str, calib: str, card: str) -> list[dict]:
     """Phase 6: radius_count at the clean chain's shape: the scene's largest
     view, reconstructed, padded to its 2048-multiple bucket with rows parked
     at knn.FAR (valid = its points), at r = clean.cluster_eps and r =
-    clean.radius. The kernel must equal its plain version exactly."""
+    clean.radius; at both radii also the view's own rows unpadded (a ragged
+    N) and a cloud of duplicated rows. The kernel must equal its plain
+    version exactly on every row. Then slab_mean_knn at the statistical
+    step's shape on the same bucket, gated as in phase 4 on every row."""
     import torch
 
     from structured_light_for_3d_model_replication_tpu_torch.config import load_config
@@ -1030,6 +1153,7 @@ def radius_phase(dev, data: str, calib: str, card: str) -> list[dict]:
     )
     from structured_light_for_3d_model_replication_tpu_torch.ops import kernels
     from structured_light_for_3d_model_replication_tpu_torch.ops import knn as knnlib
+    from structured_light_for_3d_model_replication_tpu_torch.ops import pointcloud as pc
     from structured_light_for_3d_model_replication_tpu_torch.pipeline import stages
 
     cfg = load_config(None, PIPE_OVERRIDES)
@@ -1060,11 +1184,42 @@ def radius_phase(dev, data: str, calib: str, card: str) -> list[dict]:
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": lib_ms}
         valid_cnt = k_cnt[:n].double()
+        # issue ceiling: 10 a pair, the 9 operations and the count's add
         print(json.dumps(dict(line, case=case, r=r, shape=[bucket, 3], points=n, view=view,
                               mean_count=float(valid_cnt.mean()), card=card,
+                              issue_ceiling_ms=issue_ceiling(bucket * bucket * 10),
                               clocks=clocks())), flush=True)
         out.append(line)
-    del parked, valid
+        # a ragged N (the view's own rows, a multiple of no block size) and
+        # a cloud of duplicated rows (every row's twin at d2 = 0, beside its
+        # own slot), equal on every row
+        real = parked[:n]
+        twins = torch.cat([real[:30001], real[:30001]])
+        for sub, what in ((real, "ragged"), (twins, "duplicated rows")):
+            k_sub = kernels.radius_count(sub, r)
+            torch.cuda.synchronize()
+            err = int((k_sub - kernels.radius_count_plain(sub, r)).abs().max())
+            check(err == 0, f"radius_count ({case}, {what}, N = {sub.shape[0]}): counts off "
+                            f"the plain version by {err}")
+            print(json.dumps({"name": "radius_count", "case": f"{case}, {what}", "r": r,
+                              "shape": list(sub.shape), "max_abs_err": err,
+                              "ms": time_ms(lambda: kernels.radius_count(sub, r), reps=20),
+                              "card": card}), flush=True)
+    # the statistical step's slab_mean_knn at this view's shape: the clean
+    # chain's bucket (invalid rows parked), its spacing-derived cell, k = 20
+    pts_v = torch.from_numpy(padded).to(dev)
+    cell = 0.75 * pc._estimate_spacing(pts_v, valid)
+    ps, _, rs = pc._slab_inputs(pts_v, valid, cell, 8192)
+    row = mean_row("slab_mean_knn per view",
+                   lambda: kernels.slab_mean_knn(ps, rs, 20, tile=64, wblk=8192),
+                   lambda: kernels.slab_mean_knn_plain(ps, rs, 20, 64, 8192),
+                   20, ps.shape[0], 2 * 8192, {"shape": list(ps.shape), "k": 20, "r": rs,
+                                               "points": n, "view": view}, every_row=True,
+                   real=ps[:, 0] < pc._SLAB_FAR)
+    print(json.dumps(dict(row["extra"], name="slab_mean_knn", max_abs_err=row["err"],
+                          ms=time_ms(row["fn"], reps=20), plain_ms=row["plain_ms"],
+                          bound_ms=row["bound"][0], card=card)), flush=True)
+    del parked, valid, pts_v, ps
     torch.cuda.empty_cache()
     return out[:1]
 

@@ -1,28 +1,41 @@
 // Point-cloud kernels of the merge path and the clean chain, for Hopper
 // (sm_90a).
 //
-// Five kernels (Pallas originals in structured_light_for_3d_model_replication_
+// Six kernels (Pallas originals in structured_light_for_3d_model_replication_
 // tpu/ops/pallas_kernels.py):
 //
 //   radius_count_kernel   replaces _radius_kernel (call _radius_call, entry
 //                         radius_count_pallas): per point, the number of other
-//                         points with d2 <= r^2, self excluded by index. One
-//                         thread per query, the cloud streamed through shared
-//                         memory in tiles, an int count in a register. d2 is
-//                         taken by coordinate differences, not by the TPU's
-//                         |q|^2+|b|^2-2q.b expansion, so a pair's verdict
+//                         points with d2 <= r^2. Bound by operations: ~10
+//                         issued instructions a (query, base) pair once d2 may
+//                         not contract into FMAs, N^2 pairs. The design spends
+//                         the issue slots on the pairs alone:
+//                         - register blocking: a thread carries kRcQ = 8
+//                           queries, so one broadcast float4 read of shared
+//                           memory feeds eight pairs;
+//                         - the count is an f32 compare-and-add (exact below
+//                           2^24, which caps a block's span), two f32
+//                           instructions where an int count took three;
+//                         - no index compare a pair: every base row is counted,
+//                           then the query's own term (d2_diff(q, q) <= r^2,
+//                           not a literal 1, so a NaN row stays right) is
+//                           subtracted where the block's base span holds it;
+//                         - grid.y splits the base into spans sized so the
+//                           launch has ~64 blocks an SM (several waves at the
+//                           clean chain's 15k-61k rows); partial counts meet
+//                           by integer atomicAdd into a zeroed output, exact in
+//                           any order, and only non-zero partials are added;
+//                         - base tiles are double-buffered in shared memory
+//                           with cp.async, the ragged edge masked, no padding.
+//                         d2 is taken by coordinate differences, not by the
+//                         TPU's |q|^2+|b|^2-2q.b expansion, so a pair's verdict
 //                         depends on its two points alone (the function the
 //                         JAX package's exact twin radius_count_np computes).
-//                         Invalid rows are the caller's to park far away; the
-//                         kernel masks its own ragged edge, so no padding.
 //   nn1_kernel            replaces _nn1_kernel (call _nn1_call): brute 1-NN.
 //                         One thread per query, the base staged through shared
 //                         memory in tiles, running min/argmin in registers. The
 //                         scan is sequential with a strict '<', so ties go to
 //                         the lowest base index (the Pallas kernel's rule, :414).
-//                         Distances are taken by coordinate differences, which
-//                         is also what the Pallas path reports (knn.exact_d2):
-//                         no |q|^2+|b|^2-2q.b cancellation in the selection.
 //                         A leading pair axis (grid.y) makes one launch serve
 //                         every pair of a register_pairs group.
 //   ransac_score_kernel   replaces _ransac_score_kernel: inlier counts of T
@@ -32,35 +45,61 @@
 //                         sc are staged in shared memory; grid.y splits the
 //                         correspondences and the counts meet by integer
 //                         atomicAdd (exact, any order).
-//   knn_mean_kernel       replaces _knn_mean_kernel: exact mean distance to
-//                         the k nearest candidates among the whole cloud.
-//   slab_knn_mean_kernel  replaces _slab_bisect_kernel: the same statistic over
-//                         a 2*wblk window of an x-sorted cloud. The block finds
-//                         its own window start (lower_bound of the tile's first
-//                         x minus r, aligned down to wblk, at most nblk - 2):
+//   slab_select_kernel    replaces _slab_bisect_kernel for k <= 32: the mean
+//                         distance to the k nearest candidates in a 2*wblk
+//                         window of an x-sorted cloud, with ONE sweep that
+//                         computes each (query, candidate) d2 once (the TPU
+//                         kernel and the bisection kernel below sweep the
+//                         window 33 times). A warp-level k-selection in the
+//                         manner of FAISS's WarpSelect:
+//                         - a warp carries kSelQpw = 4 queries; its lanes
+//                           stride over the window, one candidate read from
+//                           shared memory feeding four pairs; the hot loop is
+//                           the four d2 and one vote on "any within r";
+//                         - per query a warp-uniform threshold tau = min(the
+//                           k-th smallest bit pattern kept so far, r2b + 1):
+//                           nothing at or above it can change the output;
+//                         - candidates under tau (self excluded by global
+//                           index) are compacted by __ballot_sync/__popc into
+//                           a 64-slot per-(warp, query) queue in shared
+//                           memory; at 32 queued they are bitonic-sorted across
+//                           the lanes and merged into a sorted list held one
+//                           entry a lane (so k <= 32), and tau tightens;
+//                         - in that rare branch count(bits <= r2b) grows by the
+//                           __popc of a ballot; at the end the query's own
+//                           term comes off.
+//                         Then t = min(k-th, r2b + 1), and the mean is the sum
+//                         of sqrt over the list entries < t (a fixed butterfly
+//                         order: the same bits on every run) plus
+//                         (k - #less) * sqrt(t), over k: the statistic of the
+//                         bisection, which any top-k selection reproduces
+//                         because tied values are equal. Bound by operations
+//                         (~12 issued instructions a pair); the window streams
+//                         through a two-slot ring of 1024-candidate chunks
+//                         filled by cp.async while the previous chunk is
+//                         swept, 40 KB of shared memory a 512-thread block, so
+//                         two blocks share an SM and one's waits hide under
+//                         the other's sweep. Each 64-query block finds its own
+//                         window start (lower_bound of its tile's first x
+//                         minus r, aligned down to wblk, at most nblk - 2):
 //                         that was the TPU's scalar prefetch.
+//   knn_mean_kernel       replaces _knn_mean_kernel: exact mean distance to
+//   slab_knn_mean_kernel  the k nearest candidates among the whole cloud, and
+//                         the slab statistic for k > 32 (what one lane's list
+//                         entry cannot hold). Both run knn_mean_tile: a block of
+//                         32 warps takes 64 queries, two a warp; the k-th
+//                         smallest squared distance is found by 31 passes of
+//                         bisection on the f32 bit pattern (monotone for
+//                         non-negative floats), each pass counting the
+//                         candidates <= mid with __reduce_add_sync; then one
+//                         masked sum of sqrt(d2) below the k-th plus the tie
+//                         correction. 33 sweeps of every d2. The whole-cloud
+//                         kernel (<= 32768 points) streams the cloud through a
+//                         16384-point shared buffer, from L2, once per pass.
 //
-// The two k-NN-mean kernels share one device routine (knn_mean_tile): a block
-// of 32 warps takes 64 queries, two a warp. For each query the k-th smallest
-// squared distance is found by 31 passes of bisection on the f32 bit pattern
-// (monotone for non-negative floats); each pass counts the candidates <= mid,
-// a lane at a time, and __reduce_add_sync totals the warp. Then one masked
-// sum of sqrt(d2) over the candidates strictly below the k-th, plus the tie
-// correction (k - #less) * sqrt(t). Self-exclusion is by global index: the
-// query's own slot gets bits 2^31 - 2, above every cutoff.
-//
-// What bounds them: operations. nn1 and radius_count do ~9 float operations
-// per (query, base) pair and read 12 bytes a query; the k-NN means repeat ~12 per
-// (query, candidate) pair in each of 33 passes; RANSAC scoring does 34 per
-// (hypothesis, correspondence). All are far above the card's bytes-per-
-// operation balance, so the design keeps every operand on chip: the base
-// tile, the hypothesis row, the P rows and the candidate window sit in
-// shared memory or registers, and device memory is read about once. The
-// slab window as SoA f32 is 2 * 8192 * 3 * 4 = 196,608 B: above the 48 KB
-// static limit, so it is dynamic shared memory after cudaFuncSetAttribute.
-// The whole-cloud kernel (<= 32768 points, 393 KB) cannot hold its cloud,
-// so it streams the cloud through the same 16384-point buffer, from L2,
-// once per pass.
+// Self-exclusion is by global index everywhere: a query's own slot is above
+// every cutoff (the bisection kernels give it bits 2^31 - 2; the selection
+// kernel keeps it out of the queue and takes its term off the count).
 //
 // Float order: every distance is ((dx*dx + dy*dy) + dz*dz), each step with
 // __fsub_rn/__fmul_rn/__fadd_rn, so no FMA contraction changes a bit against
@@ -74,7 +113,12 @@
 namespace {
 
 constexpr int kNnThreads = 128;     // queries per nn1 block = base tile
-constexpr int kRcThreads = 256;     // queries per radius_count block = base tile
+constexpr int kRcThreads = 128;     // threads of a radius_count block
+constexpr int kRcQ = 8;             // queries a radius_count thread carries
+constexpr int kRcQueries = kRcThreads * kRcQ;
+constexpr int kRcTile = 256;        // base rows a ring slot
+constexpr int kRcBlocksPerSm = 64;  // the grid.y split aims at this many blocks an SM
+constexpr int kRcMaxSpan = 1 << 24; // base rows a block: a thread's f32 count stays exact
 constexpr int kRsThreads = 128;     // hypotheses per ransac block
 constexpr int kRsChunk = 512;       // correspondences per ransac block
 constexpr int kRsTile = 128;        // correspondences staged per sync
@@ -85,12 +129,34 @@ constexpr int kKnnThreads = kKnnWarps * 32;
 constexpr int kChunk = 16384;       // candidates resident in shared memory
 constexpr int kSelfBits = 0x7FFFFFFE;
 constexpr int kBisect = 31;
+constexpr int kSelWarps = 16;
+constexpr int kSelQpw = 4;          // queries a selection warp carries
+constexpr int kSelTile = kSelWarps * kSelQpw;
+constexpr int kSelThreads = kSelWarps * 32;
+constexpr int kSelUnroll = 4;       // warp steps of the sweep unrolled
+constexpr int kSelChunk = 1024;     // candidates a ring slot
+constexpr int kSelQueue = 64;       // a (warp, query) queue: < 32 kept + 32 new
+constexpr int kIntMax = 0x7FFFFFFF;
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float d2_diff(float qx, float qy, float qz, float cx, float cy, float cz) {
   const float dx = __fsub_rn(qx, cx);
   const float dy = __fsub_rn(qy, cy);
   const float dz = __fsub_rn(qz, cz);
   return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
+}
+
+// 4-byte asynchronous copy global -> shared (sm_80+), and its group fences
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -140,31 +206,63 @@ nn1_kernel(const float* __restrict__ q, const float* __restrict__ base, int32_t*
 // radius_count
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kRcThreads)
-radius_count_kernel(const float* __restrict__ pts, int n, float r2, int32_t* __restrict__ counts) {
-  __shared__ float4 tile[kRcThreads];
-  const int i = blockIdx.x * kRcThreads + threadIdx.x;
-  float qx = 0.f, qy = 0.f, qz = 0.f;
-  if (i < n) {
-    qx = pts[3LL * i];
-    qy = pts[3LL * i + 1];
-    qz = pts[3LL * i + 2];
+// Rows [t0, t0 + m) of pts into a float4 ring slot, 4 bytes a cp.async.
+__device__ __forceinline__ void rc_stage(float4* slot, const float* __restrict__ pts, int t0, int m) {
+  const float* src = pts + 3LL * t0;
+  for (int e = threadIdx.x; e < 3 * m; e += kRcThreads) {
+    const int p = e / 3;
+    cp_async4(reinterpret_cast<float*>(slot + p) + (e - 3 * p), src + e);
   }
-  int cnt = 0;
-  for (int t0 = 0; t0 < n; t0 += kRcThreads) {
-    const int j = t0 + threadIdx.x;
-    if (j < n) tile[threadIdx.x] = make_float4(pts[3LL * j], pts[3LL * j + 1], pts[3LL * j + 2], 0.f);
+  cp_async_commit();
+}
+
+// Queries [blockIdx.x * 1024, +1024) (thread t: t, t + 128, ..., t + 896)
+// against base rows [blockIdx.y * span, +span).
+__global__ void __launch_bounds__(kRcThreads)
+radius_count_kernel(const float* __restrict__ pts, int n, float r2, int span, int32_t* __restrict__ counts) {
+  __shared__ float4 ring[2][kRcTile];
+  const int b0 = blockIdx.y * span;
+  const int b1 = min(n, b0 + span);
+  float qx[kRcQ], qy[kRcQ], qz[kRcQ];
+  float cnt[kRcQ];  // exact: a span holds < 2^24 rows; a compare feeds an add on the f32 pipe
+#pragma unroll
+  for (int j = 0; j < kRcQ; ++j) {
+    const long long i = min((int)blockIdx.x * kRcQueries + j * kRcThreads + (int)threadIdx.x, n - 1);
+    qx[j] = pts[3 * i];
+    qy[j] = pts[3 * i + 1];
+    qz[j] = pts[3 * i + 2];
+    cnt[j] = 0.f;
+  }
+  const int ntiles = (b1 - b0 + kRcTile - 1) / kRcTile;
+  rc_stage(ring[0], pts, b0, min(kRcTile, b1 - b0));
+  for (int t = 0; t < ntiles; ++t) {
+    const int t0 = b0 + t * kRcTile;
+    if (t + 1 < ntiles) {
+      rc_stage(ring[(t + 1) & 1], pts, t0 + kRcTile, min(kRcTile, b1 - t0 - kRcTile));
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
     __syncthreads();
-    const int m = min(kRcThreads, n - t0);
+    const float4* tile = ring[t & 1];
+    const int m = min(kRcTile, b1 - t0);
 #pragma unroll 8
     for (int c = 0; c < m; ++c) {
       const float4 b = tile[c];
-      const float d = d2_diff(qx, qy, qz, b.x, b.y, b.z);
-      cnt += (d <= r2 && t0 + c != i) ? 1 : 0;
+#pragma unroll
+      for (int j = 0; j < kRcQ; ++j) cnt[j] += d2_diff(qx[j], qy[j], qz[j], b.x, b.y, b.z) <= r2 ? 1.f : 0.f;
     }
     __syncthreads();
   }
-  if (i < n) counts[i] = cnt;
+#pragma unroll
+  for (int j = 0; j < kRcQ; ++j) {
+    const int i = (int)blockIdx.x * kRcQueries + j * kRcThreads + (int)threadIdx.x;
+    if (i >= n) continue;
+    // the query's own row was counted where this span holds it
+    int c = (int)cnt[j];
+    if (i >= b0 && i < b1 && d2_diff(qx[j], qy[j], qz[j], qx[j], qy[j], qz[j]) <= r2) c -= 1;
+    if (c) atomicAdd(&counts[i], c);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -316,25 +414,177 @@ knn_mean_kernel(const float* __restrict__ pts, int L, int k, int r2b, float* __r
   knn_mean_tile(pts, L, blockIdx.x * kKnnTile, 0, L, k, r2b, mean_out, cnt_out, nullptr);
 }
 
+// The window start of the block whose first query is tq0: lower_bound over
+// the sorted x of its tile's first x minus r, aligned down to wblk, at most
+// nblk - 2 (ops/kernels._slab_starts).
+__device__ int slab_window_start(const float* __restrict__ pts, int L, int tq0, int wblk, int tile, float r) {
+  const float v = __fsub_rn(pts[3LL * ((tq0 / tile) * tile)], r);
+  int lo = 0, hi = L;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (pts[3LL * mid] < v) lo = mid + 1;
+    else hi = mid;
+  }
+  const int nblk = L / wblk;
+  return min(lo / wblk, max(nblk - 2, 0)) * wblk;
+}
+
 __global__ void __launch_bounds__(kKnnThreads, 1)
 slab_knn_mean_kernel(const float* __restrict__ pts, int L, int k, int r2b, int wblk, int tile, float r,
                      float* __restrict__ mean_out, int32_t* __restrict__ cnt_out, int32_t* __restrict__ end_out) {
   __shared__ int s_c0;
   const int tq0 = blockIdx.x * kKnnTile;
-  if (threadIdx.x == 0) {
-    // lower_bound over the sorted x of the first query of this block's tile
-    const float v = __fsub_rn(pts[3LL * ((tq0 / tile) * tile)], r);
-    int lo = 0, hi = L;
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (pts[3LL * mid] < v) lo = mid + 1;
-      else hi = mid;
-    }
-    const int nblk = L / wblk;
-    s_c0 = min(lo / wblk, max(nblk - 2, 0)) * wblk;
-  }
+  if (threadIdx.x == 0) s_c0 = slab_window_start(pts, L, tq0, wblk, tile, r);
   __syncthreads();
   knn_mean_tile(pts, L, tq0, s_c0, 2 * wblk, k, r2b, mean_out, cnt_out, end_out);
+}
+
+// ---------------------------------------------------------------------------
+// slab k-NN mean, k <= 32: one sweep with a warp-level k-selection
+// ---------------------------------------------------------------------------
+
+// One value a lane, sorted ascending across the warp (bitonic network).
+__device__ __forceinline__ int warp_sort_asc(int v, int lane) {
+#pragma unroll
+  for (int size = 2; size <= 32; size <<= 1) {
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      const int o = __shfl_xor_sync(kFull, v, stride);
+      const bool up = (lane & size) == 0;
+      const bool low = (lane & stride) == 0;
+      v = (low == up) ? min(v, o) : max(v, o);
+    }
+  }
+  return v;
+}
+
+// list: ascending across the lanes. Returns the 32 smallest of list and the
+// 32 values v (one a lane), ascending: min of list and v reversed is a
+// bitonic sequence holding them, and a half-cleaner cascade sorts it.
+__device__ __forceinline__ int warp_merge(int list, int v, int lane) {
+  v = __shfl_sync(kFull, warp_sort_asc(v, lane), 31 - lane);
+  int m = min(list, v);
+#pragma unroll
+  for (int stride = 16; stride > 0; stride >>= 1) {
+    const int o = __shfl_xor_sync(kFull, m, stride);
+    m = (lane & stride) == 0 ? min(m, o) : max(m, o);
+  }
+  return m;
+}
+
+// Merge the first `take` entries of a (warp, query) queue into its list, keep
+// the rest queued, tighten tau. Warp-uniform; inlined, so that the caller's
+// per-query registers stay registers.
+__device__ __forceinline__ void sel_flush(int* q, int& qn, int& list, int& tau, int take, int lane, int k,
+                                          int r2b) {
+  __syncwarp();
+  const int v = lane < take ? q[lane] : kIntMax;
+  const int rest = qn - take;
+  const int w = lane < rest ? q[take + lane] : 0;
+  __syncwarp();
+  if (lane < rest) q[lane] = w;
+  __syncwarp();
+  qn = rest;
+  list = warp_merge(list, v, lane);
+  tau = min(r2b + 1, __shfl_sync(kFull, list, k - 1));
+}
+
+__global__ void __launch_bounds__(kSelThreads, 2)
+slab_select_kernel(const float* __restrict__ pts, int L, int k, int r2b, int wblk, int tile, float r,
+                   float* __restrict__ mean_out, int32_t* __restrict__ cnt_out, int32_t* __restrict__ end_out) {
+  __shared__ float ring[2][3 * kSelChunk];                 // 24 KB: the window, two chunks at a time
+  __shared__ int queue[kSelWarps][kSelQpw][kSelQueue];     // 16 KB
+  __shared__ int s_c0;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  const int tq0 = (int)blockIdx.x * kSelTile;
+  if (threadIdx.x == 0) s_c0 = slab_window_start(pts, L, tq0, wblk, tile, r);
+  __syncthreads();
+  const int c0 = s_c0;
+  const int nc = 2 * wblk;
+  const float r2 = __int_as_float(r2b);
+  float qx[kSelQpw], qy[kSelQpw], qz[kSelQpw];
+  int list[kSelQpw], tau[kSelQpw], qn[kSelQpw], cnt[kSelQpw];
+#pragma unroll
+  for (int j = 0; j < kSelQpw; ++j) {
+    const long long qi = tq0 + warp * kSelQpw + j;  // < L: the grid is L / 64 blocks
+    qx[j] = pts[3 * qi];
+    qy[j] = pts[3 * qi + 1];
+    qz[j] = pts[3 * qi + 2];
+    list[j] = kIntMax;
+    tau[j] = r2b + 1;
+    qn[j] = 0;
+    cnt[j] = 0;
+  }
+  auto stage = [&](int slot, int s) {
+    const float* src = pts + 3LL * (c0 + s);
+    const int m = 3 * min(kSelChunk, nc - s);
+    for (int e = threadIdx.x; e < m; e += kSelThreads) cp_async4(&ring[slot][e], src + e);
+    cp_async_commit();
+  };
+  const int nchunks = (nc + kSelChunk - 1) / kSelChunk;
+  stage(0, 0);
+  for (int ch = 0; ch < nchunks; ++ch) {
+    if (ch + 1 < nchunks) {
+      stage((ch + 1) & 1, (ch + 1) * kSelChunk);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* buf = ring[ch & 1];
+    const int n = min(kSelChunk, nc - ch * kSelChunk);  // a multiple of 32: 2 * wblk % 128 == 0
+    const int cg0 = c0 + ch * kSelChunk;
+#pragma unroll kSelUnroll
+    for (int c = lane; c < n; c += 32) {
+      const float cx = buf[3 * c], cy = buf[3 * c + 1], cz = buf[3 * c + 2];
+      float d[kSelQpw];
+      bool near = false;
+#pragma unroll
+      for (int j = 0; j < kSelQpw; ++j) {
+        d[j] = d2_diff(qx[j], qy[j], qz[j], cx, cy, cz);
+        near |= d[j] <= r2;
+      }
+      // rare: a candidate within r of one of the warp's queries (tau <= r2b + 1)
+      if (__any_sync(kFull, near)) {
+#pragma unroll
+        for (int j = 0; j < kSelQpw; ++j) {
+          const unsigned in_r = __ballot_sync(kFull, d[j] <= r2);
+          if (!in_r) continue;
+          cnt[j] += __popc(in_r);
+          const bool take = __float_as_int(d[j]) < tau[j] && cg0 + c != tq0 + warp * kSelQpw + j;
+          const unsigned m = __ballot_sync(kFull, take);
+          if (m) {
+            if (take) queue[warp][j][qn[j] + __popc(m & below)] = __float_as_int(d[j]);
+            qn[j] += __popc(m);
+            if (qn[j] >= 32) sel_flush(queue[warp][j], qn[j], list[j], tau[j], 32, lane, k, r2b);
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int j = 0; j < kSelQpw; ++j) {
+    if (qn[j] > 0) sel_flush(queue[warp][j], qn[j], list[j], tau[j], qn[j], lane, k, r2b);
+    const int qg = tq0 + warp * kSelQpw + j;
+    const int t = min(__shfl_sync(kFull, list[j], k - 1), r2b + 1);
+    const bool lt = lane < k && list[j] < t;
+    float s = lt ? sqrtf(__int_as_float(list[j])) : 0.f;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) s = __fadd_rn(s, __shfl_xor_sync(kFull, s, o));
+    const int c_lt = __popc(__ballot_sync(kFull, lt));
+    int ok = cnt[j];
+    // the query's own slot was counted where the window holds it
+    if (qg >= c0 && qg < c0 + nc && d2_diff(qx[j], qy[j], qz[j], qx[j], qy[j], qz[j]) <= r2) ok -= 1;
+    if (lane == 0) {
+      const float tie = __fmul_rn((float)(k - c_lt), sqrtf(__int_as_float(t)));
+      mean_out[qg] = __fdiv_rn(__fadd_rn(s, tie), (float)k);
+      cnt_out[qg] = ok;
+      end_out[qg] = c0 + nc;
+    }
+  }
 }
 
 cudaError_t allow_smem(const void* fn) {
@@ -353,7 +603,17 @@ int slscan_nn1(const float* q, const float* base, int32_t* idx, float* d2, int p
 }
 
 int slscan_radius_count(const float* pts, int n, float r2, int32_t* counts, cudaStream_t stream) {
-  radius_count_kernel<<<(n + kRcThreads - 1) / kRcThreads, kRcThreads, 0, stream>>>(pts, n, r2, counts);
+  cudaError_t err = cudaMemsetAsync(counts, 0, sizeof(int32_t) * (size_t)n, stream);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return (int)err;
+  // base spans of whole tiles, as many as it takes for ~kRcBlocksPerSm blocks an SM
+  const int gx = (n + kRcQueries - 1) / kRcQueries;
+  const int want = max(1, (kRcBlocksPerSm * sms + gx - 1) / gx);
+  const int span = min(((n + want - 1) / want + kRcTile - 1) / kRcTile * kRcTile, kRcMaxSpan);
+  const dim3 grid(gx, (n + span - 1) / span);
+  radius_count_kernel<<<grid, kRcThreads, 0, stream>>>(pts, n, r2, span, counts);
   return (int)cudaGetLastError();
 }
 
@@ -376,6 +636,14 @@ int slscan_knn_mean(const float* pts, int L, int k, int r2b, float* mean, int32_
 
 int slscan_slab_mean_knn(const float* pts, int L, int k, int r2b, int wblk, int tile, float r, float* mean,
                          int32_t* cnt, int32_t* win_end, cudaStream_t stream) {
+  // whole 64-query blocks, whole 32-candidate warp steps, one list entry a lane
+  if (L % kSelTile || (2 * wblk) % 32 || k < 1 || k > 32) return (int)cudaErrorInvalidValue;
+  slab_select_kernel<<<L / kSelTile, kSelThreads, 0, stream>>>(pts, L, k, r2b, wblk, tile, r, mean, cnt, win_end);
+  return (int)cudaGetLastError();
+}
+
+int slscan_slab_mean_knn_bisect(const float* pts, int L, int k, int r2b, int wblk, int tile, float r, float* mean,
+                                int32_t* cnt, int32_t* win_end, cudaStream_t stream) {
   cudaError_t err = allow_smem((const void*)slab_knn_mean_kernel);
   if (err != cudaSuccess) return (int)err;
   const size_t smem = 3 * sizeof(float) * (size_t)(2 * wblk < kChunk ? 2 * wblk : kChunk);

@@ -10,17 +10,18 @@ merge path's and the clean chain's in ``csrc/cloud.cu``:
   nn1                 brute 1-NN, leading pair axis  (_nn1_kernel)
   ransac_score        RANSAC hypothesis inlier counts (_ransac_score_kernel)
   knn_mean            exact k-NN mean over a cloud   (_knn_mean_kernel)
-  slab_mean_knn       the same over x-sorted windows (_slab_bisect_kernel)
+  slab_mean_knn       the same over x-sorted windows (_slab_bisect_kernel;
+                      one selection sweep for k <= 32, bisection above)
   radius_count        neighbours within r, self excluded (_radius_kernel)
 
 For tensors on the CPU a wrapper runs its plain PyTorch version
 (``*_plain``, the same function written with tensor ops, in the kernel's
 float order; the plain k-NN means select the k-th distance with
-``torch.topk`` where the kernels bisect, which gives the same value). For
-CUDA tensors it checks device, dtype, shape and contiguity, allocates the
-outputs, launches the kernel on the current stream and raises on a non-zero
-CUDA error — there is no fallback. Each wrapper counts its launches in
-``<wrapper>.launches``. The plain versions chunk their rows, so none
+``torch.topk`` where the kernels bisect or keep a sorted k-list, which
+gives the same value). For CUDA tensors it checks device, dtype, shape and
+contiguity, allocates the outputs, launches the kernel on the current stream
+and raises on a non-zero CUDA error — there is no fallback. Each wrapper
+counts its launches in ``<wrapper>.launches``. The plain versions chunk their rows, so none
 materializes an N x N matrix.
 """
 from __future__ import annotations
@@ -36,8 +37,8 @@ __all__ = ["decode_maps", "decode_maps_plain", "decode_packed_maps",
            "decode_packed_maps_plain", "scan_fused", "scan_fused_plain",
            "scan_scalars", "sqrt_f32", "nn1", "nn1_plain", "ransac_score",
            "ransac_score_plain", "knn_mean", "knn_mean_plain", "slab_mean_knn",
-           "slab_mean_knn_plain", "radius_count", "radius_count_plain",
-           "KERNELS", "launch_counts",
+           "slab_mean_knn_plain", "SLAB_SELECT_MAX_K", "radius_count",
+           "radius_count_plain", "KERNELS", "launch_counts",
            "reset_launch_counts"]
 
 # ---------------------------------------------------------------------------
@@ -53,6 +54,7 @@ _SIGNATURES = {
     "slscan_ransac_score": [_P] * 3 + [_F, _P, _I, _I, _P],
     "slscan_knn_mean": [_P, _I, _I, _I, _P, _P, _P],
     "slscan_slab_mean_knn": [_P] + [_I] * 5 + [_F] + [_P] * 4,
+    "slscan_slab_mean_knn_bisect": [_P] + [_I] * 5 + [_F] + [_P] * 4,
     "slscan_radius_count": [_P, _I, _F, _P, _P],
 }
 _declared: set[int] = set()
@@ -547,23 +549,41 @@ def slab_mean_knn_plain(pts_sorted: torch.Tensor, r: float, k: int, tile: int,
     return torch.cat(means), torch.cat(cnts), win_end
 
 
+SLAB_SELECT_MAX_K = 32  # the selection kernel keeps one list entry a lane
+
+
 def slab_mean_knn(pts_sorted: torch.Tensor, r: float, k: int, tile: int = 64,
                   wblk: int = 8192):
     """Slab-window mean of the k nearest neighbours (see
-    slab_mean_knn_plain). The kernel takes 64 queries a block, so it needs
-    tile % 64 == 0."""
+    slab_mean_knn_plain). The kernels take 64 queries a block, so they need
+    tile % 64 == 0.
+
+    Two kernels compute the function, chosen by k (both are launched and
+    held against the plain version on the card):
+
+    - k <= 32 (``SLAB_SELECT_MAX_K``): ``slab_select_kernel``, one sweep of
+      the window that computes each (query, candidate) d2 once and keeps the
+      k smallest in a sorted list of one entry a lane (a warp-level
+      k-selection); the pipeline's k is 20.
+    - k > 32: ``slab_knn_mean_kernel``, 31 bisection sweeps on the f32 bit
+      pattern plus a count and a sum sweep (the routine ``knn_mean`` runs).
+    """
     if _on_cpu(pts_sorted):
         return slab_mean_knn_plain(pts_sorted, r, k, tile, wblk)
     L = pts_sorted.shape[0]
     _slab_check(L, tile, wblk)
     if tile % 64:
         raise ValueError(f"slab_mean_knn: the kernel needs tile % 64 == 0, got {tile}")
+    if k < 1:
+        raise ValueError(f"slab_mean_knn: k must be at least 1, got {k}")
     _check(pts_sorted, "pts_sorted", torch.float32, (L, 3))
     dev = pts_sorted.device
     mean = torch.empty(L, dtype=torch.float32, device=dev)
     cnt = torch.empty(L, dtype=torch.int32, device=dev)
     win_end = torch.empty(L, dtype=torch.int32, device=dev)
-    _launch("slscan_slab_mean_knn", dev, pts_sorted.data_ptr(), L, int(k), _sq_bits(r),
+    name = ("slscan_slab_mean_knn" if k <= SLAB_SELECT_MAX_K
+            else "slscan_slab_mean_knn_bisect")
+    _launch(name, dev, pts_sorted.data_ptr(), L, int(k), _sq_bits(r),
             int(wblk), int(tile), float(torch.tensor(r, dtype=torch.float32)),
             mean.data_ptr(), cnt.data_ptr(), win_end.data_ptr())
     slab_mean_knn.launches += 1
@@ -595,8 +615,10 @@ def radius_count(pts: torch.Tensor, r: float) -> torch.Tensor:
 
     Replaces ``_radius_kernel`` (pallas_kernels.py, ``_radius_call``):
     bound by operations, 9 a (query, base) pair (3 sub, 3 mul, 2 add, 1
-    compare), N^2 pairs; the kernel reads the cloud once a block through
-    shared memory, so its bytes (12 a row in, 4 out) never bind."""
+    compare), N^2 pairs. The kernel counts every base row and subtracts the
+    query's own term, carries 8 queries a thread and splits the base across
+    grid.y; partial counts meet by integer atomicAdd into a zeroed output,
+    so the counts are exact in any order."""
     if _on_cpu(pts):
         return radius_count_plain(pts, r)
     n = pts.shape[0]

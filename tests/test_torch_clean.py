@@ -2,6 +2,9 @@
 
 Clouds are made with numpy from a seed. Tolerances:
 
+- radius_count's kernel form (every base row counted in grid.y spans, the
+  query's own term d2(q, q) <= r^2 subtracted) equals the plain version's
+  index compare exactly, parked, duplicated and NaN rows included.
 - radius_count (the plain version, what CPU tensors take) against the JAX
   package's cKDTree twin radius_count_np, its dense _radius_blocks and its
   Pallas radius_count_pallas (interpret mode on the CPU): counts equal on
@@ -114,6 +117,50 @@ def test_radius_count_plain_counts_self_by_flag_and_parks_invalid_rows():
     kept = knnlib.radius_count(p[v], torch.ones(int(v.sum()), dtype=torch.bool), 2.5)
     assert torch.equal(ex[v], kept)
     assert kernels.radius_count(torch.zeros((0, 3)), 1.0).shape == (0,)
+
+
+def _radius_count_by_spans(pts: torch.Tensor, r: float, span: int) -> torch.Tensor:
+    """radius_count as the kernel takes it: per base span, every row with
+    d2 <= r^2 counted (no index compare), the query's own term d2(q, q) <= r^2
+    subtracted where the span holds it, the partials summed."""
+    n = pts.shape[0]
+    r2 = kernels._sq_f32(r)
+    rows = torch.arange(n)
+    own = knnlib.sq_dist(pts, pts) <= r2            # d2(q, q): 0, or NaN on a NaN row
+    out = torch.zeros(n, dtype=torch.int32)
+    for b0 in range(0, n, span):
+        part = (knnlib.sq_dist(pts[:, None, :], pts[None, b0:b0 + span, :]) <= r2).sum(1)
+        part = part - (own & (rows >= b0) & (rows < b0 + span)).to(part.dtype)
+        out += part.to(torch.int32)
+    return out
+
+
+def _twin_cloud(seed):
+    pts, _ = _lattice_cloud(seed)
+    return np.concatenate([pts[:900], pts[:900], pts[-40:]])
+
+
+def _nan_cloud(seed):
+    pts, _ = _lattice_cloud(seed)
+    pts = pts.copy()
+    pts[[5, 77]] = np.nan
+    return pts
+
+
+@pytest.mark.parametrize("cloud,r,span", [("lattice", 2.5, 256), ("lattice", 1.0, 700),
+                                          ("twins", 1.5, 256), ("nan", 2.5, 512)])
+def test_radius_count_self_term_equals_index_compare(cloud, r, span):
+    pts = {"lattice": lambda s: _lattice_cloud(s)[0], "twins": _twin_cloud,
+           "nan": _nan_cloud}[cloud](3)
+    p = torch.from_numpy(np.ascontiguousarray(pts))
+    ref = kernels.radius_count_plain(p, r)
+    got = _radius_count_by_spans(p, r, span)
+    assert torch.equal(got, ref)
+    if cloud == "twins":
+        assert bool((ref[:900] >= 1).all())        # each row's twin at d2 = 0
+    if cloud == "nan":
+        assert int(ref[5]) == 0 and int(ref[77]) == 0
+    assert bool((ref[-40:] == 39).all())          # the 40 parked rows coincide
 
 
 def _plane_cloud(seed=0, n_plane=1500, n_obj=700, n_pad=300):

@@ -17,7 +17,11 @@ numpy from a seed. Tolerances:
   differ only in order);
 - slab_mean_knn: counts and window ends exact, certified means within rtol
   1e-5 of the Pallas kernel and of the cKDTree twin
-  (tests/test_pointcloud_ops.py:356's bound).
+  (tests/test_pointcloud_ops.py:356's bound);
+- the selection kernel's statistic (the sorted k smallest bit patterns a
+  one-sweep k-selection keeps, rebuilt here in numpy): its k-list equal to
+  the sorted k smallest, counts exact, means within rtol 1e-5 of the plain
+  version's _knn_mean_rows and of the Pallas kernel, on every row.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -181,6 +185,108 @@ def test_slab_engine_matches_pallas_engine_and_kdtree():
     np.testing.assert_allclose(b[rows], ref, rtol=1e-5)
     ours = knnlib.kdtree_distances_rows(pts, v, rows, 20).mean(axis=1)
     np.testing.assert_array_equal(ours, ref)
+
+
+_INT_MAX = np.int32(0x7FFFFFFF)
+
+
+def _d2_bits(q, c):
+    """f32 ((dx*dx + dy*dy) + dz*dz), each step rounded, as int32 bits."""
+    d = (q[:, None, :] - c[None, :, :]).astype(np.float32)
+    d2 = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2]
+    return d2.astype(np.float32).view(np.int32)
+
+
+def _warp_select(bits, k, r2b):
+    """One query's sweep as the selection kernel makes it: 32 lanes a step;
+    bits under tau = min(k-th kept, r2b + 1) queue up; at 32 queued the
+    queue merges into the 32-entry sorted list and tau tightens. bits: the
+    window's bit patterns with the query's own slot already dropped."""
+    lst = np.full(32, _INT_MAX, np.int32)
+    tau = r2b + 1
+    queue = []
+    for s in range(0, len(bits), 32):
+        queue += [b for b in bits[s:s + 32] if b < tau]
+        if len(queue) >= 32:
+            lst = np.sort(np.concatenate([lst, np.asarray(queue[:32], np.int32)]))[:32]
+            queue = queue[32:]
+            tau = min(r2b + 1, int(lst[k - 1]))
+    if queue:
+        lst = np.sort(np.concatenate([lst, np.asarray(queue, np.int32)]))[:32]
+    return lst
+
+
+def _selection_statistic(lst, k, r2b):
+    """(mean, count of entries < t) from a sorted k-list, the kernel's tail:
+    t = min(k-th, r2b + 1); sqrt summed over the entries < t, plus
+    (k - #less) * sqrt(t), over k."""
+    t = min(int(lst[k - 1]), r2b + 1)
+    less = lst[:k][lst[:k] < t]
+    s = np.float32(0.0)
+    for v in less:
+        s = np.float32(s + np.sqrt(np.int32(v).view(np.float32)))
+    tie = np.float32(k - len(less)) * np.sqrt(np.int32(t).view(np.float32))
+    return np.float32((s + tie) / np.float32(k))
+
+
+def _selection_cloud(case, rng):
+    base = rng.uniform(0, 30, (1100, 3)).astype(np.float32)
+    if case == "ties":        # every row twice: exact ties at the k-th distance
+        pts = np.concatenate([base[:1000], base[:1000]])
+    elif case == "sparse":    # most rows have fewer than k within r
+        pts = rng.uniform(0, 300, (1800, 3)).astype(np.float32)
+    else:
+        pts = base
+    return _sorted_padded(pts, 2048)
+
+
+@pytest.mark.parametrize("case,k", [("ties", 20), ("sparse", 20), ("self", 20), ("ties", 1),
+                                    ("self", 32)])
+def test_selection_statistic_matches_plain_rows_and_pallas(case, k):
+    """The identity the one-sweep slab kernel relies on: the statistic built
+    from the sorted k smallest bit patterns (self excluded by index, only
+    bits <= r2b kept) equals the bisection's, whatever the tie-breaking."""
+    rng = np.random.default_rng(len(case) * 100 + k)
+    s = _selection_cloud(case, rng)
+    L, tile, wblk, r = s.shape[0], 64, 512, 6.0
+    r2b = kernels._sq_bits(r)
+    x = s[:, 0]
+    starts = np.minimum(np.searchsorted(x, x[::tile] - np.float32(r)) // wblk,
+                        L // wblk - 2) * wblk
+    np.testing.assert_array_equal(starts, kernels._slab_starts(_t(s), r, tile, wblk).numpy())
+    means = np.zeros(L, np.float32)
+    cnts = np.zeros(L, np.int32)
+    self_in = 0
+    for t0 in range(0, L, tile):
+        c0 = int(starts[t0 // tile])
+        cand = np.arange(c0, c0 + 2 * wblk)
+        qg = np.arange(t0, t0 + tile)
+        bits = _d2_bits(s[qg], s[cand])
+        own = qg[:, None] == cand[None, :]
+        self_in += int(own.any(1).sum())
+        m, c = kernels._knn_mean_rows(_t(bits.view(np.float32)), _t(own), k, r2b)
+        for i in range(tile):
+            b = bits[i][~own[i]]
+            kept = np.sort(np.where(b <= r2b, b, _INT_MAX))[:32]
+            if i % 16 == 0:   # the kernel's stream of queue merges keeps the same list
+                np.testing.assert_array_equal(_warp_select(b, k, r2b)[:k], kept[:k])
+            means[t0 + i] = _selection_statistic(kept, k, r2b)
+            cnts[t0 + i] = int((b <= r2b).sum())
+        np.testing.assert_array_equal(cnts[qg], c.numpy())
+        np.testing.assert_allclose(means[qg], m.numpy(), rtol=1e-5)
+    jmd, jcnt, jend = (np.asarray(a) for a in pk.slab_mean_knn(
+        jnp.asarray(s), r, k, tile=tile, wblk=wblk, interpret=True))
+    np.testing.assert_array_equal(cnts, jcnt)
+    np.testing.assert_array_equal(np.repeat(starts + 2 * wblk, tile), jend)
+    np.testing.assert_allclose(means, jmd, rtol=1e-5)
+    assert self_in == L                       # every query's own slot is in its window
+    few = (cnts < k).mean()
+    if case == "sparse":
+        assert few > 0.5
+    elif case == "ties":
+        assert (cnts[:1000] >= 1).all()       # each real row's twin, at d2 = 0
+    else:
+        assert few < 0.5
 
 
 def test_cuda_tensors_never_take_the_plain_version(monkeypatch):
