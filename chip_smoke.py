@@ -33,13 +33,18 @@ Imports nothing of JAX. Phases, each of which exits non-zero on failure:
    slab_mean_knn on the whole sorted merged cloud (tile 64, wblk 8192).
    nn1 and ransac_score must equal their plain versions exactly, the k-NN
    means match counts (and window ends) exactly and means within rtol 1e-5
-   (sum order). slab_mean_knn also meets the cases a selection kernel gets
-   wrong, every row gated: k = 1, k = 40 (the bisection kernel: above
+   (sum order). Both k-NN means also meet the cases a selection kernel gets
+   wrong, every row gated: k = 1, k = 40 (the bisection kernels: above
    kernels.SLAB_SELECT_MAX_K), every row duplicated (exact ties at the
-   k-th distance), a sparse cloud (most rows with fewer than k within r);
-   the query's own slot lies inside its window in every case. Beside each
-   kernel, one PyTorch expression for the same function is timed as a
-   yardstick (``library_ms``; the port never calls it);
+   k-th distance), a cloud with fewer than k real rows within the cutoff;
+   knn_mean also k = 32, a ragged L, L < k and the same cloud in a seeded
+   random row order (timed beside the x-sorted one). nn1 also on a lattice
+   (exact ties: idx the lowest index at the least distance), a base parked
+   whole at knn.FAR (idx 0) and a ragged shape. The redesigned kernels'
+   rows carry the profiler's device time (``device_ms``) and the previous
+   kernel's time (``ms_before``). Beside each kernel, one PyTorch
+   expression for the same function is timed as a yardstick
+   (``library_ms``; the port never calls it);
 5. the merge path: ``merge_views`` over the 24 PLYs with the default
    ``Config()`` (4096 trials), three times (cold, warm, warm under
    torch.profiler). Launch counts zeroed before each run, read after: nn1,
@@ -58,8 +63,11 @@ Imports nothing of JAX. Phases, each of which exits non-zero on failure:
    r = radius, equal to the plain version exactly, timed with CUDA events
    beside the plain version and a cdist yardstick; at both radii also the
    view's own 60,563 rows (a ragged N) and a cloud of duplicated rows,
-   equal on every row; then slab_mean_knn at the statistical step's shape
-   (that bucket, its spacing-derived cell, k = 20), gated as in phase 4;
+   equal on every row; the cluster step's k-NN (k = 16) on that bucket,
+   timed beside torch.topk on the float distances; the k-NN's tie order on
+   a lattice (idx equal to a stable argsort on the CPU on every row); then
+   slab_mean_knn at the statistical step's shape (that bucket, its
+   spacing-derived cell, k = 20), gated as in phase 4;
 7. the main path: ``run_pipeline`` over those 24 views with the default
    ``Config()`` (manual thresholds, the scene's projector size, the cleaned
    views also written out), cold, then again under torch.profiler. Launch
@@ -126,6 +134,11 @@ FLAGSHIP_JAX = {"surf_median_mm": 0.32119189678192406, "surf_p99_mm": 36.9329400
 POSE_JAX = {"rot_max_deg": 0.14608264300570387, "trans_max_mm": 0.952752147717066,
             "rot_median_deg": 0.10449975284444288, "trans_median_mm": 0.6840317819437964}
 GATE = 1.5
+# The redesigned kernels' times before the redesign (CUDA events around one
+# call, median), from the chip run of commit 7802f6a (PERF.md section 6;
+# NVIDIA H100 80GB HBM3, 700.00 W): printed beside this run's times.
+MS_BEFORE = {"knn_mean": 21.12, "nn1 icp_group": 0.0843, "nn1 chamfer": 15.02}
+BEFORE_FROM = "previous kernel, chip run of commit 7802f6a (PERF.md section 6)"
 PIPE_VIEWS = 24
 PIPE_CAM, PIPE_PROJ = (768, 576), (512, 256)
 # the pipeline phase's config: the default Config() with the scene's
@@ -270,6 +283,32 @@ def time_ms(fn, reps: int, warm: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def device_ms(fn, reps: int, kernel: str) -> float:
+    """Mean device time (ms) of the CUDA kernel whose name holds ``kernel``
+    over reps calls of fn, from torch.profiler's kernel records (the
+    profiler may miss the first launches after it starts: the mean is over
+    the records it kept). For a kernel shorter than its wrapper's host path
+    (tens of microseconds), the events around one call time that path, not
+    the kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us, count = 0.0, 0
+    for e in prof.key_averages():
+        if kernel in e.key:
+            t = getattr(e, "self_device_time_total", None)
+            us += t if t is not None else e.self_cuda_time_total
+            count += e.count
+    check(0 < count <= reps, f"profiler saw {count} launches of {kernel} in {reps} calls")
+    return us / count / 1e3
 
 
 def bound(nbytes: int, ops: int) -> tuple[float, str]:
@@ -843,6 +882,52 @@ def knn_library(pts, k: int):
                       for s in range(0, pts.shape[0], 4096)])
 
 
+def knn_float_topk(points, valid, k: int):
+    """The yardstick for knn.knn at the cluster step's shape: torch.topk
+    over the float difference distances of each [block, N] query block, the
+    selection whose tie order is free (timed, never used by the port)."""
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.ops import knn as knnlib
+
+    n = points.shape[0]
+    pts = knnlib._parked(points, valid)
+    cols = torch.arange(n, device=pts.device)
+    block = max(1, (1 << 26) // n)
+    out = []
+    for s in range(0, n, block):
+        d2 = knnlib.sq_dist(pts[s:s + block, None, :], pts[None, :, :])
+        rows = torch.arange(s, s + d2.shape[0], device=pts.device)
+        d2.masked_fill_(rows[:, None] == cols[None, :], float("inf"))
+        out.append(torch.topk(d2, k, dim=1, largest=False, sorted=True).indices)
+    return torch.cat(out)
+
+
+def knn_tie_check(dev, card: str) -> None:
+    """The port's k-NN on exact ties, on the card: 3,000 lattice points
+    (integer coordinates in [0, 6), seed 0), k = 16. The indices must equal
+    a stable argsort of the distances on the CPU on every row: the lowest
+    index first among equal distances."""
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.ops import knn as knnlib
+
+    lat = torch.from_numpy(np.random.default_rng(0).integers(0, 6, (3000, 3)).astype(np.float32))
+    ones = torch.ones(3000, dtype=torch.bool)
+    idx, d2 = knnlib.knn(lat.to(dev), ones.to(dev), 16)
+    dd = knnlib.sq_dist(lat[:, None, :], lat[None, :, :])
+    dd.fill_diagonal_(float("inf"))
+    ref = torch.sort(dd, dim=1, stable=True)
+    rows_equal = float((idx.cpu() == ref.indices[:, :16].to(torch.int32)).all(1).float().mean())
+    check(rows_equal == 1.0, f"knn lattice: indices equal a stable argsort on {rows_equal} of rows")
+    check(torch.equal(d2.cpu(), ref.values[:, :16]), "knn lattice: distances differ")
+    kth = ref.values[:, 15:16]
+    tied = (dd == kth).sum(1) > (ref.values[:, :16] == kth).sum(1)
+    print(json.dumps({"knn": "lattice ties", "rows": 3000, "k": 16, "idx_rows_equal": rows_equal,
+                      "kth_tied_beyond_k_share": float(tied.float().mean()), "card": card}),
+          flush=True)
+
+
 def ransac_library(hm, pm, sc, md2: float):
     """The yardstick for ransac_score: one matrix product in full f32 (TF32
     off) and the compare."""
@@ -865,6 +950,7 @@ def merge_kernel_phase(dev, ply_dir: str, poses, card: str) -> list[dict]:
         reconstruction as recon,
     )
     from structured_light_for_3d_model_replication_tpu_torch.ops import kernels
+    from structured_light_for_3d_model_replication_tpu_torch.ops import knn as knnlib
     from structured_light_for_3d_model_replication_tpu_torch.ops import pointcloud as pc
     from structured_light_for_3d_model_replication_tpu_torch.ops import (
         registration as reg,
@@ -909,12 +995,37 @@ def merge_kernel_phase(dev, ply_dir: str, poses, card: str) -> list[dict]:
         lib_ms = None
         if name == "icp_group":  # a yardstick only: [P, Nq, Nb] fits here, not at chamfer size
             lib_ms = time_ms(lambda: torch.cdist(q, b).min(dim=-1), reps=5)
+        if f"nn1 {name}" in MS_BEFORE:
+            extra.update(device_ms=device_ms(lambda: kernels.nn1(q, b), reps, "nn1_kernel"),
+                         ms_before=MS_BEFORE[f"nn1 {name}"], ms_before_from=BEFORE_FROM)
         return dict(name="nn1", fn=lambda: kernels.nn1(q, b), reps=reps, plain_ms=plain_ms,
                     library_ms=lib_ms,
                     err=err, bound=bound((q.numel() + b.numel()) * 4 + q.shape[0] * nq * 8,
                                          q.shape[0] * nq * nb * 9), extra=extra)
 
     rows.append(nn1_row("icp_group", q4, b4, reps=20))
+    # nn1 where a reduction across lanes can go wrong, idx and d2 bit-equal
+    # to the plain version in each: a lattice (integer coordinates, exact
+    # ties; idx must be the lowest index at the least distance), a base
+    # parked whole at knn.FAR (one d2 for every row; idx must be 0) and a
+    # ragged shape (nq and nb multiples of neither 32 nor a block)
+    g = np.random.default_rng(0)
+    lat_b = torch.from_numpy(g.integers(0, 6, (1, 3000, 3)).astype(np.float32)).to(dev)
+    lat_q = torch.from_numpy((g.integers(0, 12, (1, 2500, 3)) / 2).astype(np.float32)).to(dev)
+    rows.append(nn1_row("lattice", lat_q, lat_b, reps=20))
+    d = knnlib.sq_dist(lat_q[0][:, None, :], lat_b[0][None, :, :])
+    least = d.min(1).values
+    cols = torch.arange(d.shape[1], device=dev)
+    lowest = torch.where(d == least[:, None], cols, d.shape[1]).min(1).values
+    check(torch.equal(kernels.nn1(lat_q, lat_b)[0][0].long(), lowest),
+          "nn1 lattice: an index is not the lowest at the least distance")
+    rows[-1]["extra"]["tied_share"] = float(((d == least[:, None]).sum(1) > 1).float().mean())
+    del d
+    far = torch.full((1, 777, 3), knnlib.FAR, dtype=torch.float32, device=dev)
+    rows.append(nn1_row("all_far", q4[:1, :1000].contiguous(), far, reps=20))
+    check(bool((kernels.nn1(q4[:1, :1000].contiguous(), far)[0] == 0).all()),
+          "nn1 all_far: an index is not 0")
+    rows.append(nn1_row("ragged", q4[:, :1001].contiguous(), b4[:, :999].contiguous(), reps=20))
 
     # ransac_score: pair 1 -> 0's hypotheses, built as _ransac_core builds
     # them; 34 operations a (hypothesis, correspondence): 16 mul, 15 add in
@@ -953,11 +1064,19 @@ def merge_kernel_phase(dev, ply_dir: str, poses, card: str) -> list[dict]:
     L = pts_s.shape[0]
     win = 2 * 8192
 
+    def knn_row(case, x, k):
+        """knn_mean on x [L, 3] against its plain version, every row gated."""
+        return mean_row(f"knn_mean {case}", lambda: kernels.knn_mean(x, k),
+                        lambda: kernels.knn_mean_plain(x, k), k, x.shape[0], x.shape[0],
+                        {"shape": list(x.shape), "k": k}, every_row=True,
+                        real=x[:, 0] < knnlib.FAR)
+
     q32 = pts_s[:32768].contiguous()
-    row = mean_row("knn_mean", lambda: kernels.knn_mean(q32, 20),
-                   lambda: kernels.knn_mean_plain(q32, 20), 20, 32768, 32768,
-                   {"shape": [32768, 3], "k": 20})
+    row = knn_row("x-sorted", q32, 20)
     row["library_ms"] = time_ms(lambda: knn_library(q32, 20), reps=3, warm=1)
+    row["extra"].update(device_ms=device_ms(lambda: kernels.knn_mean(q32, 20), 5,
+                                            "knn_select_kernel"),
+                        ms_before=MS_BEFORE["knn_mean"], ms_before_from=BEFORE_FROM)
     rows.append(row)
     row = mean_row("slab_mean_knn",
                    lambda: kernels.slab_mean_knn(pts_s, r, 20, tile=64, wblk=8192),
@@ -998,6 +1117,34 @@ def merge_kernel_phase(dev, ply_dir: str, poses, card: str) -> list[dict]:
                              f"k within r")
         rows.append(row)
 
+    # knn_mean where a selection over the whole cloud can go wrong, every row
+    # gated: k = 1, k = 32 (the list's last lane), k = 40 (the bisection
+    # kernel), every row duplicated (exact ties at the k-th distance, the
+    # twin at d2 = 0 beside the query's own slot), a ragged L (the small
+    # arm's merged size), L < k (t = r2b + 1, the tie term carries every
+    # row), a cloud of parked rows with 8 real rows (fewer than k within the
+    # cutoff), and the x-sorted cloud in a seeded random row order, timed
+    # beside it: the sweep's start rotation pays off on ordered clouds only
+    check(kernels.SLAB_SELECT_MAX_K < 40, "k = 40 must take the bisection kernel")
+    parked = torch.full((4096, 3), knnlib.FAR, dtype=torch.float32, device=dev)
+    parked[::512] = q32[:8]
+    perm = torch.randperm(q32.shape[0], generator=torch.Generator(device=dev).manual_seed(1),
+                          device=dev)
+    shuffled = q32[perm].contiguous()
+    for case, x, kk in (("k=1", q32, 1), ("k=32", q32, 32), ("k=40", q32, 40),
+                        ("duplicated rows", torch.cat([q32[:16384], q32[:16384]]), 20),
+                        ("ragged", q32[:25533].contiguous(), 20), ("L<k", q32[:7].contiguous(), 20),
+                        ("mostly parked", parked, 20), ("random order", shuffled, 20)):
+        row = knn_row(case, x, kk)
+        if case == "mostly parked":
+            few = row["extra"]["fewer_than_k_share"]
+            check(few == 1.0, f"knn_mean mostly parked: {few} of the real rows have fewer than k")
+        if case == "random order":
+            row["extra"]["device_ms"] = device_ms(lambda: kernels.knn_mean(shuffled, 20), 5,
+                                                  "knn_select_kernel")
+        rows.append(row)
+    del parked, shuffled
+
     # nn1 at chamfer size: the merged cloud against a jittered copy of itself
     cq = cloud[valid][None].contiguous()
     jitter = torch.from_numpy(np.random.default_rng(0).normal(
@@ -1017,7 +1164,7 @@ def merge_kernel_phase(dev, ply_dir: str, poses, card: str) -> list[dict]:
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": r_.get("library_ms")}
         print(json.dumps(dict(line, card=card, clocks=clocks(), **r_["extra"])), flush=True)
         out.append(line)
-    del preps, q4, b4, pts, p, cloud, pts_s, cq, cb
+    del preps, q4, b4, pts, p, cloud, pts_s, cq, cb, q32, lat_q, lat_b, far
     torch.cuda.empty_cache()
     # one line per kernel: nn1's ICP-group case carries the table's numbers
     seen, lines = set(), []
@@ -1205,9 +1352,17 @@ def radius_phase(dev, data: str, calib: str, card: str) -> list[dict]:
                               "shape": list(sub.shape), "max_abs_err": err,
                               "ms": time_ms(lambda: kernels.radius_count(sub, r), reps=20),
                               "card": card}), flush=True)
+    # the cluster step's k-NN (k = 16 over the bucket, the view's rows valid)
+    # beside torch.topk on the float distances, whose tie order is free
+    pts_v = torch.from_numpy(padded).to(dev)
+    ms = time_ms(lambda: knnlib.knn(pts_v, valid, 16), reps=3, warm=1)
+    print(json.dumps({"knn": "cluster step shape", "shape": [bucket, 3], "points": n, "k": 16,
+                      "ms": ms, "float_topk_ms": time_ms(lambda: knn_float_topk(pts_v, valid, 16),
+                                                         reps=3, warm=1),
+                      "card": card}), flush=True)
+    knn_tie_check(dev, card)
     # the statistical step's slab_mean_knn at this view's shape: the clean
     # chain's bucket (invalid rows parked), its spacing-derived cell, k = 20
-    pts_v = torch.from_numpy(padded).to(dev)
     cell = 0.75 * pc._estimate_spacing(pts_v, valid)
     ps, _, rs = pc._slab_inputs(pts_v, valid, cell, 8192)
     row = mean_row("slab_mean_knn per view",

@@ -1,7 +1,7 @@
 // Point-cloud kernels of the merge path and the clean chain, for Hopper
 // (sm_90a).
 //
-// Six kernels (Pallas originals in structured_light_for_3d_model_replication_
+// Seven kernels (Pallas originals in structured_light_for_3d_model_replication_
 // tpu/ops/pallas_kernels.py):
 //
 //   radius_count_kernel   replaces _radius_kernel (call _radius_call, entry
@@ -31,13 +31,28 @@
 //                         TPU's |q|^2+|b|^2-2q.b expansion, so a pair's verdict
 //                         depends on its two points alone (the function the
 //                         JAX package's exact twin radius_count_np computes).
-//   nn1_kernel            replaces _nn1_kernel (call _nn1_call): brute 1-NN.
-//                         One thread per query, the base staged through shared
-//                         memory in tiles, running min/argmin in registers. The
-//                         scan is sequential with a strict '<', so ties go to
-//                         the lowest base index (the Pallas kernel's rule, :414).
-//                         A leading pair axis (grid.y) makes one launch serve
-//                         every pair of a register_pairs group.
+//   nn1_kernel            replaces _nn1_kernel (call _nn1_call): brute 1-NN,
+//                         ties to the lowest base index (the Pallas kernel's
+//                         rule, :414). Bound by operations (~11 issued a pair
+//                         without FMAs: the d2, a compare, two selects) and, at
+//                         the ICP group's [4, 2048, 2048], by filling the card:
+//                         a warp carries kNnQpw = 8 queries and its lanes
+//                         stride over the base (lane l: rows l, l + 32, ...),
+//                         so the grid is pairs x nq / 64 blocks of 8 warps (128
+//                         at the ICP group, one an SM) and three reads of shared
+//                         memory feed eight pairs. The base streams through a
+//                         two-slot cp.async ring of 1024-row chunks, the ragged
+//                         tail padded with +inf. Each lane keeps a running
+//                         (d2, j) by a strict '<' over rising j from (+inf, 0);
+//                         a butterfly takes the lexicographic (d2, j) minimum
+//                         over the lanes, which equals one sequential scan bit
+//                         for bit (a NaN never wins; a row with no finite
+//                         distance keeps (+inf, 0)). No atomics, one launch: a
+//                         leading pair axis (grid.y) serves every pair of a
+//                         register_pairs group. (4 or 16 queries a warp, 4 or
+//                         16 warps a block and 512-row chunks were tried on the
+//                         card beside this; none was faster at both shapes
+//                         without 126 registers a thread.)
 //   ransac_score_kernel   replaces _ransac_score_kernel: inlier counts of T
 //                         rigid hypotheses, d2 = sc + 2 * (H[t] . P[n]) with
 //                         the 16-term dot summed in a fixed order. One thread
@@ -83,9 +98,25 @@
 //                         window start (lower_bound of its tile's first x
 //                         minus r, aligned down to wblk, at most nblk - 2):
 //                         that was the TPU's scalar prefetch.
-//   knn_mean_kernel       replaces _knn_mean_kernel: exact mean distance to
-//   slab_knn_mean_kernel  the k nearest candidates among the whole cloud, and
-//                         the slab statistic for k > 32 (what one lane's list
+//   knn_select_kernel     replaces _knn_mean_kernel for k <= 32: the exact
+//                         mean distance to the k nearest rows of the whole
+//                         cloud [0, L) (any L >= 1) and the count within the
+//                         1e17 cutoff, by slab_select_kernel's one-sweep warp
+//                         selection, with three differences. The gate of the
+//                         rare branch is bits < tau (at a 1e17 cutoff nearly
+//                         every row is "within r", so the slab kernel's gate
+//                         would fire on every step); the count of bits <= r2b
+//                         is one f32 compare-and-add a pair in the hot loop,
+//                         reduced over the lanes once at the end, the query's
+//                         own term then taken off; each block starts its sweep
+//                         at the chunk that holds its first query and wraps
+//                         around, so on the clouds of the path (x-sorted, or in
+//                         voxel order) tau falls in the first chunk. Slots past
+//                         L in the last chunk hold +inf and vote false (votes
+//                         need all 32 lanes); query rows past L load clamped
+//                         and write nothing.
+//   knn_mean_kernel       replaces _knn_mean_kernel for k > 32, and
+//   slab_knn_mean_kernel  _slab_bisect_kernel for k > 32 (what one lane's list
 //                         entry cannot hold). Both run knn_mean_tile: a block of
 //                         32 warps takes 64 queries, two a warp; the k-th
 //                         smallest squared distance is found by 31 passes of
@@ -94,12 +125,12 @@
 //                         candidates <= mid with __reduce_add_sync; then one
 //                         masked sum of sqrt(d2) below the k-th plus the tie
 //                         correction. 33 sweeps of every d2. The whole-cloud
-//                         kernel (<= 32768 points) streams the cloud through a
-//                         16384-point shared buffer, from L2, once per pass.
+//                         kernel streams the cloud through a 16384-point
+//                         shared buffer, from L2, once per pass.
 //
 // Self-exclusion is by global index everywhere: a query's own slot is above
 // every cutoff (the bisection kernels give it bits 2^31 - 2; the selection
-// kernel keeps it out of the queue and takes its term off the count).
+// kernels keep it out of the queue and take its term off the count).
 //
 // Float order: every distance is ((dx*dx + dy*dy) + dz*dz), each step with
 // __fsub_rn/__fmul_rn/__fadd_rn, so no FMA contraction changes a bit against
@@ -112,7 +143,11 @@
 
 namespace {
 
-constexpr int kNnThreads = 128;     // queries per nn1 block = base tile
+constexpr int kNnWarps = 8;
+constexpr int kNnQpw = 8;           // queries an nn1 warp carries
+constexpr int kNnQueries = kNnWarps * kNnQpw;
+constexpr int kNnThreads = kNnWarps * 32;
+constexpr int kNnChunk = 1024;      // base rows a ring slot
 constexpr int kRcThreads = 128;     // threads of a radius_count block
 constexpr int kRcQ = 8;             // queries a radius_count thread carries
 constexpr int kRcQueries = kRcThreads * kRcQ;
@@ -159,46 +194,90 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// Rows [r0, r0 + m) of pts [*, 3] into a ring slot of floats (x, y, z a
+// row), 4 bytes a cp.async by the block's Threads threads; the slots past m
+// up to the next whole warp step hold +inf, whose distance is above every
+// running minimum, threshold and cutoff, so those lanes vote false.
+template <int Threads>
+__device__ __forceinline__ void stage_rows(float* slot, const float* __restrict__ pts, int r0, int m) {
+  const float* src = pts + 3LL * r0;
+  for (int e = threadIdx.x; e < 3 * m; e += Threads) cp_async4(slot + e, src + e);
+  const int pad = 3 * (((m + 31) & ~31) - m);
+  for (int e = threadIdx.x; e < pad; e += Threads) slot[3 * m + e] = __int_as_float(0x7f800000);
+  cp_async_commit();
+}
+
 // ---------------------------------------------------------------------------
 // nn1
 // ---------------------------------------------------------------------------
 
+// Queries [blockIdx.x * kNnQueries, +kNnQueries) of pair blockIdx.y,
+// kNnQpw a warp. Lane l scans base rows l, l + 32, ... in rising order with
+// a strict '<', so it holds the lowest index among its own equal minima; the
+// butterfly then takes the (d2, j) lexicographic minimum of the 32 lanes,
+// which is what one sequential strict-'<' scan from (+inf, 0) returns.
 __global__ void __launch_bounds__(kNnThreads)
 nn1_kernel(const float* __restrict__ q, const float* __restrict__ base, int32_t* __restrict__ idx_out,
            float* __restrict__ d2_out, int nq, int nb) {
-  __shared__ float4 tile[kNnThreads];
+  __shared__ float ring[2][3 * kNnChunk];
   const long long p = blockIdx.y;
   const float* qp = q + p * nq * 3;
   const float* bp = base + p * nb * 3;
-  const int i = blockIdx.x * kNnThreads + threadIdx.x;
-  const bool live = i < nq;
-  float qx = 0.f, qy = 0.f, qz = 0.f;
-  if (live) {
-    qx = qp[3LL * i];
-    qy = qp[3LL * i + 1];
-    qz = qp[3LL * i + 2];
+  const int lane = threadIdx.x & 31;
+  const int qw0 = (int)blockIdx.x * kNnQueries + (threadIdx.x >> 5) * kNnQpw;
+  float qx[kNnQpw], qy[kNnQpw], qz[kNnQpw], best[kNnQpw];
+  int best_j[kNnQpw];
+#pragma unroll
+  for (int j = 0; j < kNnQpw; ++j) {
+    const long long i = min(qw0 + j, nq - 1);  // rows past nq load clamped and write nothing
+    qx[j] = qp[3 * i];
+    qy[j] = qp[3 * i + 1];
+    qz[j] = qp[3 * i + 2];
+    best[j] = __int_as_float(0x7f800000);  // +inf
+    best_j[j] = 0;
   }
-  float best = __int_as_float(0x7f800000);  // +inf
-  int best_j = 0;
-  for (int t0 = 0; t0 < nb; t0 += kNnThreads) {
-    const int j = t0 + threadIdx.x;
-    if (j < nb) tile[threadIdx.x] = make_float4(bp[3LL * j], bp[3LL * j + 1], bp[3LL * j + 2], 0.f);
+  const int nchunks = (nb + kNnChunk - 1) / kNnChunk;
+  stage_rows<kNnThreads>(ring[0], bp, 0, min(kNnChunk, nb));
+  for (int ch = 0; ch < nchunks; ++ch) {
+    const int j0 = ch * kNnChunk;
+    if (ch + 1 < nchunks) {
+      stage_rows<kNnThreads>(ring[(ch + 1) & 1], bp, j0 + kNnChunk, min(kNnChunk, nb - j0 - kNnChunk));
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
     __syncthreads();
-    const int n = min(kNnThreads, nb - t0);
-#pragma unroll 8
-    for (int c = 0; c < n; ++c) {
-      const float4 b = tile[c];
-      const float d = d2_diff(qx, qy, qz, b.x, b.y, b.z);
-      if (d < best) {
-        best = d;
-        best_j = t0 + c;
+    const float* buf = ring[ch & 1];
+    const int n = (min(kNnChunk, nb - j0) + 31) & ~31;
+#pragma unroll 4
+    for (int c = lane; c < n; c += 32) {
+      const float bx = buf[3 * c], by = buf[3 * c + 1], bz = buf[3 * c + 2];
+#pragma unroll
+      for (int j = 0; j < kNnQpw; ++j) {
+        const float d = d2_diff(qx[j], qy[j], qz[j], bx, by, bz);
+        if (d < best[j]) {
+          best[j] = d;
+          best_j[j] = j0 + c;
+        }
       }
     }
     __syncthreads();
   }
-  if (live) {
-    idx_out[p * nq + i] = best_j;
-    d2_out[p * nq + i] = best;
+#pragma unroll
+  for (int j = 0; j < kNnQpw; ++j) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const float od = __shfl_xor_sync(kFull, best[j], o);
+      const int oj = __shfl_xor_sync(kFull, best_j[j], o);
+      if (od < best[j] || (od == best[j] && oj < best_j[j])) {
+        best[j] = od;
+        best_j[j] = oj;
+      }
+    }
+    if (lane == j && qw0 + j < nq) {
+      idx_out[p * nq + qw0 + j] = best_j[j];
+      d2_out[p * nq + qw0 + j] = best[j];
+    }
   }
 }
 
@@ -489,6 +568,21 @@ __device__ __forceinline__ void sel_flush(int* q, int& qn, int& list, int& tau, 
   tau = min(r2b + 1, __shfl_sync(kFull, list, k - 1));
 }
 
+// The bisection's statistic from a list sorted across the lanes that holds
+// the k smallest bit patterns: t = min(k-th, r2b + 1), the sum of sqrt over
+// the entries < t in a fixed butterfly order (the same bits on every run),
+// plus (k - #less) * sqrt(t), over k. Warp-uniform.
+__device__ __forceinline__ float sel_mean(int list, int lane, int k, int r2b) {
+  const int t = min(__shfl_sync(kFull, list, k - 1), r2b + 1);
+  const bool lt = lane < k && list < t;
+  float s = lt ? sqrtf(__int_as_float(list)) : 0.f;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) s = __fadd_rn(s, __shfl_xor_sync(kFull, s, o));
+  const int c_lt = __popc(__ballot_sync(kFull, lt));
+  const float tie = __fmul_rn((float)(k - c_lt), sqrtf(__int_as_float(t)));
+  return __fdiv_rn(__fadd_rn(s, tie), (float)k);
+}
+
 __global__ void __launch_bounds__(kSelThreads, 2)
 slab_select_kernel(const float* __restrict__ pts, int L, int k, int r2b, int wblk, int tile, float r,
                    float* __restrict__ mean_out, int32_t* __restrict__ cnt_out, int32_t* __restrict__ end_out) {
@@ -517,12 +611,7 @@ slab_select_kernel(const float* __restrict__ pts, int L, int k, int r2b, int wbl
     qn[j] = 0;
     cnt[j] = 0;
   }
-  auto stage = [&](int slot, int s) {
-    const float* src = pts + 3LL * (c0 + s);
-    const int m = 3 * min(kSelChunk, nc - s);
-    for (int e = threadIdx.x; e < m; e += kSelThreads) cp_async4(&ring[slot][e], src + e);
-    cp_async_commit();
-  };
+  auto stage = [&](int slot, int s) { stage_rows<kSelThreads>(ring[slot], pts, c0 + s, min(kSelChunk, nc - s)); };
   const int nchunks = (nc + kSelChunk - 1) / kSelChunk;
   stage(0, 0);
   for (int ch = 0; ch < nchunks; ++ch) {
@@ -569,20 +658,111 @@ slab_select_kernel(const float* __restrict__ pts, int L, int k, int r2b, int wbl
   for (int j = 0; j < kSelQpw; ++j) {
     if (qn[j] > 0) sel_flush(queue[warp][j], qn[j], list[j], tau[j], qn[j], lane, k, r2b);
     const int qg = tq0 + warp * kSelQpw + j;
-    const int t = min(__shfl_sync(kFull, list[j], k - 1), r2b + 1);
-    const bool lt = lane < k && list[j] < t;
-    float s = lt ? sqrtf(__int_as_float(list[j])) : 0.f;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) s = __fadd_rn(s, __shfl_xor_sync(kFull, s, o));
-    const int c_lt = __popc(__ballot_sync(kFull, lt));
+    const float mean = sel_mean(list[j], lane, k, r2b);
     int ok = cnt[j];
     // the query's own slot was counted where the window holds it
     if (qg >= c0 && qg < c0 + nc && d2_diff(qx[j], qy[j], qz[j], qx[j], qy[j], qz[j]) <= r2) ok -= 1;
     if (lane == 0) {
-      const float tie = __fmul_rn((float)(k - c_lt), sqrtf(__int_as_float(t)));
-      mean_out[qg] = __fdiv_rn(__fadd_rn(s, tie), (float)k);
+      mean_out[qg] = mean;
       cnt_out[qg] = ok;
       end_out[qg] = c0 + nc;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// whole-cloud k-NN mean, k <= 32: the same selection over every row
+// ---------------------------------------------------------------------------
+
+// Queries [blockIdx.x * 64, +64) of pts [L, 3] (any L >= 1) against all L
+// rows. The sweep starts at the chunk that holds the block's first query and
+// wraps around: on an x-sorted or voxel-ordered cloud the index neighbours
+// come first, tau falls to near its final value in that chunk, and the rare
+// branch stays rare. The kept set (the k smallest bit patterns), the butterfly
+// sum over it and the integer count do not depend on the sweep order.
+__global__ void __launch_bounds__(kSelThreads, 2)
+knn_select_kernel(const float* __restrict__ pts, int L, int k, int r2b, float* __restrict__ mean_out,
+                  int32_t* __restrict__ cnt_out) {
+  __shared__ float ring[2][3 * kSelChunk];              // 24 KB: two chunks of the cloud
+  __shared__ int queue[kSelWarps][kSelQpw][kSelQueue];  // 16 KB
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  const int tq0 = (int)blockIdx.x * kSelTile;
+  const int qw0 = tq0 + warp * kSelQpw;  // the warp's first query
+  const float r2 = __int_as_float(r2b);
+  float qx[kSelQpw], qy[kSelQpw], qz[kSelQpw], cnt[kSelQpw], tauf[kSelQpw];
+  int list[kSelQpw], qn[kSelQpw];
+#pragma unroll
+  for (int j = 0; j < kSelQpw; ++j) {
+    const long long qi = min(qw0 + j, L - 1);  // rows past L load clamped and write nothing
+    qx[j] = pts[3 * qi];
+    qy[j] = pts[3 * qi + 1];
+    qz[j] = pts[3 * qi + 2];
+    cnt[j] = 0.f;  // exact: a lane sees at most L / 32 + 1 rows
+    tauf[j] = __int_as_float(r2b + 1);
+    list[j] = kIntMax;
+    qn[j] = 0;
+  }
+  const int nchunks = (L + kSelChunk - 1) / kSelChunk;
+  auto rows = [&](int ch) { return min(kSelChunk, L - ch * kSelChunk); };
+  int ch = tq0 / kSelChunk;
+  stage_rows<kSelThreads>(ring[0], pts, ch * kSelChunk, rows(ch));
+  for (int i = 0; i < nchunks; ++i) {
+    const int next = ch + 1 == nchunks ? 0 : ch + 1;
+    if (i + 1 < nchunks) {
+      stage_rows<kSelThreads>(ring[(i + 1) & 1], pts, next * kSelChunk, rows(next));
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* buf = ring[i & 1];
+    const int n = (rows(ch) + 31) & ~31;
+    const int cg0 = ch * kSelChunk;
+#pragma unroll kSelUnroll
+    for (int c = lane; c < n; c += 32) {
+      const float cx = buf[3 * c], cy = buf[3 * c + 1], cz = buf[3 * c + 2];
+      float d[kSelQpw];
+      bool under = false;
+#pragma unroll
+      for (int j = 0; j < kSelQpw; ++j) {
+        d[j] = d2_diff(qx[j], qy[j], qz[j], cx, cy, cz);
+        cnt[j] += d[j] <= r2 ? 1.f : 0.f;  // at a 1e17 cutoff nearly every row counts
+        under |= d[j] < tauf[j];           // bits < tau: d >= 0, so the float order is the bits' order
+      }
+      // rare once tau has fallen: a candidate under one of the warp's thresholds
+      if (__any_sync(kFull, under)) {
+#pragma unroll
+        for (int j = 0; j < kSelQpw; ++j) {
+          const bool take = d[j] < tauf[j] && cg0 + c != qw0 + j;
+          const unsigned m = __ballot_sync(kFull, take);
+          if (m) {
+            if (take) queue[warp][j][qn[j] + __popc(m & below)] = __float_as_int(d[j]);
+            qn[j] += __popc(m);
+            if (qn[j] >= 32) {
+              int tau;
+              sel_flush(queue[warp][j], qn[j], list[j], tau, 32, lane, k, r2b);
+              tauf[j] = __int_as_float(tau);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();
+    ch = next;
+  }
+#pragma unroll
+  for (int j = 0; j < kSelQpw; ++j) {
+    int tau;
+    if (qn[j] > 0) sel_flush(queue[warp][j], qn[j], list[j], tau, qn[j], lane, k, r2b);
+    const float mean = sel_mean(list[j], lane, k, r2b);
+    // the query's own row was counted: take its term off
+    int ok = __reduce_add_sync(kFull, (int)cnt[j]);
+    if (d2_diff(qx[j], qy[j], qz[j], qx[j], qy[j], qz[j]) <= r2) ok -= 1;
+    if (lane == 0 && qw0 + j < L) {
+      mean_out[qw0 + j] = mean;
+      cnt_out[qw0 + j] = ok;
     }
   }
 }
@@ -597,7 +777,8 @@ extern "C" {
 
 int slscan_nn1(const float* q, const float* base, int32_t* idx, float* d2, int pairs, int nq, int nb,
                cudaStream_t stream) {
-  const dim3 grid((nq + kNnThreads - 1) / kNnThreads, pairs);
+  if (nq < 1 || nb < 1 || pairs < 1 || pairs > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((nq + kNnQueries - 1) / kNnQueries, pairs);
   nn1_kernel<<<grid, kNnThreads, 0, stream>>>(q, base, idx, d2, nq, nb);
   return (int)cudaGetLastError();
 }
@@ -627,6 +808,15 @@ int slscan_ransac_score(const float* h, const float* pm, const float* sc, float 
 }
 
 int slscan_knn_mean(const float* pts, int L, int k, int r2b, float* mean, int32_t* cnt, cudaStream_t stream) {
+  // one list entry a lane; any L >= 1 (the ragged tail is masked in the ring)
+  if (L < 1 || k < 1 || k > 32) return (int)cudaErrorInvalidValue;
+  knn_select_kernel<<<(L + kSelTile - 1) / kSelTile, kSelThreads, 0, stream>>>(pts, L, k, r2b, mean, cnt);
+  return (int)cudaGetLastError();
+}
+
+int slscan_knn_mean_bisect(const float* pts, int L, int k, int r2b, float* mean, int32_t* cnt,
+                           cudaStream_t stream) {
+  if (L < 1 || k < 1) return (int)cudaErrorInvalidValue;
   cudaError_t err = allow_smem((const void*)knn_mean_kernel);
   if (err != cudaSuccess) return (int)err;
   const size_t smem = 3 * sizeof(float) * (size_t)(L < kChunk ? L : kChunk);

@@ -9,7 +9,8 @@ merge path's and the clean chain's in ``csrc/cloud.cu``:
   scan_fused          decode + quadratic triangulate (_scan_fused_kernel)
   nn1                 brute 1-NN, leading pair axis  (_nn1_kernel)
   ransac_score        RANSAC hypothesis inlier counts (_ransac_score_kernel)
-  knn_mean            exact k-NN mean over a cloud   (_knn_mean_kernel)
+  knn_mean            exact k-NN mean over a cloud   (_knn_mean_kernel;
+                      one selection sweep for k <= 32, bisection above)
   slab_mean_knn       the same over x-sorted windows (_slab_bisect_kernel;
                       one selection sweep for k <= 32, bisection above)
   radius_count        neighbours within r, self excluded (_radius_kernel)
@@ -53,6 +54,7 @@ _SIGNATURES = {
     "slscan_nn1": [_P] * 4 + [_I] * 3 + [_P],
     "slscan_ransac_score": [_P] * 3 + [_F, _P, _I, _I, _P],
     "slscan_knn_mean": [_P, _I, _I, _I, _P, _P, _P],
+    "slscan_knn_mean_bisect": [_P, _I, _I, _I, _P, _P, _P],
     "slscan_slab_mean_knn": [_P] + [_I] * 5 + [_F] + [_P] * 4,
     "slscan_slab_mean_knn_bisect": [_P] + [_I] * 5 + [_F] + [_P] * 4,
     "slscan_radius_count": [_P, _I, _F, _P, _P],
@@ -390,7 +392,12 @@ def nn1_plain(q: torch.Tensor, base: torch.Tensor):
 def nn1(q: torch.Tensor, base: torch.Tensor):
     """Brute 1-NN with a leading pair axis (see nn1_plain). Invalid base
     rows are the caller's to park far away (registration parks them at
-    1e9, as the Pallas path does); d2 is the exact difference distance."""
+    1e9, as the Pallas path does); d2 is the exact difference distance.
+
+    ``nn1_kernel``: a warp carries 8 queries and its lanes stride over the
+    base, each lane keeping a running (d2, j) by a strict '<'; a butterfly
+    takes the lexicographic (d2, j) minimum over the lanes, which equals the
+    sequential scan (ties to the lowest index) bit for bit. One launch."""
     if _on_cpu(q, base):
         return nn1_plain(q, base)
     if q.dim() != 3 or base.dim() != 3 or base.shape[0] != q.shape[0]:
@@ -453,6 +460,9 @@ def ransac_score(hm: torch.Tensor, pm: torch.Tensor, sc: torch.Tensor,
 
 # K6, K7: k-NN means ------------------------------------------------------------
 
+SLAB_SELECT_MAX_K = 32  # the selection kernels keep one list entry a lane
+
+
 def _knn_mean_rows(d2: torch.Tensor, self_mask: torch.Tensor, k: int, r2b: int):
     """[rows, cands] squared distances -> (mean, count(bits <= r2b)): the
     bisection kernels' statistic, with the k-th smallest bit pattern t taken
@@ -490,17 +500,31 @@ def knn_mean_plain(pts: torch.Tensor, k: int):
 
 
 def knn_mean(pts: torch.Tensor, k: int):
-    """Exact k-NN mean over a whole cloud pts f32 [L, 3] (invalid rows
-    parked far away by the caller); see knn_mean_plain. Cutoff 1e17."""
+    """Exact k-NN mean over a whole cloud pts f32 [L, 3], any L (invalid
+    rows parked far away by the caller); see knn_mean_plain. Cutoff 1e17.
+
+    Two kernels compute the function, chosen by k alone, as for
+    ``slab_mean_knn`` (both are launched and held against the plain version
+    on the card; neither falls back to the other):
+
+    - k <= 32 (``SLAB_SELECT_MAX_K``): ``knn_select_kernel``, one sweep of
+      the whole cloud with the slab kernel's warp-level k-selection, each
+      block starting at its own chunk and wrapping around;
+    - k > 32: ``knn_mean_kernel``, 31 bisection sweeps on the f32 bit
+      pattern plus a count and a sum sweep.
+    """
     if _on_cpu(pts):
         return knn_mean_plain(pts, k)
+    if k < 1:
+        raise ValueError(f"knn_mean: k must be at least 1, got {k}")
     n = pts.shape[0]
     _check(pts, "pts", torch.float32, (n, 3))
     mean = torch.empty(n, dtype=torch.float32, device=pts.device)
     cnt = torch.empty(n, dtype=torch.int32, device=pts.device)
     if n:
-        _launch("slscan_knn_mean", pts.device, pts.data_ptr(), n, int(k),
-                _KNN_R2_BITS, mean.data_ptr(), cnt.data_ptr())
+        name = "slscan_knn_mean" if k <= SLAB_SELECT_MAX_K else "slscan_knn_mean_bisect"
+        _launch(name, pts.device, pts.data_ptr(), n, int(k), _KNN_R2_BITS,
+                mean.data_ptr(), cnt.data_ptr())
         knn_mean.launches += 1
     return mean, cnt
 
@@ -547,9 +571,6 @@ def slab_mean_knn_plain(pts_sorted: torch.Tensor, r: float, k: int, tile: int,
         cnts.append(c.reshape(-1))
     win_end = torch.repeat_interleave(starts + w, tile).to(torch.int32)
     return torch.cat(means), torch.cat(cnts), win_end
-
-
-SLAB_SELECT_MAX_K = 32  # the selection kernel keeps one list entry a lane
 
 
 def slab_mean_knn(pts_sorted: torch.Tensor, r: float, k: int, tile: int = 64,

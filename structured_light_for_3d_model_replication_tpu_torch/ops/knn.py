@@ -5,8 +5,8 @@ merge reads:
 
   sq_dist           squared distances by coordinate differences
   knn               exact k nearest valid neighbours, blocked ``torch.topk``
-                    over difference distances, at any N (feature prep,
-                    normals, the cluster step's k-NN graph)
+                    over (difference distance, index) keys, at any N
+                    (feature prep, normals, the cluster step's k-NN graph)
   radius_count      valid neighbours within a radius, the ``radius_count``
                     kernel at any N (the clean chain's cluster and radius
                     steps)
@@ -43,30 +43,78 @@ def sq_dist(q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2]
 
 
+def _sq_dist_block(q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """sq_dist(q[:, None], c[None]) as [len(q), len(c)], one coordinate at a
+    time: the same rounded steps without the [.., 3] difference temporary."""
+    d2 = q[:, 0:1] - c[None, :, 0]
+    d2.mul_(d2)
+    t = q[:, 1:2] - c[None, :, 1]
+    d2.add_(t.mul_(t))
+    torch.sub(q[:, 2:3], c[None, :, 2], out=t)
+    return d2.add_(t.mul_(t))
+
+
+def _keys(d2: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """int64 keys (d2 bits << 32) | column: d2 is >= 0 or +inf, so its bit
+    pattern orders as the float does, and the column breaks exact ties
+    towards the lowest index."""
+    return (d2.view(torch.int32).to(torch.int64) << 32) | cols
+
+
+def _smallest_keys(d2: torch.Tensor, kk: int):
+    """(The kk smallest (d2, column) keys of every row of d2 [rows, N],
+    ascending; the rows where they may be the wrong columns). ``torch.topk``
+    on the floats takes the kk + 1 smallest values, which are exact, and the
+    kk columns kept are sorted by key. Only where the (kk + 1)-th value
+    equals the kk-th does a tie cross the cut, and the columns kept of that
+    tie may not be its lowest."""
+    v, j = torch.topk(d2, min(kk + 1, d2.shape[1]), dim=1, largest=False, sorted=True)
+    key = torch.sort(_keys(v[:, :kk], j[:, :kk]), dim=1).values
+    if v.shape[1] == kk:
+        return key, torch.zeros(d2.shape[0], dtype=torch.bool, device=d2.device)
+    return key, v[:, kk] == v[:, kk - 1]
+
+
 def knn(points: torch.Tensor, valid: torch.Tensor, k: int,
         exclude_self: bool = True):
     """k nearest valid neighbours of every point: (idx i32 [N, k], d2 f32
     [N, k]) ascending, exact at every size (the JAX package's ``"topk"``
     selector). Query blocks against the whole cloud, ``torch.topk`` per
-    block: the distance block is [block, N], never [N, N]. Rows of invalid
-    points hold arbitrary (masked) results; fewer than k other rows leave
-    +inf slots."""
+    block: the distance block is [block, N], never [N, N]. Neighbours are
+    ordered by (d2, index): on exact ties the lowest index comes first, the
+    order of ``lax.top_k`` in the JAX package and of the ``nn1`` kernel.
+    Valid rows where a tie crosses the k-th place take a top-k over all
+    their (d2, index) keys, after one host sync for the whole call. Rows of
+    invalid points hold arbitrary (masked) results; fewer than k other rows
+    leave +inf slots."""
     n = points.shape[0]
     pts = _parked(points, valid)
     kk = min(k, n)
     block = max(1, (_BLOCK_CUDA if pts.is_cuda else _BLOCK) // max(n, 1))
     cols = torch.arange(n, device=points.device)
-    idx_out, d2_out = [], []
-    for s in range(0, n, block):
-        d2 = sq_dist(pts[s:s + block, None, :], pts[None, :, :])
+
+    def distances(rows: torch.Tensor) -> torch.Tensor:
+        d2 = _sq_dist_block(pts[rows], pts)
         if exclude_self:
-            rows = torch.arange(s, s + d2.shape[0], device=points.device)
-            d2 = d2.masked_fill(rows[:, None] == cols[None, :], float("inf"))
-        v, j = torch.topk(d2, kk, dim=1, largest=False, sorted=True)
-        idx_out.append(j.to(torch.int32))
-        d2_out.append(v)
-    idx = torch.cat(idx_out) if idx_out else torch.zeros((0, kk), dtype=torch.int32)
-    d2 = torch.cat(d2_out) if d2_out else torch.zeros((0, kk))
+            d2.masked_fill_(rows[:, None] == cols[None, :], float("inf"))
+        return d2
+
+    keys, redo = [], []
+    for s in range(0, n, block):
+        key, cross = _smallest_keys(distances(cols[s:s + block]), kk)
+        keys.append(key)
+        redo.append(cross & valid[s:s + block])
+    if keys:
+        key = torch.cat(keys)
+        rows = torch.cat(redo).nonzero()[:, 0]
+        for s in range(0, rows.shape[0], block):
+            r = rows[s:s + block]
+            key[r] = torch.topk(_keys(distances(r), cols), kk, dim=1, largest=False,
+                                sorted=True).values
+    else:
+        key = torch.zeros((0, kk), dtype=torch.int64, device=points.device)
+    idx = (key & 0xFFFFFFFF).to(torch.int32)
+    d2 = (key >> 32).to(torch.int32).view(torch.float32)
     if kk < k:  # fewer rows than k: pad with empty slots
         idx = torch.cat([idx, idx.new_zeros((n, k - kk))], 1)
         d2 = torch.cat([d2, d2.new_full((n, k - kk), float("inf"))], 1)

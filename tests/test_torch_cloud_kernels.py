@@ -18,10 +18,15 @@ numpy from a seed. Tolerances:
 - slab_mean_knn: counts and window ends exact, certified means within rtol
   1e-5 of the Pallas kernel and of the cKDTree twin
   (tests/test_pointcloud_ops.py:356's bound);
-- the selection kernel's statistic (the sorted k smallest bit patterns a
-  one-sweep k-selection keeps, rebuilt here in numpy): its k-list equal to
-  the sorted k smallest, counts exact, means within rtol 1e-5 of the plain
-  version's _knn_mean_rows and of the Pallas kernel, on every row.
+- the selection kernels' statistic (the sorted k smallest bit patterns a
+  one-sweep k-selection keeps, rebuilt here in numpy, for the slab windows
+  and for the whole cloud with the sweep's start rotated): its k-list equal
+  to the sorted k smallest, counts exact, means within rtol 1e-5 of the
+  plain version's _knn_mean_rows and of the Pallas kernel, on every row;
+- nn1's lane reduction (per-lane strict-'<' scans, then a (d2, j)
+  lexicographic butterfly, rebuilt in numpy): indices and distances equal
+  to one sequential scan and to the plain version, bit for bit, and on a
+  lattice to the Pallas kernel.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -287,6 +292,174 @@ def test_selection_statistic_matches_plain_rows_and_pallas(case, k):
         assert (cnts[:1000] >= 1).all()       # each real row's twin, at d2 = 0
     else:
         assert few < 0.5
+
+
+_CHUNK = 1024       # knn_select_kernel's ring slot (cloud.cu kSelChunk)
+_BLOCK_Q = 64       # queries a block (kSelTile)
+_INF_BITS = np.int32(0x7F800000)
+
+
+def _dense_stream(bits, qg, k, r2b):
+    """One query's sweep as knn_select_kernel makes it: the whole cloud in
+    chunks of _CHUNK rows, starting at the chunk that holds the first query
+    of the query's block and wrapping around; each chunk's tail padded to a
+    whole warp step with +inf; 32 lanes a step; a candidate other than the
+    query itself queues where bits < tau = min(k-th kept, r2b + 1); at 32
+    queued the queue merges into the 32-entry sorted list and tau tightens.
+    bits: the query's bit patterns against every row, own slot included.
+    Returns (list, count of bits <= r2b without the own slot)."""
+    L = len(bits)
+    nch = -(-L // _CHUNK)
+    ch0 = (qg // _BLOCK_Q * _BLOCK_Q) // _CHUNK
+    lst = np.full(32, _INT_MAX, np.int32)
+    tau = r2b + 1
+    queue, cnt = [], 0
+    for i in range(nch):
+        c0 = ((ch0 + i) % nch) * _CHUNK
+        n = min(_CHUNK, L - c0)
+        chunk = np.full(-(-n // 32) * 32, _INF_BITS, np.int32)
+        chunk[:n] = bits[c0:c0 + n]
+        cnt += int((chunk <= r2b).sum())
+        for s in range(0, len(chunk), 32):
+            queue += [b for j, b in enumerate(chunk[s:s + 32], c0 + s) if b < tau and j != qg]
+            if len(queue) >= 32:
+                lst = np.sort(np.concatenate([lst, np.asarray(queue[:32], np.int32)]))[:32]
+                queue = queue[32:]
+                tau = min(r2b + 1, int(lst[k - 1]))
+    if queue:
+        lst = np.sort(np.concatenate([lst, np.asarray(queue, np.int32)]))[:32]
+    return lst, cnt - int(bits[qg] <= r2b)
+
+
+def _dense_cloud(case, rng):
+    base = rng.uniform(0, 30, (1300, 3)).astype(np.float32)
+    if case == "ties":        # every row twice: exact ties at the k-th distance
+        pts = np.concatenate([base[:1200], base[:1200]])
+    elif case == "sparse":    # mostly parked rows: fewer than k real rows
+        pts = np.full((2100, 3), np.float32(knnlib.FAR), np.float32)
+        pts[::150] = base[:14]
+    elif case == "ragged":    # L a multiple of neither 32 nor the chunk, three chunks
+        pts = base[:1300].copy()
+        pts = np.concatenate([pts, rng.uniform(0, 30, (1201, 3)).astype(np.float32)])
+    else:
+        pts = base
+    return pts[np.argsort(pts[:, 0], kind="stable")] if case != "sparse" else pts
+
+
+@pytest.mark.parametrize("case", ["ties", "sparse", "self", "ragged"])
+@pytest.mark.parametrize("k", [1, 20, 32])
+def test_dense_selection_replay_matches_plain_rows_and_pallas(case, k):
+    """knn_select_kernel's stream, replayed in numpy on a sample of rows
+    (every block's first and last query, and a stride), keeps the k smallest
+    bit patterns; the statistic of the sorted k smallest equals the plain
+    version's _knn_mean_rows and the Pallas knn_mean (interpret mode,
+    unmasked) on every row it can see: the Pallas pads the cloud to a
+    multiple of 128 with rows at the far point, which changes the parked
+    rows' counts, so it is held on the real rows."""
+    rng = np.random.default_rng(len(case) * 10 + k)
+    pts = _dense_cloud(case, rng)
+    L = len(pts)
+    r2b = kernels._KNN_R2_BITS
+    bits = _d2_bits(pts, pts)
+    own = np.eye(L, dtype=bool)
+    m, c = kernels._knn_mean_rows(_t(bits.view(np.float32)), _t(own), k, r2b)
+    pm, pcnt = (a.numpy() for a in kernels.knn_mean(_t(pts), k))
+    np.testing.assert_array_equal(pcnt, c.numpy())
+    np.testing.assert_array_equal(pm, m.numpy())
+    means = np.zeros(L, np.float32)
+    cnts = np.zeros(L, np.int32)
+    sample = set(range(0, L, 29)) | set(range(0, L, _BLOCK_Q)) | {L - 1} | set(
+        range(_BLOCK_Q - 1, L, _BLOCK_Q))
+    for i in range(L):
+        b = np.delete(bits[i], i)
+        kept = np.sort(np.where(b <= r2b, b, _INT_MAX))[:32]
+        if i in sample:
+            lst, cnt = _dense_stream(bits[i], i, k, r2b)
+            np.testing.assert_array_equal(lst[:k], kept[:k])
+            assert cnt == int((b <= r2b).sum())
+        means[i] = _selection_statistic(kept, k, r2b)
+        cnts[i] = int((b <= r2b).sum())
+    np.testing.assert_array_equal(cnts, pcnt)
+    np.testing.assert_allclose(means, pm, rtol=1e-5)
+    Lp = -(-L // 128) * 128
+    q8 = pk._pad8(jnp.asarray(pts), jnp.ones(L, bool), Lp)
+    jm, jc = (np.asarray(a)[:L] for a in pk._knn_mean_call(
+        q8, q8.T, k, pk._KNN_R2_BITS, 8, True))
+    real = pts[:, 0] < knnlib.FAR
+    np.testing.assert_array_equal(jc[real], cnts[real])
+    np.testing.assert_allclose(jm[real], means[real], rtol=1e-5)
+    few = (cnts[real] < k).mean()
+    if case == "sparse":      # 14 real rows: 13 neighbours each within the cutoff
+        assert real.sum() == 14 and few == (1.0 if k > 13 else 0.0)
+    else:
+        assert few == 0.0
+    if case == "ties":        # each row's twin at d2 = 0 beside its own slot
+        assert ((bits == 0).sum(1) >= 2).all()
+
+
+def _nn1_sequential(d):
+    """One strict-'<' scan over the base from (+inf, 0)."""
+    best = np.full(d.shape[0], np.inf, np.float32)
+    bj = np.zeros(d.shape[0], np.int64)
+    for j in range(d.shape[1]):
+        better = d[:, j] < best
+        best = np.where(better, d[:, j], best)
+        bj = np.where(better, j, bj)
+    return bj, best
+
+
+def _nn1_lanes_butterfly(d):
+    """nn1_kernel's reduction: lane l scans base rows l, l + 32, ... (the
+    tail padded with +inf to a whole warp step) by a strict '<' from
+    (+inf, 0); then five butterfly steps take the (d2, j) lexicographic
+    minimum across the lanes. Every lane must end on the same pair."""
+    nq, nb = d.shape
+    pad = np.full((nq, -(-nb // 32) * 32), np.inf, np.float32)
+    pad[:, :nb] = d
+    best = np.full((nq, 32), np.inf, np.float32)
+    bj = np.zeros((nq, 32), np.int64)
+    for s in range(0, pad.shape[1], 32):
+        dd = pad[:, s:s + 32]
+        better = dd < best
+        best = np.where(better, dd, best)
+        bj = np.where(better, s + np.arange(32), bj)
+    lanes = np.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        od, oj = best[:, lanes ^ o], bj[:, lanes ^ o]
+        take = (od < best) | ((od == best) & (oj < bj))
+        best, bj = np.where(take, od, best), np.where(take, oj, bj)
+    assert (bj == bj[:, :1]).all() and (best.view(np.int32) == best[:, :1].view(np.int32)).all()
+    return bj[:, 0], best[:, 0]
+
+
+@pytest.mark.parametrize("case", ["lattice", "all_far", "ragged"])
+def test_nn1_lane_reduction_equals_sequential_scan(case):
+    rng = np.random.default_rng(len(case))
+    if case == "lattice":     # integer coordinates: exact ties, lowest index wins
+        base = rng.integers(0, 5, (611, 3)).astype(np.float32)
+        q = (rng.integers(0, 10, (333, 3)) / 2).astype(np.float32)
+    elif case == "all_far":   # every base row parked: one d2 for every row
+        base = np.full((517, 3), np.float32(knnlib.FAR), np.float32)
+        q = rng.uniform(0, 30, (97, 3)).astype(np.float32)
+    else:
+        base = _lumpy(rng, 1001)
+        q = _lumpy(rng, 999)
+    d = _d2_bits(q, base).view(np.float32)
+    sj, sd = _nn1_sequential(d)
+    lj, ld = _nn1_lanes_butterfly(d)
+    np.testing.assert_array_equal(lj, sj)
+    np.testing.assert_array_equal(ld.view(np.int32), sd.view(np.int32))
+    idx, d2 = (a.numpy()[0] for a in kernels.nn1(_t(q)[None], _t(base)[None]))
+    np.testing.assert_array_equal(idx, sj)
+    np.testing.assert_array_equal(d2.view(np.int32), sd.view(np.int32))
+    if case == "all_far":
+        assert (idx == 0).all()
+    if case == "lattice":
+        tied = (d == sd[:, None]).sum(1) > 1
+        assert tied.mean() > 0.5
+        jidx, jd2 = (np.asarray(a) for a in pk.nn1(q, base))
+        np.testing.assert_array_equal(idx, jidx)
+        np.testing.assert_array_equal(d2, jd2)
 
 
 def test_cuda_tensors_never_take_the_plain_version(monkeypatch):
