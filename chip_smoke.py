@@ -14,8 +14,10 @@ Imports nothing of JAX. Phases, each of which exits non-zero on failure:
    its plain PyTorch version on the same card tensors — decode maps and
    masks bit-equal (and the packed decode equal to the raw one), the fused
    kernel with at most 2e-3 of valid flags flipped, |dp| < 1e-2 mm where
-   both are valid and the texture equal — and timed with CUDA events
-   (warm, median); decoded points are held against the renderer's ground
+   both are valid and the texture equal, also at row_mode 0, on one view
+   and at 1080x1000 (a ragged last tile of the bulk kernel) — and timed
+   with CUDA events (warm, median), the fused kernel also by its device
+   time; decoded points are held against the renderer's ground
    truth (median error < 1.5 mm, 99th percentile < 5 mm);
 3. the main path: ``reconstruct(mode="batch", compute_batch=4)`` over 8
    views written as .slbp containers, once per arm — plane_eval=table
@@ -31,7 +33,9 @@ Imports nothing of JAX. Phases, each of which exits non-zero on failure:
    after the 0.5 mm voxel against a jittered copy), ransac_score on pair
    1 -> 0's 4096 hypotheses, knn_mean on 32768 rows of the merged cloud,
    slab_mean_knn on the whole sorted merged cloud (tile 64, wblk 8192).
-   nn1 and ransac_score must equal their plain versions exactly, the k-NN
+   nn1 and ransac_score must equal their plain versions exactly
+   (ransac_score also at T = 37 and N = 2100, at N = 1, with every
+   correspondence dead, at T = 1 and with P not 16-byte aligned), the k-NN
    means match counts (and window ends) exactly and means within rtol 1e-5
    (sum order). Both k-NN means also meet the cases a selection kernel gets
    wrong, every row gated: k = 1, k = 40 (the bisection kernels: above
@@ -137,7 +141,8 @@ GATE = 1.5
 # The redesigned kernels' times before the redesign (CUDA events around one
 # call, median), from the chip run of commit 7802f6a (PERF.md section 6;
 # NVIDIA H100 80GB HBM3, 700.00 W): printed beside this run's times.
-MS_BEFORE = {"knn_mean": 21.12, "nn1 icp_group": 0.0843, "nn1 chamfer": 15.02}
+MS_BEFORE = {"knn_mean": 21.12, "nn1 icp_group": 0.0843, "nn1 chamfer": 15.02,
+             "ransac_score": 0.0947, "scan_fused": 0.6463}
 BEFORE_FROM = "previous kernel, chip run of commit 7802f6a (PERF.md section 6)"
 PIPE_VIEWS = 24
 PIPE_CAM, PIPE_PROJ = (768, 576), (512, 256)
@@ -285,29 +290,40 @@ def time_ms(fn, reps: int, warm: int = 2) -> float:
     return float(np.median(times))
 
 
-def device_ms(fn, reps: int, kernel: str) -> float:
+def device_ms(fn, reps: int, kernel: str, tries: int = 3) -> float:
     """Mean device time (ms) of the CUDA kernel whose name holds ``kernel``
-    over reps calls of fn, from torch.profiler's kernel records (the
-    profiler may miss the first launches after it starts: the mean is over
-    the records it kept). For a kernel shorter than its wrapper's host path
-    (tens of microseconds), the events around one call time that path, not
-    the kernel."""
+    over reps calls of fn, from torch.profiler's kernel records. The
+    profiler may miss the launches just after it starts, at times every
+    launch of a window of three: each window opens with 16 launches of a
+    small other kernel that take those losses, the mean is over the records
+    it kept, and a window with none is profiled again, up to ``tries``
+    windows. For a kernel shorter than its wrapper's host path (tens of
+    microseconds), the events around one call time that path, not the
+    kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
+    pad = torch.zeros(1024, device="cuda")
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us, count = 0.0, 0
-    for e in prof.key_averages():
-        if kernel in e.key:
-            t = getattr(e, "self_device_time_total", None)
-            us += t if t is not None else e.self_cuda_time_total
-            count += e.count
-    check(0 < count <= reps, f"profiler saw {count} launches of {kernel} in {reps} calls")
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(16):
+                pad.add_(1.0)
+            torch.cuda.synchronize()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us, count = 0.0, 0
+        for e in prof.key_averages():
+            if kernel in e.key:
+                t = getattr(e, "self_device_time_total", None)
+                us += t if t is not None else e.self_cuda_time_total
+                count += e.count
+        if count:
+            break
+    check(0 < count <= reps, f"profiler saw {count} launches of {kernel} in {reps} calls, "
+                             f"{tries} windows")
     return us / count / 1e3
 
 
@@ -431,7 +447,36 @@ def kernel_phase(dev, rig, frames_np, gt):
         err=err3, bound=bound(nbytes, v * hw * (4 + 4 * n_bits + 75)),
         extra={"valid_flip_share": flip, "valid_points_view0": int(k3[1][0].sum()),
                "gt_err_median_mm": float(np.median(gerr)),
-               "gt_err_p99_mm": float(np.percentile(gerr, 99))}))
+               "gt_err_p99_mm": float(np.percentile(gerr, 99)),
+               "device_ms": device_ms(
+                   lambda: kernels.scan_fused(frames, thr, scalars, sc.rays, **fkw), 20,
+                   "scan_fused_bulk_kernel"),
+               "ms_before": MS_BEFORE["scan_fused"], "ms_before_from": BEFORE_FROM}))
+    # the bulk kernel's other shapes, each against the plain version under
+    # the same tolerances: row_mode 0 (no row frames streamed, more stages),
+    # one view, and a width whose pixel count is not a whole number of the
+    # kernel's 1024-pixel tiles (1080 x 1000: a ragged last tile)
+    rays_hw = sc.rays.view(h, w, 3)
+    for case, fr, th, ry, rkw in (
+            ("row_mode 0", frames, thr, sc.rays, dict(fkw, row_mode=0)),
+            ("V=1", frames[:1], thr[:1], sc.rays, fkw),
+            ("ragged tile 1080x1000", frames[:2, :, :, :1000].contiguous(), thr[:2],
+             rays_hw[:, :1000].reshape(-1, 3).contiguous(), fkw)):
+        ko = kernels.scan_fused(fr, th, scalars, ry, **rkw)
+        po = kernels.scan_fused_plain(fr, th, scalars, ry, **rkw)
+        torch.cuda.synchronize()
+        c_flip = float((ko[1] != po[1]).float().mean())
+        c_both = ko[1] & po[1]
+        c_err = float((ko[0] - po[0]).abs()[c_both].max())
+        check(c_flip < 2e-3 and c_err < 1e-2 and bool(torch.equal(ko[2], po[2])),
+              f"scan_fused {case}: valid flips {c_flip}, max |dp| {c_err} mm, "
+              f"texture equal {bool(torch.equal(ko[2], po[2]))}")
+        print(json.dumps({"kernel": "scan_fused", "case": case, "shape": list(fr.shape),
+                          "valid_flip_share": c_flip, "max_abs_err": c_err,
+                          "valid_points": int(ko[1].sum()),
+                          "ms": time_ms(lambda: kernels.scan_fused(fr, th, scalars, ry, **rkw),
+                                        reps=10)}), flush=True)
+        del ko, po, c_both
 
     # the one-pixel-a-thread instantiations, taken when a buffer is not
     # 16-byte aligned: held against the 4-pixel ones above on view 0
@@ -455,10 +500,12 @@ def kernel_phase(dev, rig, frames_np, gt):
           "scan_fused: unaligned differs from aligned")
     del u1, u2, u3, both
 
-    # the pallas_call sites (the views variants, :673 and :1019, are the
-    # same kernels with a view grid axis)
+    # the pallas_call sites; the views variants (:673, :1019) are the same
+    # kernels with a view grid axis, named in replaces_views, so the kernels
+    # line covers all ten sites
     replaces = {"decode_maps": f"{PALLAS}:637", "decode_packed_maps": f"{PALLAS}:987",
                 "scan_fused": f"{PALLAS}:823"}
+    views_sites = {"decode_maps": f"{PALLAS}:673", "decode_packed_maps": f"{PALLAS}:1019"}
     out = []
     for r in rows:
         ms = time_ms(r["fn"], reps=20)
@@ -469,6 +516,8 @@ def kernel_phase(dev, rig, frames_np, gt):
                 "max_abs_err": r["err"], "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
                 "views": v, "shape": [v, f, h, w]}
+        if r["name"] in views_sites:
+            line["replaces_views"] = views_sites[r["name"]]
         print(json.dumps(dict(line, **r["extra"])), flush=True)
         out.append(line)
     del frames, planes, white, black, k1, p1, k2, p2, k3, p3
@@ -1050,7 +1099,35 @@ def merge_kernel_phase(dev, ply_dir: str, poses, card: str) -> list[dict]:
                      bound=bound(nt * 16 * 4 + nn * 17 * 4 + nt * 4, nt * nn * 34),
                      # issue ceiling: 35 a pair, the 34 operations and the count's add
                      extra={"shape": [nt, nn], "best_count": int(k_cnt.max()),
-                            "issue_ceiling_ms": issue_ceiling(nt * nn * 35)}))
+                            "issue_ceiling_ms": issue_ceiling(nt * nn * 35),
+                            "device_ms": device_ms(
+                                lambda: kernels.ransac_score(hm, pm, sc, md2), 20,
+                                "ransac_score_kernel"),
+                            "ms_before": MS_BEFORE["ransac_score"],
+                            "ms_before_from": BEFORE_FROM}))
+    # the edges of the block and span split, counts equal to the plain
+    # version's: T and N both ragged (37 hypotheses, 2100 correspondences),
+    # one correspondence, every correspondence dead (all counts 0), one
+    # hypothesis, and P not 16-byte aligned (the 4-byte staging copies)
+    pm_odd = torch.empty(pm.numel() + 1, dtype=torch.float32, device=dev)[1:].view(pm.shape)
+    pm_odd.copy_(pm)
+    for case, h_, p_, s_ in (
+            ("T=37 N=2100", hm[:37], torch.cat([pm, pm[:52]]), torch.cat([sc, sc[:52]])),
+            ("N=1", hm, pm[:1], sc[:1]),
+            ("all dead", hm, pm, torch.full_like(sc, float("inf"))),
+            ("T=1", hm[:1], pm, sc),
+            ("P unaligned", hm, pm_odd, sc)):
+        h_, s_ = h_.contiguous(), s_.contiguous()
+        kc = kernels.ransac_score(h_, p_, s_, md2)
+        pc_ = kernels.ransac_score_plain(h_, p_, s_, md2)
+        c_err = int((kc - pc_).abs().max())
+        check(c_err == 0, f"ransac_score {case}: counts off the plain version by {c_err}")
+        if case == "all dead":
+            check(int(kc.abs().max()) == 0, "ransac_score all dead: a count is not 0")
+        print(json.dumps({"kernel": "ransac_score", "case": case,
+                          "shape": [h_.shape[0], p_.shape[0]], "max_abs_err": c_err,
+                          "best_count": int(kc.max())}), flush=True)
+    del pm_odd
 
     # the merged cloud at the true poses, after the 0.5 mm voxel
     moved = recon.transform_views_batched(views[1:], truth[1:], device=dev)

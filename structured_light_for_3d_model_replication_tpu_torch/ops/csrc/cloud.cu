@@ -55,11 +55,32 @@
 //                         without 126 registers a thread.)
 //   ransac_score_kernel   replaces _ransac_score_kernel: inlier counts of T
 //                         rigid hypotheses, d2 = sc + 2 * (H[t] . P[n]) with
-//                         the 16-term dot summed in a fixed order. One thread
-//                         per hypothesis keeps its H row in registers; P and
-//                         sc are staged in shared memory; grid.y splits the
-//                         correspondences and the counts meet by integer
-//                         atomicAdd (exact, any order).
+//                         the 16-term dot summed c = 0..15 in order. Bound by
+//                         operations: 35 issued instructions a pair (16 mul,
+//                         15 add, the scale, the add of sc, the compare and
+//                         the count) once the dot may not contract into FMAs.
+//                         The design keeps the issue slots full:
+//                         - register blocking: a thread carries kRsHpt = 4
+//                           hypotheses (lane l of a block's 128: rows l,
+//                           l + 32, l + 64, l + 96), so four independent dot
+//                           chains interleave and one read of a P row (four
+//                           broadcast float4 and sc) feeds four pairs; each
+//                           pair's chain keeps its own order, bit for bit;
+//                         - every warp of a block carries the same 128
+//                           hypotheses and takes every kRsWarps-th row of the
+//                           block's correspondences; grid.y splits the
+//                           correspondences into spans sized from the SM
+//                           count, so the launch has ~kRsBlocksPerSm blocks
+//                           an SM (16 warps an SM at T = 4096, N = 2048);
+//                         - P and sc stream through a two-slot ring of
+//                           kRsTile rows filled by 16-byte cp.async (4-byte
+//                           where H or P is not 16-byte aligned) while the
+//                           previous tile is scored; a warp stops at the
+//                           tile's last row, so no padding row is read;
+//                         - the warps' counts meet in shared memory, then
+//                           one integer atomicAdd a (block, hypothesis) into
+//                           the output the entry zeroes once: exact in any
+//                           order.
 //   slab_select_kernel    replaces _slab_bisect_kernel for k <= 32: the mean
 //                         distance to the k nearest candidates in a 2*wblk
 //                         window of an x-sorted cloud, with ONE sweep that
@@ -154,9 +175,12 @@ constexpr int kRcQueries = kRcThreads * kRcQ;
 constexpr int kRcTile = 256;        // base rows a ring slot
 constexpr int kRcBlocksPerSm = 64;  // the grid.y split aims at this many blocks an SM
 constexpr int kRcMaxSpan = 1 << 24; // base rows a block: a thread's f32 count stays exact
-constexpr int kRsThreads = 128;     // hypotheses per ransac block
-constexpr int kRsChunk = 512;       // correspondences per ransac block
-constexpr int kRsTile = 128;        // correspondences staged per sync
+constexpr int kRsWarps = 4;
+constexpr int kRsThreads = kRsWarps * 32;
+constexpr int kRsHpt = 4;           // hypotheses a ransac thread carries
+constexpr int kRsHyps = 32 * kRsHpt;  // hypotheses a ransac block: every warp carries all
+constexpr int kRsTile = 64;         // correspondences a ring slot
+constexpr int kRsBlocksPerSm = 4;   // the grid.y split aims at this many blocks an SM
 constexpr int kKnnWarps = 32;
 constexpr int kKnnQpw = 2;          // queries a warp carries
 constexpr int kKnnTile = kKnnWarps * kKnnQpw;
@@ -188,6 +212,12 @@ __device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
 }
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+// 16-byte asynchronous copy, cached in L2 only; both addresses 16-byte aligned
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
 
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
@@ -348,37 +378,104 @@ radius_count_kernel(const float* __restrict__ pts, int n, float r2, int span, in
 // ransac_score
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kRsThreads)
+// Rows [n, n + m) of P [*, 16] and sc into a ring slot: 16 bytes a
+// cp.async where H and P are 16-byte aligned (kVec), else 4.
+template <bool kVec>
+__device__ __forceinline__ void rs_stage(float (*rows)[16], float* scs, const float* __restrict__ pm,
+                                         const float* __restrict__ sc, int n, int m) {
+  const float* src = pm + 16LL * n;
+  if constexpr (kVec) {
+    for (int e = threadIdx.x; e < 4 * m; e += kRsThreads) cp_async16(&rows[e >> 2][4 * (e & 3)], src + 4 * e);
+  } else {
+    for (int e = threadIdx.x; e < 16 * m; e += kRsThreads) cp_async4(&rows[e >> 4][e & 15], src + e);
+  }
+  for (int e = threadIdx.x; e < m; e += kRsThreads) cp_async4(scs + e, sc + n + e);
+  cp_async_commit();
+}
+
+// Hypotheses [blockIdx.x * kRsHyps, +kRsHyps) (lane l: l, l + 32, l + 64,
+// l + 96 of them) against correspondences [blockIdx.y * span, +span), warp w
+// taking rows w, w + kRsWarps, ... of each tile.
+template <bool kVec>
+__global__ void __launch_bounds__(kRsThreads, kRsBlocksPerSm)
 ransac_score_kernel(const float* __restrict__ h, const float* __restrict__ pm, const float* __restrict__ sc,
-                    float md2, int32_t* __restrict__ counts, int T, int N) {
-  __shared__ float rows[kRsTile][17];  // P row (16) and sc
-  const int t = blockIdx.x * kRsThreads + threadIdx.x;
-  float hr[16];
+                    float md2, int32_t* __restrict__ counts, int T, int N, int span) {
+  static_assert(kRsThreads == kRsHyps, "one thread sums one hypothesis' partials");
+  __shared__ __align__(16) float rows[2][kRsTile][16];
+  __shared__ float scs[2][kRsTile];
+  __shared__ int part[kRsWarps][kRsHyps];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int t0 = (int)blockIdx.x * kRsHyps;
+  float hr[kRsHpt][16];
+  int cnt[kRsHpt];
 #pragma unroll
-  for (int c = 0; c < 16; ++c) hr[c] = t < T ? h[16LL * t + c] : 0.f;
-  const int n0 = blockIdx.y * kRsChunk;
-  const int n1 = min(N, n0 + kRsChunk);
-  int cnt = 0;
-  for (int s = n0; s < n1; s += kRsTile) {
-    for (int e = threadIdx.x; e < kRsTile * 17; e += kRsThreads) {
-      const int r = e / 17, c = e % 17, n = s + r;
-      float v;
-      if (n < n1) v = c < 16 ? pm[16LL * n + c] : sc[n];
-      else v = c < 16 ? 0.f : __int_as_float(0x7f800000);
-      rows[r][c] = v;
+  for (int j = 0; j < kRsHpt; ++j) {
+    const int t = t0 + 32 * j + lane;  // rows past T score zeros and write nothing
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (t < T) {
+        const float* hp = h + 16LL * t + 4 * c;
+        v = kVec ? __ldg(reinterpret_cast<const float4*>(hp)) : make_float4(hp[0], hp[1], hp[2], hp[3]);
+      }
+      hr[j][4 * c] = v.x;
+      hr[j][4 * c + 1] = v.y;
+      hr[j][4 * c + 2] = v.z;
+      hr[j][4 * c + 3] = v.w;
+    }
+    cnt[j] = 0;
+  }
+  const int n0 = (int)blockIdx.y * span;
+  const int n1 = min(N, n0 + span);
+  const int ntiles = (n1 - n0 + kRsTile - 1) / kRsTile;
+  rs_stage<kVec>(rows[0], scs[0], pm, sc, n0, min(kRsTile, n1 - n0));
+  for (int k = 0; k < ntiles; ++k) {
+    const int s0 = n0 + k * kRsTile;
+    if (k + 1 < ntiles) {
+      rs_stage<kVec>(rows[(k + 1) & 1], scs[(k + 1) & 1], pm, sc, s0 + kRsTile,
+                     min(kRsTile, n1 - s0 - kRsTile));
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
-    const int m = min(kRsTile, n1 - s);
-    for (int r = 0; r < m; ++r) {
-      float acc = __fmul_rn(hr[0], rows[r][0]);
+    const float(*tile)[16] = rows[k & 1];
+    const float* tsc = scs[k & 1];
+    const int m = min(kRsTile, n1 - s0);
+#pragma unroll 2
+    for (int r = warp; r < m; r += kRsWarps) {
+      float p[16];
 #pragma unroll
-      for (int c = 1; c < 16; ++c) acc = __fadd_rn(acc, __fmul_rn(hr[c], rows[r][c]));
-      const float d2 = __fadd_rn(rows[r][16], __fmul_rn(2.f, acc));
-      cnt += d2 <= md2 ? 1 : 0;
+      for (int c = 0; c < 4; ++c) {
+        const float4 v = reinterpret_cast<const float4*>(tile[r])[c];
+        p[4 * c] = v.x;
+        p[4 * c + 1] = v.y;
+        p[4 * c + 2] = v.z;
+        p[4 * c + 3] = v.w;
+      }
+      const float s = tsc[r];
+      float acc[kRsHpt];
+#pragma unroll
+      for (int j = 0; j < kRsHpt; ++j) acc[j] = __fmul_rn(hr[j][0], p[0]);
+#pragma unroll
+      for (int c = 1; c < 16; ++c) {
+#pragma unroll
+        for (int j = 0; j < kRsHpt; ++j) acc[j] = __fadd_rn(acc[j], __fmul_rn(hr[j][c], p[c]));
+      }
+#pragma unroll
+      for (int j = 0; j < kRsHpt; ++j) cnt[j] += __fadd_rn(s, __fmul_rn(2.f, acc[j])) <= md2 ? 1 : 0;
     }
     __syncthreads();
   }
-  if (t < T && cnt) atomicAdd(&counts[t], cnt);
+#pragma unroll
+  for (int j = 0; j < kRsHpt; ++j) part[warp][32 * j + lane] = cnt[j];
+  __syncthreads();
+  int total = 0;
+#pragma unroll
+  for (int w = 0; w < kRsWarps; ++w) total += part[w][threadIdx.x];
+  const int t = t0 + (int)threadIdx.x;
+  if (t < T && total) atomicAdd(&counts[t], total);
 }
 
 // ---------------------------------------------------------------------------
@@ -800,10 +897,22 @@ int slscan_radius_count(const float* pts, int n, float r2, int32_t* counts, cuda
 
 int slscan_ransac_score(const float* h, const float* pm, const float* sc, float md2, int32_t* counts, int T,
                         int N, cudaStream_t stream) {
+  if (T < 1 || N < 1) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaMemsetAsync(counts, 0, sizeof(int32_t) * (size_t)T, stream);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((T + kRsThreads - 1) / kRsThreads, (N + kRsChunk - 1) / kRsChunk);
-  ransac_score_kernel<<<grid, kRsThreads, 0, stream>>>(h, pm, sc, md2, counts, T, N);
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return (int)err;
+  // correspondence spans of whole tiles, as many as it takes for ~kRsBlocksPerSm blocks an SM
+  const int gx = (T + kRsHyps - 1) / kRsHyps;
+  const int want = max(1, (kRsBlocksPerSm * sms + gx - 1) / gx);
+  const int span = ((N + want - 1) / want + kRsTile - 1) / kRsTile * kRsTile;
+  const dim3 grid(gx, (N + span - 1) / span);
+  if ((reinterpret_cast<uintptr_t>(h) | reinterpret_cast<uintptr_t>(pm)) % 16 == 0) {
+    ransac_score_kernel<true><<<grid, kRsThreads, 0, stream>>>(h, pm, sc, md2, counts, T, N, span);
+  } else {
+    ransac_score_kernel<false><<<grid, kRsThreads, 0, stream>>>(h, pm, sc, md2, counts, T, N, span);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -318,7 +318,13 @@ def scan_fused(frames_v, thr_v, scalars, rays, *, n_bits_col: int,
                n_bits_row: int, n_use_col: int, n_use_row: int, n_cols: int,
                n_rows: int, row_mode: int, downsample: int = 1):
     """Capture stack -> 3D points in one pass (see scan_fused_plain). Needs
-    the full sequence: F >= 2 + 2 * (n_bits_col + n_bits_row)."""
+    the full sequence: F >= 2 + 2 * (n_bits_col + n_bits_row).
+
+    ``scan_fused_bulk_kernel`` where every buffer is 16-byte aligned and
+    H*W % 16 == 0: one block an SM streams each tile's frame rows into
+    shared memory by bulk asynchronous copies and reads the tile's rays
+    once for all views; otherwise ``scan_fused_kernel``, one pixel a
+    thread. One launch either way."""
     kw = dict(n_bits_col=n_bits_col, n_bits_row=n_bits_row,
               n_use_col=n_use_col, n_use_row=n_use_row, n_cols=n_cols,
               n_rows=n_rows, row_mode=row_mode, downsample=downsample)
@@ -443,18 +449,24 @@ def ransac_score(hm: torch.Tensor, pm: torch.Tensor, sc: torch.Tensor,
     """Inlier counts i32 [T] of T hypotheses against N correspondences (see
     ransac_score_plain): hm = [R^T t, -R9, -t, t^2/2] and pm = [s, c (x) s,
     c, 1], the centered expansion |R s + t - c|^2 = sc + 2 H.P that
-    ``registration._score_args`` builds; sc +inf at dead correspondences."""
+    ``registration._score_args`` builds; sc +inf at dead correspondences.
+
+    ``ransac_score_kernel``: a thread carries 4 hypotheses (four dot chains
+    in the plain version's order), the correspondences split over enough
+    blocks to fill the card; partial counts meet by integer atomicAdd into
+    the output, which the entry zeroes."""
     if _on_cpu(hm, pm, sc):
         return ransac_score_plain(hm, pm, sc, md2)
     t, n = hm.shape[0], pm.shape[0]
     _check(hm, "H", torch.float32, (t, 16))
     _check(pm, "P", torch.float32, (n, 16))
     _check(sc, "sc", torch.float32, (n,))
-    counts = torch.zeros(t, dtype=torch.int32, device=hm.device)
-    if t and n:
-        _launch("slscan_ransac_score", hm.device, hm.data_ptr(), pm.data_ptr(),
-                sc.data_ptr(), md2, counts.data_ptr(), t, n)
-        ransac_score.launches += 1
+    if not (t and n):
+        return torch.zeros(t, dtype=torch.int32, device=hm.device)
+    counts = torch.empty(t, dtype=torch.int32, device=hm.device)
+    _launch("slscan_ransac_score", hm.device, hm.data_ptr(), pm.data_ptr(),
+            sc.data_ptr(), md2, counts.data_ptr(), t, n)
+    ransac_score.launches += 1
     return counts
 
 
