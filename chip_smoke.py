@@ -12,13 +12,15 @@ Imports nothing of JAX. Phases, each of which exits non-zero on failure:
    (``utils/synthetic.sphere_on_background``), 46 frames, V = 8 views made
    from one render with per-view seeded noise. Each kernel is held against
    its plain PyTorch version on the same card tensors — decode maps and
-   masks bit-equal (and the packed decode equal to the raw one), the fused
-   kernel with at most 2e-3 of valid flags flipped, |dp| < 1e-2 mm where
-   both are valid and the texture equal, also at row_mode 0, on one view
-   and at 1080x1000 (a ragged last tile of the bulk kernel) — and timed
-   with CUDA events (warm, median), the fused kernel also by its device
-   time; decoded points are held against the renderer's ground
-   truth (median error < 1.5 mm, 99th percentile < 5 mm);
+   masks bit-equal (and the packed decode equal to the raw one; the packed
+   decode also on one and on eight plane bytes, one view, 1080x1001 and
+   1079x1001 pixels, stacks truncated to 16 and 8 pairs and downsample 2),
+   the fused kernel with at most 2e-3 of valid flags flipped, |dp| < 1e-2
+   mm where both are valid and the texture equal, also at row_mode 0, on
+   one view and at 1080x1000 (a ragged last tile of the bulk kernel) — and
+   timed with CUDA events (warm, median) and by their device time; decoded
+   points are held against the renderer's ground truth (median error <
+   1.5 mm, 99th percentile < 5 mm);
 3. the main path: ``reconstruct(mode="batch", compute_batch=4)`` over 8
    views written as .slbp containers, once per arm — plane_eval=table
    (decode kernel), plane_eval=quadratic (fused kernel), packed ingest
@@ -38,15 +40,19 @@ Imports nothing of JAX. Phases, each of which exits non-zero on failure:
    correspondence dead, at T = 1 and with P not 16-byte aligned), the k-NN
    means match counts (and window ends) exactly and means within rtol 1e-5
    (sum order). Both k-NN means also meet the cases a selection kernel gets
-   wrong, every row gated: k = 1, k = 40 (the bisection kernels: above
-   kernels.SLAB_SELECT_MAX_K), every row duplicated (exact ties at the
-   k-th distance), a cloud with fewer than k real rows within the cutoff;
-   knn_mean also k = 32, a ragged L, L < k and the same cloud in a seeded
-   random row order (timed beside the x-sorted one). nn1 also on a lattice
-   (exact ties: idx the lowest index at the least distance), a base parked
-   whole at knn.FAR (idx 0) and a ragged shape. The redesigned kernels'
-   rows carry the profiler's device time (``device_ms``) and the previous
-   kernel's time (``ms_before``). Beside each kernel, one PyTorch
+   wrong, every row gated: k = 1, 33, 40, 64 (lists of two segments), 128
+   (four) and 129 (the bisection kernels: above kernels.SELECT_MAX_K), every
+   row duplicated (exact ties at the k-th distance), a cloud with fewer
+   than k real rows within the cutoff, each case also at two and four
+   segments; knn_mean also k = 32, a ragged L, L < k and the same cloud in
+   a seeded random row order (timed beside the x-sorted one). Each k-NN
+   mean call is checked to launch the kernel its k takes (select_kernel,
+   by torch.profiler's records, which also give its device time). nn1
+   also on a lattice (exact ties: idx the lowest index at the least
+   distance), a base parked whole at knn.FAR (idx 0) and a ragged shape.
+   The redesigned kernels' rows carry the profiler's device time
+   (``device_ms``) and the previous kernel's time (``ms_before``). Beside
+   each kernel, one PyTorch
    expression for the same function is timed as a yardstick
    (``library_ms``; the port never calls it);
 5. the merge path: ``merge_views`` over the 24 PLYs with the default
@@ -142,8 +148,11 @@ GATE = 1.5
 # call, median), from the chip run of commit 7802f6a (PERF.md section 6;
 # NVIDIA H100 80GB HBM3, 700.00 W): printed beside this run's times.
 MS_BEFORE = {"knn_mean": 21.12, "nn1 icp_group": 0.0843, "nn1 chamfer": 15.02,
-             "ransac_score": 0.0947, "scan_fused": 0.6463}
+             "ransac_score": 0.0947, "scan_fused": 0.6463,
+             "slab_mean_knn k=40": 54.81, "knn_mean k=40": 21.06}
 BEFORE_FROM = "previous kernel, chip run of commit 7802f6a (PERF.md section 6)"
+BEFORE_FROM_K40 = ("bisection kernel, chip runs of commits 7802f6a (slab_mean_knn) and "
+                   "b796fbe (knn_mean) (PERF.md section 6)")
 PIPE_VIEWS = 24
 PIPE_CAM, PIPE_PROJ = (768, 576), (512, 256)
 # the pipeline phase's config: the default Config() with the scene's
@@ -394,7 +403,9 @@ def kernel_phase(dev, rig, frames_np, gt):
         name="decode_maps", fn=lambda: kernels.decode_maps(frames, thr, **kw),
         plain=lambda: kernels.decode_maps_plain(frames, thr, **kw),
         err=err1, bound=bound(nbytes, v * hw * (4 + 4 * n_bits + 4)),
-        extra={"gt_exact_share_of_lit": gt_share}))
+        extra={"gt_exact_share_of_lit": gt_share,
+               "device_ms": device_ms(lambda: kernels.decode_maps(frames, thr, **kw), 20,
+                                      "decode_maps_kernel")}))
 
     # K2: packed decode, from host-packed containers of the same views
     stacks = [imio.pack_stack(frames_np[i]) for i in range(v)]
@@ -415,7 +426,52 @@ def kernel_phase(dev, rig, frames_np, gt):
         name="decode_packed_maps",
         fn=lambda: kernels.decode_packed_maps(planes, white, black, thr, **pkw),
         plain=lambda: kernels.decode_packed_maps_plain(planes, white, black, thr, **pkw),
-        err=err2, bound=bound(nbytes, v * hw * (2 + 3 * n_bits + 4)), extra={}))
+        err=err2, bound=bound(nbytes, v * hw * (2 + 3 * n_bits + 4)),
+        extra={"device_ms": device_ms(
+            lambda: kernels.decode_packed_maps(planes, white, black, thr, **pkw), 20,
+            "decode_packed_kernel")}))
+    # the packed decode where its index map or bit extraction can go wrong,
+    # each bit-equal to the plain version: seeded random planes of one plane
+    # byte (8 pairs) and of eight (62 pairs, two 31-bit axes), one view,
+    # H*W a multiple of 4 but not of 16 (1080 x 1001) and of neither (1079 x
+    # 1001: one pixel a thread), stacks truncated to 16 and to 8 of the 22
+    # pairs (the missing pairs decode as 0: the row axis, then both) and
+    # downsample 2
+    g = np.random.default_rng(2)
+
+    def rand_planes(n_planes):
+        return torch.from_numpy(g.integers(0, 256, (2, n_planes, h, w), dtype=np.uint8)).to(dev)
+
+    def cut(t, hh, ww):
+        return t[..., :hh, :ww].contiguous()
+
+    wb2 = (white[:2], black[:2], thr[:2])
+    for case, pl_, wh_, bl_, th_, ckw in (
+            ("Pb=1", rand_planes(1), *wb2,
+             dict(n_pairs=8, n_bits_col=5, n_bits_row=3, n_use_col=5, n_use_row=3)),
+            ("Pb=8", rand_planes(8), *wb2,
+             dict(n_pairs=62, n_bits_col=31, n_bits_row=31, n_use_col=31, n_use_row=31)),
+            ("V=1", planes[:1], white[:1], black[:1], thr[:1], pkw),
+            ("1080x1001", cut(planes[:2], 1080, 1001), cut(white[:2], 1080, 1001),
+             cut(black[:2], 1080, 1001), thr[:2], pkw),
+            ("1079x1001", cut(planes[:2], 1079, 1001), cut(white[:2], 1079, 1001),
+             cut(black[:2], 1079, 1001), thr[:2], pkw),
+            ("truncated to 16 pairs", planes[:, :2].contiguous(), white, black, thr,
+             dict(pkw, n_pairs=16)),
+            ("truncated to 8 pairs", planes[:, :1].contiguous(), white, black, thr,
+             dict(pkw, n_pairs=8)),
+            ("downsample 2", planes, white, black, thr, dict(pkw, downsample=2))):
+        ko = kernels.decode_packed_maps(pl_, wh_, bl_, th_, **ckw)
+        po = kernels.decode_packed_maps_plain(pl_, wh_, bl_, th_, **ckw)
+        torch.cuda.synchronize()
+        same = all(bool(torch.equal(a, b)) for a, b in zip(ko, po))
+        check(same, f"decode_packed_maps {case}: differs from its plain version")
+        print(json.dumps({"kernel": "decode_packed_maps", "case": case,
+                          "shape": list(pl_.shape), "n_pairs": ckw["n_pairs"], "bit_equal": same,
+                          "ms": time_ms(lambda: kernels.decode_packed_maps(pl_, wh_, bl_, th_,
+                                                                           **ckw), reps=10)}),
+              flush=True)
+        del ko, po
 
     # K3: fused decode + quadratic triangulate, row_mode 1
     sc = SLScanner(rig.calibration(), CAM, PROJ, row_mode=1,
@@ -856,6 +912,27 @@ def merge_accuracy(transforms, points, poses) -> dict:
                 surf_p99_mm=float(np.percentile(surf, 99)), points=int(len(points)))
 
 
+def flagship_cloud(dev, views, truth):
+    """The flagship views merged at the true poses, after the 0.5 mm voxel
+    (182,828 points): (cloud f32 [n, 3] padded to a multiple of 8192, valid,
+    its slab input sorted by x (L = 188,416), the slab radius r)."""
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.models import (
+        reconstruction as recon,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.ops import pointcloud as pc
+
+    moved = recon.transform_views_batched(views[1:], truth[1:], device=dev)
+    pts = torch.from_numpy(np.concatenate([views[0]] + moved)).to(dev)
+    ones = torch.ones(pts.shape[0], dtype=torch.bool, device=dev)
+    p, _, v = pc.voxel_downsample(pts, torch.zeros_like(pts, dtype=torch.uint8), ones, 0.5)
+    n_pad = min(-(-int(v.sum()) // 8192) * 8192, p.shape[0])
+    cloud, valid = p[:n_pad].contiguous(), v[:n_pad]
+    pts_s, _, r = pc._slab_inputs(cloud, valid, 0.5, 8192)
+    return cloud, valid, pts_s, r
+
+
 def _read_views(ply_dir: str):
     from structured_light_for_3d_model_replication_tpu_torch.io import ply
     from structured_light_for_3d_model_replication_tpu_torch.pipeline import stages
@@ -865,15 +942,19 @@ def _read_views(ply_dir: str):
     return [ply.read_ply(p)["points"] for p in paths]
 
 
-def mean_row(name, k_fn, p_fn, k, n_q, n_c, extra, every_row=False, real=None):
+def mean_row(name, k_fn, p_fn, k, n_q, n_c, extra, every_row=False, real=None, kernel=None):
     """A k-NN-mean kernel against its plain version on the same inputs:
     counts (and window ends) bit-equal, means within rtol 1e-5 (the sums
     differ in order only) on the certified rows (count >= k), or on every
     row where ``every_row`` (rows with fewer than k within r, parked rows).
     The shares printed are over the ``real`` rows (all rows if None): the
-    padding rows of a slab input coincide and count each other."""
+    padding rows of a slab input coincide and count each other. Where
+    ``kernel`` is named, the call must launch it (torch.profiler's kernel
+    records; ``device_ms`` fails otherwise) and its device time is kept."""
     import torch
 
+    if kernel is not None:
+        extra = dict(extra, kernel=kernel, device_ms=device_ms(k_fn, 5, kernel))
     k_out = k_fn()
     p_out, plain_ms = _timed_once(p_fn)
     torch.cuda.synchronize()
@@ -897,6 +978,17 @@ def mean_row(name, k_fn, p_fn, k, n_q, n_c, extra, every_row=False, real=None):
                 extra=dict(extra, case=name, issue_ceiling_ms=issue_ceiling(n_q * n_c * 10),
                            certified_share=float((k_out[1] >= k)[real].float().mean()),
                            fewer_than_k_share=float((p_out[1] < k)[real].float().mean())))
+
+
+def select_kernel(kind: str, k: int) -> str:
+    """The kernel a k-NN mean of k launches, by the name torch.profiler
+    records: a selection kernel with 1, 2 or 4 list segments (k <= 32, 64,
+    128), the bisection kernel above; kind "slab" or "knn"."""
+    from structured_light_for_3d_model_replication_tpu_torch.ops import kernels
+
+    if k > kernels.SELECT_MAX_K:
+        return "slab_knn_mean_kernel" if kind == "slab" else "knn_mean_kernel"
+    return f"{kind}_select_kernel<{1 if k <= 32 else 2 if k <= 64 else 4}>"
 
 
 def slab_library(pts_s, r: float, k: int, tile: int = 64, wblk: int = 8192):
@@ -1129,52 +1221,49 @@ def merge_kernel_phase(dev, ply_dir: str, poses, card: str) -> list[dict]:
                           "best_count": int(kc.max())}), flush=True)
     del pm_odd
 
-    # the merged cloud at the true poses, after the 0.5 mm voxel
-    moved = recon.transform_views_batched(views[1:], truth[1:], device=dev)
-    pts = torch.from_numpy(np.concatenate([views[0]] + moved)).to(dev)
-    ones = torch.ones(pts.shape[0], dtype=torch.bool, device=dev)
-    p, _, v = pc.voxel_downsample(pts, torch.zeros_like(pts, dtype=torch.uint8), ones, 0.5)
-    n_keep = int(v.sum())
-    n_pad = min(-(-n_keep // 8192) * 8192, p.shape[0])
-    cloud, valid = p[:n_pad].contiguous(), v[:n_pad]
-    pts_s, _, r = pc._slab_inputs(cloud, valid, 0.5, 8192)
+    cloud, valid, pts_s, r = flagship_cloud(dev, views, truth)
+    n_keep = int(valid.sum())
     L = pts_s.shape[0]
     win = 2 * 8192
 
     def knn_row(case, x, k):
-        """knn_mean on x [L, 3] against its plain version, every row gated."""
+        """knn_mean on x [L, 3] against its plain version, every row gated,
+        the call checked to launch the kernel its k takes."""
         return mean_row(f"knn_mean {case}", lambda: kernels.knn_mean(x, k),
                         lambda: kernels.knn_mean_plain(x, k), k, x.shape[0], x.shape[0],
                         {"shape": list(x.shape), "k": k}, every_row=True,
-                        real=x[:, 0] < knnlib.FAR)
+                        real=x[:, 0] < knnlib.FAR, kernel=select_kernel("knn", k))
 
     q32 = pts_s[:32768].contiguous()
     row = knn_row("x-sorted", q32, 20)
     row["library_ms"] = time_ms(lambda: knn_library(q32, 20), reps=3, warm=1)
-    row["extra"].update(device_ms=device_ms(lambda: kernels.knn_mean(q32, 20), 5,
-                                            "knn_select_kernel"),
-                        ms_before=MS_BEFORE["knn_mean"], ms_before_from=BEFORE_FROM)
+    row["extra"].update(ms_before=MS_BEFORE["knn_mean"], ms_before_from=BEFORE_FROM)
     rows.append(row)
     row = mean_row("slab_mean_knn",
                    lambda: kernels.slab_mean_knn(pts_s, r, 20, tile=64, wblk=8192),
                    lambda: kernels.slab_mean_knn_plain(pts_s, r, 20, 64, 8192),
                    20, L, win, {"shape": [L, 3], "k": 20, "tile": 64, "wblk": 8192,
                                 "r": r, "merged_after_voxel": n_keep},
-                   real=pts_s[:, 0] < pc._SLAB_FAR)
+                   real=pts_s[:, 0] < pc._SLAB_FAR, kernel=select_kernel("slab", 20))
     row["library_ms"] = time_ms(lambda: slab_library(pts_s, r, 20), reps=3, warm=1)
     rows.append(row)
-    # The cases a selection kernel gets wrong, each on every row: k = 1 and
-    # k = 40 (above SLAB_SELECT_MAX_K: the bisection kernel) on the same
+    # The cases a selection kernel gets wrong, each on every row, each call
+    # checked to launch the kernel its k takes: k = 1; k = 33, 40, 64 (two
+    # list segments), 128 (four) and 129 (the bisection kernel) on the same
     # cloud; every row duplicated (exact ties at the k-th distance, the twin
     # at d2 = 0 beside the query's own slot); a sparse cloud (most rows have
     # fewer than k within r, so t = r2b + 1 and the tie term carries them)
-    check(kernels.SLAB_SELECT_MAX_K < 40, "k = 40 must take the bisection kernel")
-    for kk in (1, 40):
-        rows.append(mean_row(f"slab_mean_knn k={kk}",
-                             lambda kk=kk: kernels.slab_mean_knn(pts_s, r, kk, tile=64, wblk=8192),
-                             lambda kk=kk: kernels.slab_mean_knn_plain(pts_s, r, kk, 64, 8192),
-                             kk, L, win, {"shape": [L, 3], "k": kk, "r": r}, every_row=True,
-                             real=pts_s[:, 0] < pc._SLAB_FAR))
+    for kk in (1, 33, 40, 64, 128, 129):
+        row = mean_row(f"slab_mean_knn k={kk}",
+                       lambda kk=kk: kernels.slab_mean_knn(pts_s, r, kk, tile=64, wblk=8192),
+                       lambda kk=kk: kernels.slab_mean_knn_plain(pts_s, r, kk, 64, 8192),
+                       kk, L, win, {"shape": [L, 3], "k": kk, "r": r}, every_row=True,
+                       real=pts_s[:, 0] < pc._SLAB_FAR, kernel=select_kernel("slab", kk))
+        if kk == 40:  # the row of k > 32 in PERF.md, with its yardstick
+            row["library_ms"] = time_ms(lambda: slab_library(pts_s, r, 40), reps=3, warm=1)
+            row["extra"].update(ms_before=MS_BEFORE["slab_mean_knn k=40"],
+                                ms_before_from=BEFORE_FROM_K40)
+        rows.append(row)
     real = cloud[valid]
     # a seeded eighth of the rows: ~1/8 of a row's neighbours within r remain
     keep = torch.randperm(real.shape[0], generator=torch.Generator(device=dev).manual_seed(0),
@@ -1183,42 +1272,49 @@ def merge_kernel_phase(dev, ply_dir: str, poses, card: str) -> list[dict]:
                       ("sparse", real[torch.sort(keep).values].contiguous())):
         ps, _, rs = pc._slab_inputs(sub, torch.ones(sub.shape[0], dtype=torch.bool, device=dev),
                                     0.5, 8192)
-        row = mean_row(f"slab_mean_knn {case}",
-                       lambda ps=ps, rs=rs: kernels.slab_mean_knn(ps, rs, 20, tile=64, wblk=8192),
-                       lambda ps=ps, rs=rs: kernels.slab_mean_knn_plain(ps, rs, 20, 64, 8192),
-                       20, ps.shape[0], win, {"shape": list(ps.shape), "k": 20, "r": rs},
-                       every_row=True, real=ps[:, 0] < pc._SLAB_FAR)
-        if case == "sparse":
-            few = row["extra"]["fewer_than_k_share"]
-            check(few > 0.5, f"sparse slab case: only {few} of the real rows have fewer than "
-                             f"k within r")
-        rows.append(row)
+        for kk in (20, 33, 40, 64, 128):
+            row = mean_row(
+                f"slab_mean_knn {case} k={kk}",
+                lambda ps=ps, rs=rs, kk=kk: kernels.slab_mean_knn(ps, rs, kk, tile=64, wblk=8192),
+                lambda ps=ps, rs=rs, kk=kk: kernels.slab_mean_knn_plain(ps, rs, kk, 64, 8192),
+                kk, ps.shape[0], win, {"shape": list(ps.shape), "k": kk, "r": rs},
+                every_row=True, real=ps[:, 0] < pc._SLAB_FAR, kernel=select_kernel("slab", kk))
+            if case == "sparse":
+                few = row["extra"]["fewer_than_k_share"]
+                check(few > 0.5, f"sparse slab case, k = {kk}: only {few} of the real rows "
+                                 f"have fewer than k within r")
+            rows.append(row)
 
     # knn_mean where a selection over the whole cloud can go wrong, every row
-    # gated: k = 1, k = 32 (the list's last lane), k = 40 (the bisection
-    # kernel), every row duplicated (exact ties at the k-th distance, the
-    # twin at d2 = 0 beside the query's own slot), a ragged L (the small
-    # arm's merged size), L < k (t = r2b + 1, the tie term carries every
-    # row), a cloud of parked rows with 8 real rows (fewer than k within the
-    # cutoff), and the x-sorted cloud in a seeded random row order, timed
+    # gated, each call checked to launch the kernel its k takes: k = 1,
+    # k = 32 (the list's last lane), k = 33, 40, 64 (two list segments), 128
+    # (four), 129 (the bisection kernel); every row duplicated (exact ties at
+    # the k-th distance, the twin at d2 = 0 beside the query's own slot), a
+    # ragged L (the small arm's merged size), L < k (t = r2b + 1, the tie
+    # term carries every row), a cloud of parked rows with 8 real rows (fewer
+    # than k within the cutoff), each at k = 20 and at two and four
+    # segments; and the x-sorted cloud in a seeded random row order, timed
     # beside it: the sweep's start rotation pays off on ordered clouds only
-    check(kernels.SLAB_SELECT_MAX_K < 40, "k = 40 must take the bisection kernel")
     parked = torch.full((4096, 3), knnlib.FAR, dtype=torch.float32, device=dev)
     parked[::512] = q32[:8]
     perm = torch.randperm(q32.shape[0], generator=torch.Generator(device=dev).manual_seed(1),
                           device=dev)
     shuffled = q32[perm].contiguous()
-    for case, x, kk in (("k=1", q32, 1), ("k=32", q32, 32), ("k=40", q32, 40),
-                        ("duplicated rows", torch.cat([q32[:16384], q32[:16384]]), 20),
-                        ("ragged", q32[:25533].contiguous(), 20), ("L<k", q32[:7].contiguous(), 20),
-                        ("mostly parked", parked, 20), ("random order", shuffled, 20)):
+    cases = [(f"k={kk}", q32, kk) for kk in (1, 32, 33, 40, 64, 128, 129)]
+    for case, x in (("duplicated rows", torch.cat([q32[:16384], q32[:16384]])),
+                    ("ragged", q32[:25533].contiguous()), ("L<k", q32[:7].contiguous()),
+                    ("mostly parked", parked)):
+        cases += [(case, x, kk) for kk in (20, 40, 128)]
+    for case, x, kk in cases + [("random order", shuffled, 20)]:
         row = knn_row(case, x, kk)
         if case == "mostly parked":
             few = row["extra"]["fewer_than_k_share"]
-            check(few == 1.0, f"knn_mean mostly parked: {few} of the real rows have fewer than k")
-        if case == "random order":
-            row["extra"]["device_ms"] = device_ms(lambda: kernels.knn_mean(shuffled, 20), 5,
-                                                  "knn_select_kernel")
+            check(few == 1.0, f"knn_mean mostly parked, k = {kk}: {few} of the real rows have "
+                              f"fewer than k")
+        if case == "k=40":
+            row["library_ms"] = time_ms(lambda: knn_library(q32, 40), reps=3, warm=1)
+            row["extra"].update(ms_before=MS_BEFORE["knn_mean k=40"],
+                                ms_before_from=BEFORE_FROM_K40)
         rows.append(row)
     del parked, shuffled
 
@@ -1241,7 +1337,7 @@ def merge_kernel_phase(dev, ply_dir: str, poses, card: str) -> list[dict]:
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": r_.get("library_ms")}
         print(json.dumps(dict(line, card=card, clocks=clocks(), **r_["extra"])), flush=True)
         out.append(line)
-    del preps, q4, b4, pts, p, cloud, pts_s, cq, cb, q32, lat_q, lat_b, far
+    del preps, q4, b4, cloud, pts_s, cq, cb, q32, lat_q, lat_b, far
     torch.cuda.empty_cache()
     # one line per kernel: nn1's ICP-group case carries the table's numbers
     seen, lines = set(), []

@@ -81,7 +81,7 @@
 //                           one integer atomicAdd a (block, hypothesis) into
 //                           the output the entry zeroes once: exact in any
 //                           order.
-//   slab_select_kernel    replaces _slab_bisect_kernel for k <= 32: the mean
+//   slab_select_kernel    replaces _slab_bisect_kernel for k <= 128: the mean
 //                         distance to the k nearest candidates in a 2*wblk
 //                         window of an x-sorted cloud, with ONE sweep that
 //                         computes each (query, candidate) d2 once (the TPU
@@ -99,27 +99,36 @@
 //                           index) are compacted by __ballot_sync/__popc into
 //                           a 64-slot per-(warp, query) queue in shared
 //                           memory; at 32 queued they are bitonic-sorted across
-//                           the lanes and merged into a sorted list held one
-//                           entry a lane (so k <= 32), and tau tightens;
+//                           the lanes and merged into a sorted list of E
+//                           32-entry segments held in registers, entry
+//                           32 s + lane in register s of that lane (E = 1, 2,
+//                           4 for k <= 32, 64, 128: a template parameter),
+//                           and tau tightens. The sorted 32 cascade through
+//                           the segments in order: at each, a bitonic
+//                           half-cleaner pair keeps the low 32 in the segment
+//                           and carries the high 32 on (list_merge);
 //                         - in that rare branch count(bits <= r2b) grows by the
 //                           __popc of a ballot; at the end the query's own
 //                           term comes off.
 //                         Then t = min(k-th, r2b + 1), and the mean is the sum
-//                         of sqrt over the list entries < t (a fixed butterfly
-//                         order: the same bits on every run) plus
-//                         (k - #less) * sqrt(t), over k: the statistic of the
-//                         bisection, which any top-k selection reproduces
-//                         because tied values are equal. Bound by operations
+//                         of sqrt over the list entries < t (a butterfly a
+//                         segment, then the segments in order: the same bits
+//                         on every run) plus (k - #less) * sqrt(t), over k:
+//                         the statistic of the bisection, which any top-k
+//                         selection reproduces because tied values are
+//                         equal. Bound by operations
 //                         (~12 issued instructions a pair); the window streams
 //                         through a two-slot ring of 1024-candidate chunks
 //                         filled by cp.async while the previous chunk is
 //                         swept, 40 KB of shared memory a 512-thread block, so
 //                         two blocks share an SM and one's waits hide under
-//                         the other's sweep. Each 64-query block finds its own
+//                         the other's sweep (at E = 4 one block an SM: its 96
+//                         registers a thread measured faster than two blocks
+//                         spilling at 64). Each 64-query block finds its own
 //                         window start (lower_bound of its tile's first x
 //                         minus r, aligned down to wblk, at most nblk - 2):
 //                         that was the TPU's scalar prefetch.
-//   knn_select_kernel     replaces _knn_mean_kernel for k <= 32: the exact
+//   knn_select_kernel     replaces _knn_mean_kernel for k <= 128: the exact
 //                         mean distance to the k nearest rows of the whole
 //                         cloud [0, L) (any L >= 1) and the count within the
 //                         1e17 cutoff, by slab_select_kernel's one-sweep warp
@@ -136,9 +145,9 @@
 //                         L in the last chunk hold +inf and vote false (votes
 //                         need all 32 lanes); query rows past L load clamped
 //                         and write nothing.
-//   knn_mean_kernel       replaces _knn_mean_kernel for k > 32, and
-//   slab_knn_mean_kernel  _slab_bisect_kernel for k > 32 (what one lane's list
-//                         entry cannot hold). Both run knn_mean_tile: a block of
+//   knn_mean_kernel       replaces _knn_mean_kernel for k > 128, and
+//   slab_knn_mean_kernel  _slab_bisect_kernel for k > 128 (what four list
+//                         segments cannot hold). Both run knn_mean_tile: a block of
 //                         32 warps takes 64 queries, two a warp; the k-th
 //                         smallest squared distance is found by 31 passes of
 //                         bisection on the f32 bit pattern (monotone for
@@ -195,6 +204,7 @@ constexpr int kSelThreads = kSelWarps * 32;
 constexpr int kSelUnroll = 4;       // warp steps of the sweep unrolled
 constexpr int kSelChunk = 1024;     // candidates a ring slot
 constexpr int kSelQueue = 64;       // a (warp, query) queue: < 32 kept + 32 new
+constexpr int kSelMaxSegments = 4;  // 32-entry list segments of the selection kernels: k <= 128
 constexpr int kIntMax = 0x7FFFFFFF;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -616,7 +626,7 @@ slab_knn_mean_kernel(const float* __restrict__ pts, int L, int k, int r2b, int w
 }
 
 // ---------------------------------------------------------------------------
-// slab k-NN mean, k <= 32: one sweep with a warp-level k-selection
+// slab k-NN mean, k <= 128: one sweep with a warp-level k-selection
 // ---------------------------------------------------------------------------
 
 // One value a lane, sorted ascending across the warp (bitonic network).
@@ -634,25 +644,55 @@ __device__ __forceinline__ int warp_sort_asc(int v, int lane) {
   return v;
 }
 
-// list: ascending across the lanes. Returns the 32 smallest of list and the
-// 32 values v (one a lane), ascending: min of list and v reversed is a
-// bitonic sequence holding them, and a half-cleaner cascade sorts it.
-__device__ __forceinline__ int warp_merge(int list, int v, int lane) {
-  v = __shfl_sync(kFull, warp_sort_asc(v, lane), 31 - lane);
-  int m = min(list, v);
+// The list of E sorted 32-entry segments (entry 32 s + lane in register s
+// of that lane, so the list holds 32 E entries ascending) merged with the
+// 32 values v (one a lane): v is sorted, then cascades through the
+// segments in order. At each, min and max of the segment and v reversed
+// are bitonic sequences holding the 32 smallest and the 32 largest of
+// both; half-cleaners sort each, the segment keeps the smallest and the
+// largest go on to the next. The last segment's largest are dropped, and
+// so is every segment from entry k on (they cannot hold a kept entry); at
+// E = 1 the largest are never computed.
+template <int E>
+__device__ __forceinline__ void list_merge(int (&list)[E], int v, int lane, int k) {
+  v = warp_sort_asc(v, lane);
 #pragma unroll
-  for (int stride = 16; stride > 0; stride >>= 1) {
-    const int o = __shfl_xor_sync(kFull, m, stride);
-    m = (lane & stride) == 0 ? min(m, o) : max(m, o);
+  for (int s = 0; s < E; ++s) {
+    if (s > 0 && 32 * s >= k) break;
+    const int r = __shfl_sync(kFull, v, 31 - lane);
+    int lo = min(list[s], r);
+    int hi = max(list[s], r);
+#pragma unroll
+    for (int stride = 16; stride > 0; stride >>= 1) {
+      const bool low = (lane & stride) == 0;
+      const int ol = __shfl_xor_sync(kFull, lo, stride);
+      lo = low ? min(lo, ol) : max(lo, ol);
+      if (s + 1 < E) {
+        const int oh = __shfl_xor_sync(kFull, hi, stride);
+        hi = low ? min(hi, oh) : max(hi, oh);
+      }
+    }
+    list[s] = lo;
+    v = hi;
   }
-  return m;
+}
+
+// Entry i of a segment list, on every lane: register i / 32 of lane i % 32
+// (a shuffle's source lane is taken modulo 32).
+template <int E>
+__device__ __forceinline__ int list_entry(const int (&list)[E], int i) {
+  int x = list[0];
+#pragma unroll
+  for (int s = 1; s < E; ++s) x = (i >> 5) == s ? list[s] : x;
+  return __shfl_sync(kFull, x, i);
 }
 
 // Merge the first `take` entries of a (warp, query) queue into its list, keep
 // the rest queued, tighten tau. Warp-uniform; inlined, so that the caller's
 // per-query registers stay registers.
-__device__ __forceinline__ void sel_flush(int* q, int& qn, int& list, int& tau, int take, int lane, int k,
-                                          int r2b) {
+template <int E>
+__device__ __forceinline__ void sel_flush(int* q, int& qn, int (&list)[E], int& tau, int take, int lane,
+                                          int k, int r2b) {
   __syncwarp();
   const int v = lane < take ? q[lane] : kIntMax;
   const int rest = qn - take;
@@ -661,26 +701,37 @@ __device__ __forceinline__ void sel_flush(int* q, int& qn, int& list, int& tau, 
   if (lane < rest) q[lane] = w;
   __syncwarp();
   qn = rest;
-  list = warp_merge(list, v, lane);
-  tau = min(r2b + 1, __shfl_sync(kFull, list, k - 1));
+  list_merge<E>(list, v, lane, k);
+  tau = min(r2b + 1, list_entry<E>(list, k - 1));
 }
 
-// The bisection's statistic from a list sorted across the lanes that holds
-// the k smallest bit patterns: t = min(k-th, r2b + 1), the sum of sqrt over
-// the entries < t in a fixed butterfly order (the same bits on every run),
-// plus (k - #less) * sqrt(t), over k. Warp-uniform.
-__device__ __forceinline__ float sel_mean(int list, int lane, int k, int r2b) {
-  const int t = min(__shfl_sync(kFull, list, k - 1), r2b + 1);
-  const bool lt = lane < k && list < t;
-  float s = lt ? sqrtf(__int_as_float(list)) : 0.f;
+// The bisection's statistic from a list sorted across the lanes (and the
+// segments) that holds the k smallest bit patterns: t = min(k-th, r2b + 1),
+// the sum of sqrt over the entries < t in a fixed order (a butterfly a
+// segment, then the segments in order: the same bits on every run), plus
+// (k - #less) * sqrt(t), over k. Warp-uniform.
+template <int E>
+__device__ __forceinline__ float sel_mean(const int (&list)[E], int lane, int k, int r2b) {
+  const int t = min(list_entry<E>(list, k - 1), r2b + 1);
+  float total = 0.f;
+  int c_lt = 0;
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) s = __fadd_rn(s, __shfl_xor_sync(kFull, s, o));
-  const int c_lt = __popc(__ballot_sync(kFull, lt));
+  for (int s = 0; s < E; ++s) {
+    const bool lt = 32 * s + lane < k && list[s] < t;
+    float x = lt ? sqrtf(__int_as_float(list[s])) : 0.f;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) x = __fadd_rn(x, __shfl_xor_sync(kFull, x, o));
+    total = s == 0 ? x : __fadd_rn(total, x);
+    c_lt += __popc(__ballot_sync(kFull, lt));
+  }
   const float tie = __fmul_rn((float)(k - c_lt), sqrtf(__int_as_float(t)));
-  return __fdiv_rn(__fadd_rn(s, tie), (float)k);
+  return __fdiv_rn(__fadd_rn(total, tie), (float)k);
 }
 
-__global__ void __launch_bounds__(kSelThreads, 2)
+// two blocks an SM (64 registers a thread) up to two list segments; one (96
+// registers, no spills) at four, which measured faster than spilling
+template <int E>
+__global__ void __launch_bounds__(kSelThreads, E <= 2 ? 2 : 1)
 slab_select_kernel(const float* __restrict__ pts, int L, int k, int r2b, int wblk, int tile, float r,
                    float* __restrict__ mean_out, int32_t* __restrict__ cnt_out, int32_t* __restrict__ end_out) {
   __shared__ float ring[2][3 * kSelChunk];                 // 24 KB: the window, two chunks at a time
@@ -696,14 +747,15 @@ slab_select_kernel(const float* __restrict__ pts, int L, int k, int r2b, int wbl
   const int nc = 2 * wblk;
   const float r2 = __int_as_float(r2b);
   float qx[kSelQpw], qy[kSelQpw], qz[kSelQpw];
-  int list[kSelQpw], tau[kSelQpw], qn[kSelQpw], cnt[kSelQpw];
+  int list[kSelQpw][E], tau[kSelQpw], qn[kSelQpw], cnt[kSelQpw];
 #pragma unroll
   for (int j = 0; j < kSelQpw; ++j) {
     const long long qi = tq0 + warp * kSelQpw + j;  // < L: the grid is L / 64 blocks
     qx[j] = pts[3 * qi];
     qy[j] = pts[3 * qi + 1];
     qz[j] = pts[3 * qi + 2];
-    list[j] = kIntMax;
+#pragma unroll
+    for (int s = 0; s < E; ++s) list[j][s] = kIntMax;
     tau[j] = r2b + 1;
     qn[j] = 0;
     cnt[j] = 0;
@@ -744,7 +796,7 @@ slab_select_kernel(const float* __restrict__ pts, int L, int k, int r2b, int wbl
           if (m) {
             if (take) queue[warp][j][qn[j] + __popc(m & below)] = __float_as_int(d[j]);
             qn[j] += __popc(m);
-            if (qn[j] >= 32) sel_flush(queue[warp][j], qn[j], list[j], tau[j], 32, lane, k, r2b);
+            if (qn[j] >= 32) sel_flush<E>(queue[warp][j], qn[j], list[j], tau[j], 32, lane, k, r2b);
           }
         }
       }
@@ -753,9 +805,9 @@ slab_select_kernel(const float* __restrict__ pts, int L, int k, int r2b, int wbl
   }
 #pragma unroll
   for (int j = 0; j < kSelQpw; ++j) {
-    if (qn[j] > 0) sel_flush(queue[warp][j], qn[j], list[j], tau[j], qn[j], lane, k, r2b);
+    if (qn[j] > 0) sel_flush<E>(queue[warp][j], qn[j], list[j], tau[j], qn[j], lane, k, r2b);
     const int qg = tq0 + warp * kSelQpw + j;
-    const float mean = sel_mean(list[j], lane, k, r2b);
+    const float mean = sel_mean<E>(list[j], lane, k, r2b);
     int ok = cnt[j];
     // the query's own slot was counted where the window holds it
     if (qg >= c0 && qg < c0 + nc && d2_diff(qx[j], qy[j], qz[j], qx[j], qy[j], qz[j]) <= r2) ok -= 1;
@@ -768,7 +820,7 @@ slab_select_kernel(const float* __restrict__ pts, int L, int k, int r2b, int wbl
 }
 
 // ---------------------------------------------------------------------------
-// whole-cloud k-NN mean, k <= 32: the same selection over every row
+// whole-cloud k-NN mean, k <= 128: the same selection over every row
 // ---------------------------------------------------------------------------
 
 // Queries [blockIdx.x * 64, +64) of pts [L, 3] (any L >= 1) against all L
@@ -777,7 +829,10 @@ slab_select_kernel(const float* __restrict__ pts, int L, int k, int r2b, int wbl
 // come first, tau falls to near its final value in that chunk, and the rare
 // branch stays rare. The kept set (the k smallest bit patterns), the butterfly
 // sum over it and the integer count do not depend on the sweep order.
-__global__ void __launch_bounds__(kSelThreads, 2)
+// two blocks an SM (64 registers a thread) up to two list segments; one (96
+// registers, no spills) at four, which measured faster than spilling
+template <int E>
+__global__ void __launch_bounds__(kSelThreads, E <= 2 ? 2 : 1)
 knn_select_kernel(const float* __restrict__ pts, int L, int k, int r2b, float* __restrict__ mean_out,
                   int32_t* __restrict__ cnt_out) {
   __shared__ float ring[2][3 * kSelChunk];              // 24 KB: two chunks of the cloud
@@ -789,7 +844,7 @@ knn_select_kernel(const float* __restrict__ pts, int L, int k, int r2b, float* _
   const int qw0 = tq0 + warp * kSelQpw;  // the warp's first query
   const float r2 = __int_as_float(r2b);
   float qx[kSelQpw], qy[kSelQpw], qz[kSelQpw], cnt[kSelQpw], tauf[kSelQpw];
-  int list[kSelQpw], qn[kSelQpw];
+  int list[kSelQpw][E], qn[kSelQpw];
 #pragma unroll
   for (int j = 0; j < kSelQpw; ++j) {
     const long long qi = min(qw0 + j, L - 1);  // rows past L load clamped and write nothing
@@ -798,7 +853,8 @@ knn_select_kernel(const float* __restrict__ pts, int L, int k, int r2b, float* _
     qz[j] = pts[3 * qi + 2];
     cnt[j] = 0.f;  // exact: a lane sees at most L / 32 + 1 rows
     tauf[j] = __int_as_float(r2b + 1);
-    list[j] = kIntMax;
+#pragma unroll
+    for (int s = 0; s < E; ++s) list[j][s] = kIntMax;
     qn[j] = 0;
   }
   const int nchunks = (L + kSelChunk - 1) / kSelChunk;
@@ -839,7 +895,7 @@ knn_select_kernel(const float* __restrict__ pts, int L, int k, int r2b, float* _
             qn[j] += __popc(m);
             if (qn[j] >= 32) {
               int tau;
-              sel_flush(queue[warp][j], qn[j], list[j], tau, 32, lane, k, r2b);
+              sel_flush<E>(queue[warp][j], qn[j], list[j], tau, 32, lane, k, r2b);
               tauf[j] = __int_as_float(tau);
             }
           }
@@ -852,8 +908,8 @@ knn_select_kernel(const float* __restrict__ pts, int L, int k, int r2b, float* _
 #pragma unroll
   for (int j = 0; j < kSelQpw; ++j) {
     int tau;
-    if (qn[j] > 0) sel_flush(queue[warp][j], qn[j], list[j], tau, qn[j], lane, k, r2b);
-    const float mean = sel_mean(list[j], lane, k, r2b);
+    if (qn[j] > 0) sel_flush<E>(queue[warp][j], qn[j], list[j], tau, qn[j], lane, k, r2b);
+    const float mean = sel_mean<E>(list[j], lane, k, r2b);
     // the query's own row was counted: take its term off
     int ok = __reduce_add_sync(kFull, (int)cnt[j]);
     if (d2_diff(qx[j], qy[j], qz[j], qx[j], qy[j], qz[j]) <= r2) ok -= 1;
@@ -917,9 +973,16 @@ int slscan_ransac_score(const float* h, const float* pm, const float* sc, float 
 }
 
 int slscan_knn_mean(const float* pts, int L, int k, int r2b, float* mean, int32_t* cnt, cudaStream_t stream) {
-  // one list entry a lane; any L >= 1 (the ragged tail is masked in the ring)
-  if (L < 1 || k < 1 || k > 32) return (int)cudaErrorInvalidValue;
-  knn_select_kernel<<<(L + kSelTile - 1) / kSelTile, kSelThreads, 0, stream>>>(pts, L, k, r2b, mean, cnt);
+  // E list entries a lane; any L >= 1 (the ragged tail is masked in the ring)
+  if (L < 1 || k < 1 || k > 32 * kSelMaxSegments) return (int)cudaErrorInvalidValue;
+  const int grid = (L + kSelTile - 1) / kSelTile;
+  if (k <= 32) {
+    knn_select_kernel<1><<<grid, kSelThreads, 0, stream>>>(pts, L, k, r2b, mean, cnt);
+  } else if (k <= 64) {
+    knn_select_kernel<2><<<grid, kSelThreads, 0, stream>>>(pts, L, k, r2b, mean, cnt);
+  } else {
+    knn_select_kernel<4><<<grid, kSelThreads, 0, stream>>>(pts, L, k, r2b, mean, cnt);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -935,9 +998,16 @@ int slscan_knn_mean_bisect(const float* pts, int L, int k, int r2b, float* mean,
 
 int slscan_slab_mean_knn(const float* pts, int L, int k, int r2b, int wblk, int tile, float r, float* mean,
                          int32_t* cnt, int32_t* win_end, cudaStream_t stream) {
-  // whole 64-query blocks, whole 32-candidate warp steps, one list entry a lane
-  if (L % kSelTile || (2 * wblk) % 32 || k < 1 || k > 32) return (int)cudaErrorInvalidValue;
-  slab_select_kernel<<<L / kSelTile, kSelThreads, 0, stream>>>(pts, L, k, r2b, wblk, tile, r, mean, cnt, win_end);
+  // whole 64-query blocks, whole 32-candidate warp steps, E list entries a lane
+  if (L % kSelTile || (2 * wblk) % 32 || k < 1 || k > 32 * kSelMaxSegments) return (int)cudaErrorInvalidValue;
+  const int grid = L / kSelTile;
+  if (k <= 32) {
+    slab_select_kernel<1><<<grid, kSelThreads, 0, stream>>>(pts, L, k, r2b, wblk, tile, r, mean, cnt, win_end);
+  } else if (k <= 64) {
+    slab_select_kernel<2><<<grid, kSelThreads, 0, stream>>>(pts, L, k, r2b, wblk, tile, r, mean, cnt, win_end);
+  } else {
+    slab_select_kernel<4><<<grid, kSelThreads, 0, stream>>>(pts, L, k, r2b, wblk, tile, r, mean, cnt, win_end);
+  }
   return (int)cudaGetLastError();
 }
 

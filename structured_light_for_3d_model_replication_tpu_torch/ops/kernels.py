@@ -10,9 +10,9 @@ merge path's and the clean chain's in ``csrc/cloud.cu``:
   nn1                 brute 1-NN, leading pair axis  (_nn1_kernel)
   ransac_score        RANSAC hypothesis inlier counts (_ransac_score_kernel)
   knn_mean            exact k-NN mean over a cloud   (_knn_mean_kernel;
-                      one selection sweep for k <= 32, bisection above)
+                      one selection sweep for k <= 128, bisection above)
   slab_mean_knn       the same over x-sorted windows (_slab_bisect_kernel;
-                      one selection sweep for k <= 32, bisection above)
+                      one selection sweep for k <= 128, bisection above)
   radius_count        neighbours within r, self excluded (_radius_kernel)
 
 For tensors on the CPU a wrapper runs its plain PyTorch version
@@ -38,7 +38,7 @@ __all__ = ["decode_maps", "decode_maps_plain", "decode_packed_maps",
            "decode_packed_maps_plain", "scan_fused", "scan_fused_plain",
            "scan_scalars", "sqrt_f32", "nn1", "nn1_plain", "ransac_score",
            "ransac_score_plain", "knn_mean", "knn_mean_plain", "slab_mean_knn",
-           "slab_mean_knn_plain", "SLAB_SELECT_MAX_K", "radius_count",
+           "slab_mean_knn_plain", "SELECT_MAX_K", "radius_count",
            "radius_count_plain", "KERNELS", "launch_counts",
            "reset_launch_counts"]
 
@@ -472,7 +472,9 @@ def ransac_score(hm: torch.Tensor, pm: torch.Tensor, sc: torch.Tensor,
 
 # K6, K7: k-NN means ------------------------------------------------------------
 
-SLAB_SELECT_MAX_K = 32  # the selection kernels keep one list entry a lane
+# the selection kernels keep a list of 1, 2 or 4 entries a lane (cloud.cu
+# kSelMaxSegments); above this k both k-NN means bisect
+SELECT_MAX_K = 128
 
 
 def _knn_mean_rows(d2: torch.Tensor, self_mask: torch.Tensor, k: int, r2b: int):
@@ -519,10 +521,11 @@ def knn_mean(pts: torch.Tensor, k: int):
     ``slab_mean_knn`` (both are launched and held against the plain version
     on the card; neither falls back to the other):
 
-    - k <= 32 (``SLAB_SELECT_MAX_K``): ``knn_select_kernel``, one sweep of
-      the whole cloud with the slab kernel's warp-level k-selection, each
-      block starting at its own chunk and wrapping around;
-    - k > 32: ``knn_mean_kernel``, 31 bisection sweeps on the f32 bit
+    - k <= 128 (``SELECT_MAX_K``): ``knn_select_kernel``, one sweep of the
+      whole cloud with the slab kernel's warp-level k-selection (a list of
+      1, 2 or 4 entries a lane for k <= 32, 64, 128), each block starting
+      at its own chunk and wrapping around;
+    - k > 128: ``knn_mean_kernel``, 31 bisection sweeps on the f32 bit
       pattern plus a count and a sum sweep.
     """
     if _on_cpu(pts):
@@ -534,7 +537,7 @@ def knn_mean(pts: torch.Tensor, k: int):
     mean = torch.empty(n, dtype=torch.float32, device=pts.device)
     cnt = torch.empty(n, dtype=torch.int32, device=pts.device)
     if n:
-        name = "slscan_knn_mean" if k <= SLAB_SELECT_MAX_K else "slscan_knn_mean_bisect"
+        name = "slscan_knn_mean" if k <= SELECT_MAX_K else "slscan_knn_mean_bisect"
         _launch(name, pts.device, pts.data_ptr(), n, int(k), _KNN_R2_BITS,
                 mean.data_ptr(), cnt.data_ptr())
         knn_mean.launches += 1
@@ -594,11 +597,11 @@ def slab_mean_knn(pts_sorted: torch.Tensor, r: float, k: int, tile: int = 64,
     Two kernels compute the function, chosen by k (both are launched and
     held against the plain version on the card):
 
-    - k <= 32 (``SLAB_SELECT_MAX_K``): ``slab_select_kernel``, one sweep of
+    - k <= 128 (``SELECT_MAX_K``): ``slab_select_kernel``, one sweep of
       the window that computes each (query, candidate) d2 once and keeps the
-      k smallest in a sorted list of one entry a lane (a warp-level
-      k-selection); the pipeline's k is 20.
-    - k > 32: ``slab_knn_mean_kernel``, 31 bisection sweeps on the f32 bit
+      k smallest in a sorted list of E entries a lane, E = 1, 2, 4 for
+      k <= 32, 64, 128 (a warp-level k-selection); the pipeline's k is 20.
+    - k > 128: ``slab_knn_mean_kernel``, 31 bisection sweeps on the f32 bit
       pattern plus a count and a sum sweep (the routine ``knn_mean`` runs).
     """
     if _on_cpu(pts_sorted):
@@ -614,7 +617,7 @@ def slab_mean_knn(pts_sorted: torch.Tensor, r: float, k: int, tile: int = 64,
     mean = torch.empty(L, dtype=torch.float32, device=dev)
     cnt = torch.empty(L, dtype=torch.int32, device=dev)
     win_end = torch.empty(L, dtype=torch.int32, device=dev)
-    name = ("slscan_slab_mean_knn" if k <= SLAB_SELECT_MAX_K
+    name = ("slscan_slab_mean_knn" if k <= SELECT_MAX_K
             else "slscan_slab_mean_knn_bisect")
     _launch(name, dev, pts_sorted.data_ptr(), L, int(k), _sq_bits(r),
             int(wblk), int(tile), float(torch.tensor(r, dtype=torch.float32)),

@@ -202,36 +202,91 @@ def _d2_bits(q, c):
     return d2.astype(np.float32).view(np.int32)
 
 
+_LANES = np.arange(32)
+
+
+def _segments(k):
+    """List segments the selection kernels keep for k: E = 1, 2, 4 (cloud.cu
+    slscan_slab_mean_knn, slscan_knn_mean)."""
+    return 1 if k <= 32 else 2 if k <= 64 else 4
+
+
+def _bitonic_sort(v):
+    """cloud.cu warp_sort_asc: one value a lane, the bitonic network."""
+    size = 2
+    while size <= 32:
+        stride = size >> 1
+        while stride:
+            o = v[_LANES ^ stride]
+            keep_min = ((_LANES & size) == 0) == ((_LANES & stride) == 0)
+            v = np.where(keep_min, np.minimum(v, o), np.maximum(v, o))
+            stride >>= 1
+        size <<= 1
+    return v
+
+
+def _half_clean(x):
+    """The half-cleaner cascade that sorts a bitonic sequence across lanes."""
+    for stride in (16, 8, 4, 2, 1):
+        o = x[_LANES ^ stride]
+        x = np.where((_LANES & stride) == 0, np.minimum(x, o), np.maximum(x, o))
+    return x
+
+
+def _list_flush(segs, vals, k, r2b):
+    """cloud.cu sel_flush on a list of E sorted 32-entry segments: up to 32
+    queued values (the other lanes INT_MAX) sorted, then cascaded through
+    the segments in order — min and max of a segment and the values
+    reversed, each half-cleaned; the segment keeps the low 32, the high 32
+    go on, the last segment's (and every segment's from entry k on) are
+    dropped. Returns tau = min(r2b + 1, entry k - 1)."""
+    v = np.full(32, _INT_MAX, np.int32)
+    v[:len(vals)] = vals
+    v = _bitonic_sort(v)
+    for s in range(len(segs)):
+        if s > 0 and 32 * s >= k:
+            break
+        r = v[::-1]
+        segs[s], v = _half_clean(np.minimum(segs[s], r)), _half_clean(np.maximum(segs[s], r))
+    return min(r2b + 1, int(segs[(k - 1) // 32][(k - 1) % 32]))
+
+
 def _warp_select(bits, k, r2b):
-    """One query's sweep as the selection kernel makes it: 32 lanes a step;
-    bits under tau = min(k-th kept, r2b + 1) queue up; at 32 queued the
-    queue merges into the 32-entry sorted list and tau tightens. bits: the
-    window's bit patterns with the query's own slot already dropped."""
-    lst = np.full(32, _INT_MAX, np.int32)
+    """One query's sweep as the slab selection kernel makes it: 32 lanes a
+    step; bits under tau = min(k-th kept, r2b + 1) queue up; at 32 queued
+    the queue merges into the list of E segments and tau tightens. bits:
+    the window's bit patterns with the query's own slot already dropped.
+    Returns the list, 32 E entries ascending."""
+    segs = [np.full(32, _INT_MAX, np.int32) for _ in range(_segments(k))]
     tau = r2b + 1
     queue = []
     for s in range(0, len(bits), 32):
         queue += [b for b in bits[s:s + 32] if b < tau]
         if len(queue) >= 32:
-            lst = np.sort(np.concatenate([lst, np.asarray(queue[:32], np.int32)]))[:32]
+            tau = _list_flush(segs, queue[:32], k, r2b)
             queue = queue[32:]
-            tau = min(r2b + 1, int(lst[k - 1]))
     if queue:
-        lst = np.sort(np.concatenate([lst, np.asarray(queue, np.int32)]))[:32]
-    return lst
+        _list_flush(segs, queue, k, r2b)
+    return np.concatenate(segs)
 
 
 def _selection_statistic(lst, k, r2b):
-    """(mean, count of entries < t) from a sorted k-list, the kernel's tail:
-    t = min(k-th, r2b + 1); sqrt summed over the entries < t, plus
-    (k - #less) * sqrt(t), over k."""
+    """(mean) from a sorted list of at least k entries, cloud.cu sel_mean:
+    t = min(k-th, r2b + 1); sqrt of the entries < t summed by a butterfly
+    over each 32-entry segment, the segments in order; plus (k - #less) *
+    sqrt(t), over k."""
     t = min(int(lst[k - 1]), r2b + 1)
-    less = lst[:k][lst[:k] < t]
-    s = np.float32(0.0)
-    for v in less:
-        s = np.float32(s + np.sqrt(np.int32(v).view(np.float32)))
-    tie = np.float32(k - len(less)) * np.sqrt(np.int32(t).view(np.float32))
-    return np.float32((s + tie) / np.float32(k))
+    total, c_lt = np.float32(0.0), 0
+    for s in range(_segments(k)):
+        seg = lst[32 * s:32 * s + 32]
+        lt = (32 * s + _LANES < k) & (seg < t)
+        x = np.where(lt, np.sqrt(seg.view(np.float32)), np.float32(0)).astype(np.float32)
+        for o in (16, 8, 4, 2, 1):
+            x = (x + x[_LANES ^ o]).astype(np.float32)
+        total = x[0] if s == 0 else np.float32(total + x[0])
+        c_lt += int(lt.sum())
+    tie = np.float32(k - c_lt) * np.sqrt(np.int32(t).view(np.float32))
+    return np.float32((total + tie) / np.float32(k))
 
 
 def _selection_cloud(case, rng):
@@ -246,14 +301,18 @@ def _selection_cloud(case, rng):
 
 
 @pytest.mark.parametrize("case,k", [("ties", 20), ("sparse", 20), ("self", 20), ("ties", 1),
-                                    ("self", 32)])
+                                    ("self", 32)] + [(c, k) for k in (33, 40, 64, 100, 128)
+                                                     for c in ("ties", "sparse", "self")])
 def test_selection_statistic_matches_plain_rows_and_pallas(case, k):
     """The identity the one-sweep slab kernel relies on: the statistic built
     from the sorted k smallest bit patterns (self excluded by index, only
     bits <= r2b kept) equals the bisection's, whatever the tie-breaking."""
     rng = np.random.default_rng(len(case) * 100 + k)
     s = _selection_cloud(case, rng)
-    L, tile, wblk, r = s.shape[0], 64, 512, 6.0
+    # above one segment, a radius that holds over k neighbours (the lists
+    # fill) and one window of the whole cloud, which then holds it
+    L, tile = s.shape[0], 64
+    wblk, r = (512, 6.0) if k <= 32 else (1024, 12.0)
     r2b = kernels._sq_bits(r)
     x = s[:, 0]
     starts = np.minimum(np.searchsorted(x, x[::tile] - np.float32(r)) // wblk,
@@ -272,7 +331,7 @@ def test_selection_statistic_matches_plain_rows_and_pallas(case, k):
         m, c = kernels._knn_mean_rows(_t(bits.view(np.float32)), _t(own), k, r2b)
         for i in range(tile):
             b = bits[i][~own[i]]
-            kept = np.sort(np.where(b <= r2b, b, _INT_MAX))[:32]
+            kept = np.sort(np.where(b <= r2b, b, _INT_MAX))[:32 * _segments(k)]
             if i % 16 == 0:   # the kernel's stream of queue merges keeps the same list
                 np.testing.assert_array_equal(_warp_select(b, k, r2b)[:k], kept[:k])
             means[t0 + i] = _selection_statistic(kept, k, r2b)
@@ -305,13 +364,13 @@ def _dense_stream(bits, qg, k, r2b):
     of the query's block and wrapping around; each chunk's tail padded to a
     whole warp step with +inf; 32 lanes a step; a candidate other than the
     query itself queues where bits < tau = min(k-th kept, r2b + 1); at 32
-    queued the queue merges into the 32-entry sorted list and tau tightens.
-    bits: the query's bit patterns against every row, own slot included.
-    Returns (list, count of bits <= r2b without the own slot)."""
+    queued the queue merges into the list of E sorted 32-entry segments and
+    tau tightens. bits: the query's bit patterns against every row, own slot
+    included. Returns (list, count of bits <= r2b without the own slot)."""
     L = len(bits)
     nch = -(-L // _CHUNK)
     ch0 = (qg // _BLOCK_Q * _BLOCK_Q) // _CHUNK
-    lst = np.full(32, _INT_MAX, np.int32)
+    segs = [np.full(32, _INT_MAX, np.int32) for _ in range(_segments(k))]
     tau = r2b + 1
     queue, cnt = [], 0
     for i in range(nch):
@@ -323,12 +382,11 @@ def _dense_stream(bits, qg, k, r2b):
         for s in range(0, len(chunk), 32):
             queue += [b for j, b in enumerate(chunk[s:s + 32], c0 + s) if b < tau and j != qg]
             if len(queue) >= 32:
-                lst = np.sort(np.concatenate([lst, np.asarray(queue[:32], np.int32)]))[:32]
+                tau = _list_flush(segs, queue[:32], k, r2b)
                 queue = queue[32:]
-                tau = min(r2b + 1, int(lst[k - 1]))
     if queue:
-        lst = np.sort(np.concatenate([lst, np.asarray(queue, np.int32)]))[:32]
-    return lst, cnt - int(bits[qg] <= r2b)
+        _list_flush(segs, queue, k, r2b)
+    return np.concatenate(segs), cnt - int(bits[qg] <= r2b)
 
 
 def _dense_cloud(case, rng):
@@ -347,7 +405,7 @@ def _dense_cloud(case, rng):
 
 
 @pytest.mark.parametrize("case", ["ties", "sparse", "self", "ragged"])
-@pytest.mark.parametrize("k", [1, 20, 32])
+@pytest.mark.parametrize("k", [1, 20, 32, 33, 40, 64, 100, 128])
 def test_dense_selection_replay_matches_plain_rows_and_pallas(case, k):
     """knn_select_kernel's stream, replayed in numpy on a sample of rows
     (every block's first and last query, and a stride), keeps the k smallest
@@ -372,7 +430,7 @@ def test_dense_selection_replay_matches_plain_rows_and_pallas(case, k):
         range(_BLOCK_Q - 1, L, _BLOCK_Q))
     for i in range(L):
         b = np.delete(bits[i], i)
-        kept = np.sort(np.where(b <= r2b, b, _INT_MAX))[:32]
+        kept = np.sort(np.where(b <= r2b, b, _INT_MAX))[:32 * _segments(k)]
         if i in sample:
             lst, cnt = _dense_stream(bits[i], i, k, r2b)
             np.testing.assert_array_equal(lst[:k], kept[:k])

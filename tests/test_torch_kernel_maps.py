@@ -1,5 +1,5 @@
-"""Index maps of the port's ransac_score and scan_fused CUDA kernels,
-replayed on the CPU.
+"""Index maps of the port's ransac_score, scan_fused and decode_packed CUDA
+kernels, replayed on the CPU.
 
 A CUDA kernel cannot run here, so what decides which thread touches which
 element is rebuilt in numpy from the kernel's own constants (parsed from
@@ -18,7 +18,15 @@ element is rebuilt in numpy from the kernel's own constants (parsed from
   pixel) the decode needs is copied once (no row frame at row_mode 0). The
   kernel's word-wise decode (4 pixels' pattern > inverse compares on the
   bytes of one 32-bit word, the Gray bits gathered MSB first, a prefix XOR)
-  is replayed bit for bit against the plain version's cascade.
+  is replayed bit for bit against the plain version's cascade;
+- ``decode_packed_kernel``: the grid of (pixels / (256 * vec), views)
+  blocks, 4 pixels a thread where H*W % 4 == 0 (one otherwise). Every
+  (view, pixel) is written exactly once and each plane byte read once, at
+  ragged shapes and 1, 3 and 8 plane bytes; the kernel's decode (a 64-bit
+  word of a pixel's plane bytes, pair start + b at bit start + b, g = 0
+  past the pairs in the stack, the XOR cascade, the rescale) is replayed bit
+  for bit against the plain version and the Pallas kernel (interpret
+  mode), on truncated stacks and at downsample 2.
 """
 import math
 import os
@@ -28,6 +36,9 @@ import numpy as np
 import pytest
 import torch
 
+from structured_light_for_3d_model_replication_tpu.io import images as jimio
+from structured_light_for_3d_model_replication_tpu.ops import graycode as jgc
+from structured_light_for_3d_model_replication_tpu.ops import pallas_kernels as pk
 from structured_light_for_3d_model_replication_tpu_torch.ops import kernels
 
 CSRC = os.path.join(os.path.dirname(kernels.__file__), "csrc")
@@ -270,3 +281,125 @@ def test_word_decode_equals_plain_cascade(n_bits, n_use):
     np.testing.assert_array_equal(got_c, col.numpy().ravel())
     np.testing.assert_array_equal(got_r, row.numpy().ravel())
     assert math.log2(col.max().item() + 1) <= n_bits
+
+
+# decode_packed ------------------------------------------------------------------
+
+def _packed_map_replay(V, pb, hw, vec, threads):
+    """slscan_decode_packed_maps' grid (grid_for: hw / (kThreads * vec)
+    blocks a view, the view on grid.y) and decode_packed_kernel's map: thread
+    t of block (bx, v) owns pixels [p, p + vec), p = (bx * kThreads + t) *
+    vec, where p < hw; it reads plane byte j of each at (v * pb + j) * hw + p
+    and writes col, row and mask at v * hw + p. Returns (writes [V * hw],
+    plane byte reads [V * pb * hw])."""
+    gx = -(-hw // (threads * vec))
+    p = np.arange(gx * threads) * vec
+    p = p[p < hw]
+    writes = np.zeros(V * hw, np.int32)
+    reads = np.zeros(V * pb * hw, np.int32)
+    for v in range(V):
+        for kk in range(vec):
+            np.add.at(writes, v * hw + p + kk, 1)
+            for j in range(pb):
+                np.add.at(reads, (v * pb + j) * hw + p + kk, 1)
+    return writes, reads
+
+
+@pytest.mark.parametrize("V,pb,h,w", [
+    (1, 1, 24, 40),    # H*W % 16 == 0: 4 pixels a thread, one partial block
+    (3, 3, 25, 41),    # H*W odd: one pixel a thread
+    (8, 8, 12, 36),    # eight plane bytes, H*W % 16 == 0
+    (3, 1, 13, 20),    # H*W % 16 == 4: 4 pixels a thread, a ragged block
+    (8, 3, 30, 30),    # eight views, H*W % 16 == 4
+    (1, 8, 7, 9),      # H*W = 63 < one block
+])
+def test_decode_packed_map_writes_every_pixel_once(V, pb, h, w):
+    k = _constants("decode.cu")
+    hw = h * w
+    planes = torch.zeros((V, pb, h, w), dtype=torch.uint8)
+    vec = kernels._vec(hw, planes)
+    assert vec == (4 if hw % 4 == 0 else 1)
+    writes, reads = _packed_map_replay(V, pb, hw, vec, k["kThreads"])
+    assert (writes == 1).all()
+    assert (reads == 1).all()
+
+
+def _decode_axis_bits(planes, start, n_bits, n_use, avail, downsample):
+    """decode.cu decode_axis_bits on plane bytes [pb, n]: a pixel's word
+    holds plane byte j at bits 8j..8j+7, so bit b of the axis is bit
+    start + b of the word (g = 0 for b >= avail); the XOR cascade MSB first,
+    then the rescale shift and the downsample, in int32."""
+    word = np.zeros(planes.shape[1], np.uint64)
+    for j in range(planes.shape[0]):
+        word |= planes[j].astype(np.uint64) << np.uint64(8 * j)
+    binary = np.zeros(planes.shape[1], np.int64)
+    prev = np.zeros_like(binary)
+    for b in range(n_use):
+        if b < avail:
+            prev ^= ((word >> np.uint64(start + b)) & np.uint64(1)).astype(np.int64)
+        binary = (binary << 1) | prev
+    return ((binary << (n_bits - n_use)) * downsample).astype(np.int32)
+
+
+def _zero_pairs_from(planes, n_pairs):
+    """Planes [pb, ...] with every pair p >= n_pairs cleared."""
+    out = planes.copy()
+    for p in range(n_pairs, 8 * planes.shape[0]):
+        out[p >> 3] &= np.uint8(0xFF ^ (1 << (p & 7)))
+    return out
+
+
+def _pattern_planes(rng):
+    """A 64 x 32 projector's stack (6 + 5 bits, 11 pairs) with seeded noise,
+    packed: (planes u8 [2, 32, 64], white, black)."""
+    frames = jgc.generate_pattern_stack(64, 32).astype(np.int16)
+    frames = np.clip(frames + rng.integers(-90, 91, frames.shape), 0, 255).astype(np.uint8)
+    ps = jimio.pack_stack(frames)
+    assert ps.n_pairs == 11 and ps.planes.shape[0] == 2
+    return ps.planes, ps.white, ps.black
+
+
+@pytest.mark.parametrize("case", ["pattern", "fewer bits used", "truncated to 8 pairs",
+                                  "truncated to 5 pairs", "downsample 2", "Pb=3 random",
+                                  "Pb=8 random"])
+def test_decode_packed_bits_replay_equals_plain_and_pallas(case):
+    rng = np.random.default_rng(len(case))
+    if case.endswith("random"):
+        pb = int(case[3])
+        n_pairs, nb = (22, 11) if pb == 3 else (62, 31)
+        planes = rng.integers(0, 256, (pb, 20, 48), dtype=np.uint8)
+        white = rng.integers(0, 256, (20, 48), dtype=np.uint8)
+        black = rng.integers(0, 256, (20, 48), dtype=np.uint8)
+        kw = dict(n_bits_col=nb, n_bits_row=nb, n_use_col=nb, n_use_row=nb)
+    else:
+        planes, white, black = _pattern_planes(rng)
+        n_pairs = 11
+        kw = dict(n_bits_col=6, n_bits_row=5, n_use_col=6, n_use_row=5)
+    ds = 2 if case == "downsample 2" else 1
+    if case == "fewer bits used":
+        kw.update(n_use_col=4, n_use_row=3)
+    full = planes
+    if case.startswith("truncated"):
+        n_pairs = int(case.split()[2])
+        planes = planes[:-(-n_pairs // 8)]
+        full = _zero_pairs_from(full, n_pairs)
+    shadow, contrast = 40.0, 10.0
+    got = kernels.decode_packed_maps(
+        torch.from_numpy(planes)[None], torch.from_numpy(white)[None],
+        torch.from_numpy(black)[None], torch.tensor([[shadow, contrast]]), n_pairs=n_pairs,
+        downsample=ds, **kw)
+    col, row, mask = (a[0].numpy() for a in got)
+    flat = planes.reshape(planes.shape[0], -1)
+    nbc, nuc, nur = kw["n_bits_col"], kw["n_use_col"], kw["n_use_row"]
+    rep_c = _decode_axis_bits(flat, 0, nbc, nuc, kernels._avail(nuc, n_pairs), ds)
+    rep_r = _decode_axis_bits(flat, nbc, kw["n_bits_row"], nur,
+                              kernels._avail(nur, n_pairs - nbc), ds)
+    np.testing.assert_array_equal(col.ravel(), rep_c)
+    np.testing.assert_array_equal(row.ravel(), rep_r)
+    jc, jr, jm = (np.asarray(a) for a in pk.decode_packed_maps_fused(
+        full, white, black, shadow, contrast, interpret=True, **kw))
+    np.testing.assert_array_equal(col, jc * ds)
+    np.testing.assert_array_equal(row, jr * ds)
+    np.testing.assert_array_equal(mask, jm)
+    if case == "truncated to 5 pairs":  # the kept byte's pairs 5..7 are set, and ignored
+        assert (planes[0] != full[0]).any()
