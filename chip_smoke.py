@@ -24,9 +24,10 @@ Imports nothing of JAX. Phases, each of which exits non-zero on failure:
 3. the main path: ``reconstruct(mode="batch", compute_batch=4)`` over 8
    views written as .slbp containers, once per arm — plane_eval=table
    (decode kernel), plane_eval=quadratic (fused kernel), packed ingest
-   (packed decode kernel). Launch counts are zeroed before each arm and must
-   rise for that arm's kernel; the packed arm's PLYs must equal the table
-   arm's byte for byte;
+   (packed decode kernel). Launch counts are zeroed before each arm, and
+   the arm must launch its kernel once a batch and nothing else (a batch
+   that fell back to per-view compute would not); the packed arm's PLYs
+   must equal the table arm's byte for byte;
 4. merge kernels at the merge path's shapes, on the flagship merge scene
    (``utils/synthetic.three_spheres``: 24 turntable views 15 degrees apart
    about (0, 0, 400), a 480x360 camera, a 512x256 projector, rendered once,
@@ -80,9 +81,12 @@ Imports nothing of JAX. Phases, each of which exits non-zero on failure:
    spacing-derived cell, k = 20), gated as in phase 4;
 7. the main path: ``run_pipeline`` over those 24 views with the default
    ``Config()`` (manual thresholds, the scene's projector size, the cleaned
-   views also written out), cold, then again under torch.profiler. Launch
-   counts zeroed before each run, read after: radius_count 2 a view, nn1,
-   ransac_score and slab_mean_knn at least once. Gated on the JAX package's
+   views also written out) and its default schedule (the streamed merge,
+   the stage cache on, each run in a fresh directory, no failure), cold,
+   then again under torch.profiler. Launch
+   counts zeroed before each run, read after: decode_maps once a batch,
+   radius_count 2 a view, nn1, ransac_score and slab_mean_knn at least
+   once. Gated on the JAX package's
    run of the same views (``PIPELINE_JAX``, from
    ``tools/torch_pipeline_reference.py``): per-view clean counts within
    2 %, each chain pair's landing error (``pair_landing``: median, p99)
@@ -97,13 +101,26 @@ Imports nothing of JAX. Phases, each of which exits non-zero on failure:
    surfaces and the merged cloud (``PIPELINE_JAX["true_pose"]``); and the
    mesh arm: ``mesh_cloud`` (depth 10, brick-refined) on ~188k points of the
    three spheres' union, gated at 1.5x the JAX package's errors on the same
-   cloud (``MESH_JAX``) against the true spheres and the input cloud.
+   cloud (``MESH_JAX``) against the true spheres and the input cloud;
+8. the schedule (``schedule_phase``) on the same 24 views, beside phase 7's
+   cold run: the barrier arm (``merge.stream=false``) byte-identical to it,
+   both walls and the register lane's wall beside the critical path
+   printed; a warm rerun in its directory (no view computed, no kernel
+   launched, byte-identical); a dirty rerun (one bit of view 11 flipped
+   at a pixel the clean chain keeps: one view computed, its cleaned cloud
+   changed, exactly 2 pair-cache misses, the merge recomputed); a fault
+   arm (view 11 fails permanently: DEGRADED, 23 views
+   merged, view 11 alone quarantined, the re-pair 10 -> 12 registered); a
+   budget arm (``pipeline.run_budget_s=1``: the run aborts with a manifest
+   and the register thread ends). Every arm but the fault arm ends with no
+   failure.
 
 Then one ``{"kernels": [...]}`` JSON line (times from phases 2, 4 and 6,
 bounds from this run's shapes, and each kernel's launches from one run of
-the main path, named in ``launches_run``: its own arm of phase 3, the cold
-flagship merge, for knn_mean the small arm, for radius_count the cold
-pipeline) and, last, the ``{"ok": true, "device": ...}`` line.
+the main path, named in ``launches_run``: the cold streamed pipeline for
+every kernel it launches, else its own arm of phase 3, the cold flagship
+merge, for knn_mean the small arm) and, last, the
+``{"ok": true, "device": ...}`` line.
 """
 from __future__ import annotations
 
@@ -620,7 +637,12 @@ def reconstruct_phase(dev, rig, stacks, card: str) -> dict[str, tuple[int, str]]
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             counts = kernels.launch_counts()
-            check(counts[kernel] > 0, f"{arm} arm never launched {kernel}: {counts}")
+            # one launch a batch: a batch that fell back to per-view compute
+            # would launch more, or another kernel
+            n_batches = -(-RECON_VIEWS // RECON_BATCH)
+            check(counts[kernel] == n_batches and sum(counts.values()) == n_batches,
+                  f"{arm} arm launched {counts}, not {kernel} once for each of "
+                  f"{n_batches} batches")
             check(len(report.outputs) == RECON_VIEWS,
                   f"{arm} arm wrote {len(report.outputs)} of {RECON_VIEWS} views")
             launches[kernel] = (counts[kernel], f"reconstruct, {arm} arm")
@@ -1567,8 +1589,9 @@ def pipeline_phase(dev, data: str, calib: str, scene, root: str,
     within 10 %; the STL with at least a face a merged point, its open and
     non-manifold edges within 1.5x, and its distance from the merged points
     (median, p99, as shares of the cloud's extent) within 1.5x. Then the
-    true-pose arm and the mesh arm. Returns {"radius_count": (launches,
-    run)} of the cold run."""
+    true-pose arm and the mesh arm. Both runs take the default schedule
+    (streamed merge, stage cache on) in fresh directories and must end with no
+    failure. Returns the cold run's {"out", "wall_s", "report", "counts"}."""
     import torch
 
     from structured_light_for_3d_model_replication_tpu_torch.config import load_config
@@ -1582,6 +1605,7 @@ def pipeline_phase(dev, data: str, calib: str, scene, root: str,
     _, _, poses = syn.pipeline_scene(cam_size=PIPE_CAM, proj_size=PIPE_PROJ,
                                      n_views=PIPE_VIEWS)
     results = []
+    cold = {}
     for arm in ("cold", "profiled"):
         cfg = load_config(None, PIPE_OVERRIDES)
         out = os.path.join(root, f"pipeline_{arm}")
@@ -1598,6 +1622,13 @@ def pipeline_phase(dev, data: str, calib: str, scene, root: str,
             prof.__exit__(None, None, None)
         wall = time.perf_counter() - t0
         counts = kernels.launch_counts()
+        check(report.merge_mode == "streamed" and report.views_computed == PIPE_VIEWS,
+              f"pipeline {arm}: {report.merge_mode} merge, {report.views_computed} views "
+              f"computed (the default schedule streams, from a fresh directory)")
+        check(report.failures == [] and report.degraded is False,
+              f"pipeline {arm}: failures {[f.as_dict() for f in report.failures]}")
+        if arm == "cold":
+            cold = {"out": out, "wall_s": wall, "report": report, "counts": counts}
         merged = ply.read_ply(report.merged_ply)["points"]
         check(merged.ndim == 2 and len(merged) > 0 and bool(np.isfinite(merged).all()),
               f"pipeline {arm}: bad merged cloud {merged.shape}")
@@ -1608,7 +1639,8 @@ def pipeline_phase(dev, data: str, calib: str, scene, root: str,
         acc = cloud_accuracy(merged, report.stl_path, scene)
         land = pair_landing([p for p, _ in views], report.transforms, poses, scene)
         line = {"pipeline": arm, "wall_s": wall, "walls_s": report.walls_s,
-                "launches": counts, "accuracy": acc, "pair_landing_mm": land,
+                "overlap": _overlap(report), "launches": counts, "accuracy": acc,
+                "pair_landing_mm": land,
                 "clean_counts": [[c.get(k, 0) for k in PIPE_STEPS]
                                  for c in report.clean_counts],
                 "card": card, "clocks": clocks()}
@@ -1617,7 +1649,11 @@ def pipeline_phase(dev, data: str, calib: str, scene, root: str,
         print(json.dumps(line), flush=True)
         results.append((arm, counts, acc, line["clean_counts"], land))
     ref = PIPELINE_JAX
+    n_batches = -(-PIPE_VIEWS // load_config(None, PIPE_OVERRIDES).parallel.compute_batch)
     for arm, counts, acc, clean, land in results:
+        check(counts["decode_maps"] == n_batches,
+              f"pipeline {arm}: decode_maps launched {counts['decode_maps']} times, not "
+              f"once for each of {n_batches} batches")
         check(counts["radius_count"] == 2 * PIPE_VIEWS,
               f"pipeline {arm}: radius_count launched {counts['radius_count']} times, "
               f"not 2 a view")
@@ -1660,7 +1696,227 @@ def pipeline_phase(dev, data: str, calib: str, scene, root: str,
     true_pose_arm(dev, os.path.join(root, "pipeline_cold", "views"), poses, scene, root,
                   card)
     mesh_arm(dev, root, card)
-    return {"radius_count": (results[0][1]["radius_count"], "pipeline (cold)")}
+    return cold
+
+
+def _overlap(report) -> dict:
+    """The schedule's numbers of a pipeline report: the register lane's wall
+    beside the critical path, the pair launches, the cache's hits and
+    misses."""
+    o = report.overlap or {}
+    return {"merge_mode": report.merge_mode, "register_s": o.get("register_s"),
+            "critical_path_s": o.get("critical_path_s"),
+            "pairs_dispatched": o.get("pairs_dispatched"),
+            "pair_launches": o.get("pair_launches"),
+            "cache_hits": (report.cache or {}).get("hits"),
+            "cache_misses": (report.cache or {}).get("misses")}
+
+
+def _seed_cache(src_out: str, dst_out: str, names) -> None:
+    """Copy the named stage-cache entries of one run into a fresh directory."""
+    import shutil
+
+    dst = os.path.join(dst_out, ".slscan-cache")
+    os.makedirs(dst)
+    for name in names:
+        shutil.copy(os.path.join(src_out, ".slscan-cache", name), os.path.join(dst, name))
+
+
+def kept_pixel(calib: str, cleaned_ply: str, cam) -> tuple[int, int]:
+    """(row, column) of the camera pixel whose ray carries the cleaned
+    view's point nearest the cloud's median: a pixel of the surface the
+    clean chain keeps."""
+    from structured_light_for_3d_model_replication_tpu_torch.io import matfile, ply
+    from structured_light_for_3d_model_replication_tpu_torch.ops import triangulate as tri
+
+    pts = ply.read_ply(cleaned_ply)["points"]
+    x = pts[np.argmin(np.linalg.norm(pts - np.median(pts, axis=0), axis=1))]
+    rays, oc, _, _ = tri.prep_calib(matfile.load_calibration(calib), cam[1], cam[0], "cpu")
+    d = x - oc.numpy()
+    pix = int(np.argmax(rays.numpy() @ (d / np.linalg.norm(d))))
+    return pix // cam[0], pix % cam[0]
+
+
+def _register_threads() -> int:
+    import threading
+
+    return sum(t.name.startswith("sl3d-register") for t in threading.enumerate())
+
+
+def schedule_phase(dev, data: str, calib: str, root: str, cold: dict,
+                   card: str) -> None:
+    """Phase 8: the default schedule's other arms on the pipeline scene,
+    beside phase 7's cold (streamed) run, whose bytes its profiled run must
+    repeat. barrier: merge.stream=false in a
+    fresh directory, merged.ply and model.stl byte-identical to the cold
+    run's; warm: a rerun in the cold run's directory computes no view and
+    launches no kernel, byte-identical; dirty: one bit of one pattern
+    frame of view 11 flipped in a copy of the dataset (``kept_pixel``: a
+    pixel whose point the cold run's clean chain kept), a fresh directory
+    seeded with the cold run's view and pair entries: one view computed,
+    its cleaned cloud changed, exactly its 2 pairs missed, the merge
+    recomputed, one decode_maps and 2 radius_count launches; fault: a fresh directory
+    seeded with every view entry but view 11's and
+    faults.spec = compute.view~<view 11>:permanent: DEGRADED with 23 views
+    merged, view 11 alone quarantined (PermanentFault), the re-pair 10 -> 12
+    registered, the STL written; budget: pipeline.run_budget_s = 1 in a
+    fresh directory raises, leaves an aborted failures.json, and the
+    register thread ends within deadlines.register_s. Every arm but the fault
+    arm has no failure."""
+    import shutil
+
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.config import load_config
+    from structured_light_for_3d_model_replication_tpu_torch.io import images as imio
+    from structured_light_for_3d_model_replication_tpu_torch.ops import kernels
+    from structured_light_for_3d_model_replication_tpu_torch.pipeline import stages
+    from structured_light_for_3d_model_replication_tpu_torch.utils import faults
+
+    def outputs(out):
+        return {f: open(os.path.join(out, f), "rb").read() for f in ("merged.ply",
+                                                                     "model.stl")}
+
+    def run(arm, out, data_=data, logs=None, **over):
+        cfg = load_config(None, {**PIPE_OVERRIDES, **over})
+        plan = faults.configure_from(cfg.faults)
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            report = stages.run_pipeline(calib, data_, out, cfg=cfg, device=dev,
+                                         log=logs.append if logs is not None
+                                         else (lambda m: None))
+            torch.cuda.synchronize()
+        finally:
+            faults.reset()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        print(json.dumps({"schedule": arm, "wall_s": wall, "walls_s": report.walls_s,
+                          "overlap": _overlap(report), "launches": counts,
+                          "views_computed": report.views_computed,
+                          "views_cached": report.views_cached,
+                          "failures": [f.as_dict() for f in report.failures],
+                          "injected": plan.counts() if plan is not None else {},
+                          "card": card, "clocks": clocks()}), flush=True)
+        if arm != "fault":
+            check(report.failures == [] and report.degraded is False,
+                  f"schedule {arm}: failures {[f.as_dict() for f in report.failures]}")
+        return report, counts, wall
+
+    want = outputs(cold["out"])
+    check(outputs(os.path.join(root, "pipeline_profiled")) == want,
+          "schedule: phase 7's two streamed runs wrote different bytes")
+    entries = os.listdir(os.path.join(cold["out"], ".slscan-cache"))
+    plan_cfg = load_config(None, PIPE_OVERRIDES)
+    _, sources, keys, _ = stages._view_plan(
+        calib, data, plan_cfg, tuple(stages.CLEAN_STEPS),
+        stages.StageCache(os.path.join(root, "keys"), enabled=False), lambda m: None, dev)
+    n_batches = -(-PIPE_VIEWS // plan_cfg.parallel.compute_batch)
+    view11 = os.path.basename(sources[11])
+    entry11 = f"view-{keys[11][:16]}.npz"
+    check(entry11 in entries, f"schedule: no cold-run view entry {entry11} for {view11}")
+
+    # barrier: the same bytes as the streamed cold run
+    out = os.path.join(root, "schedule_barrier")
+    report, counts, wall = run("barrier", out, **{"merge.stream": False})
+    check(report.merge_mode == "barrier", f"schedule barrier: {report.merge_mode}")
+    check(counts["decode_maps"] == n_batches, f"schedule barrier: decode_maps launched "
+                                              f"{counts['decode_maps']} times")
+    check(outputs(out) == want, "schedule barrier: merged.ply / model.stl differ from the "
+                                "streamed cold run's")
+    print(json.dumps({"schedule": "streamed vs barrier", "streamed_wall_s": cold["wall_s"],
+                      "streamed": _overlap(cold["report"]),
+                      "barrier_wall_s": wall, "barrier": _overlap(report),
+                      "card": card}), flush=True)
+
+    # warm: a rerun in the cold run's directory computes nothing
+    report, counts, _ = run("warm", cold["out"])
+    check((report.views_computed, report.views_cached) == (0, PIPE_VIEWS),
+          f"schedule warm: {report.views_computed} views computed, "
+          f"{report.views_cached} cached")
+    check(not any(counts.values()), f"schedule warm: kernels launched {counts}")
+    check(outputs(cold["out"]) == want, "schedule warm: outputs differ from the cold run's")
+
+    # dirty: one bit of one pattern frame of view 11 flipped
+    dirty = os.path.join(root, "scans_dirty")
+    shutil.copytree(data, dirty)
+    ps = imio.load_packed_stack(os.path.join(dirty, view11))
+    # the coarsest bit of a pixel whose point the clean chain kept: it
+    # decodes to another column, so the view's cleaned bytes change
+    cleaned11 = os.path.join(cold["out"], "views", f"{view11}.ply")
+    r, c = kept_pixel(calib, cleaned11, PIPE_CAM)
+    planes = ps.planes.copy()
+    planes[0, r, c] ^= 1
+    imio.save_packed_stack(os.path.join(dirty, view11),
+                           imio.PackedStack(planes, ps.white, ps.black, ps.n_frames,
+                                            ps.texture))
+    out = os.path.join(root, "schedule_dirty")
+    _seed_cache(cold["out"], out, [e for e in entries if e.split("-")[0] in ("view",
+                                                                              "pair")])
+    report, counts, _ = run("dirty", out, data_=dirty)
+    misses = report.cache["miss_stages"]
+    check(report.views_computed == 1, f"schedule dirty: {report.views_computed} views "
+                                      f"computed")
+    with open(cleaned11, "rb") as a, open(os.path.join(out, "views", f"{view11}.ply"),
+                                          "rb") as b:
+        check(a.read() != b.read(), f"schedule dirty: the flipped bit at ({r}, {c}) left "
+                                    f"{view11}'s cleaned cloud as it was")
+    # the view's two pairs, and only they, re-registered; the merge recomputed
+    check(misses.count("pair") == 2 and report.merge_status == "computed",
+          f"schedule dirty: {misses.count('pair')} pair misses, merge "
+          f"{report.merge_status}")
+    check(counts["decode_maps"] == 1 and counts["radius_count"] == 2
+          and counts["ransac_score"] > 0, f"schedule dirty: launched {counts}")
+
+    # fault: view 11 fails permanently, the run completes DEGRADED
+    out = os.path.join(root, "schedule_fault")
+    _seed_cache(cold["out"], out, [e for e in entries
+                                   if e.startswith("view-") and e != entry11])
+    logs: list[str] = []
+    report, counts, _ = run("fault", out, logs=logs,
+                            **{"faults.spec": f"compute.view~{view11}:permanent"})
+    check(counts["decode_maps"] == 0, f"schedule fault: decode_maps launched "
+                                      f"{counts['decode_maps']} times")
+    check(report.degraded and len(report.transforms) == PIPE_VIEWS - 1,
+          f"schedule fault: degraded {report.degraded}, {len(report.transforms)} views "
+          f"merged")
+    recs = [(f.view, f.stage, f.error_type) for f in report.failures]
+    check(recs == [(view11, "compute", "PermanentFault")], f"schedule fault: {recs}")
+    manifest = json.load(open(os.path.join(out, "failures.json")))
+    check([(f["view"], f["error_type"]) for f in manifest["failures"]]
+          == [(view11, "PermanentFault")] and manifest["degraded"] is True,
+          f"schedule fault: manifest {manifest}")
+    check(os.listdir(os.path.join(out, "quarantine")) == [f"{view11}.json"],
+          f"schedule fault: quarantine {os.listdir(os.path.join(out, 'quarantine'))}")
+    check(any("pair 10->12 (chain position 10)" in m for m in logs),
+          "schedule fault: no re-pair 10 -> 12")
+    check(os.path.getsize(os.path.join(out, "model.stl")) > 84, "schedule fault: no STL")
+
+    # budget: the run aborts with a manifest; the register thread ends
+    out = os.path.join(root, "schedule_budget")
+    cfg = load_config(None, {**PIPE_OVERRIDES, "pipeline.run_budget_s": 1})
+    t0 = time.perf_counter()
+    try:
+        stages.run_pipeline(calib, data, out, cfg=cfg, device=dev, log=lambda m: None)
+        fail("schedule budget: the run did not abort")
+    except Exception as e:   # the abort under test
+        aborted = f"{type(e).__name__}: {e}"
+    t_abort = time.perf_counter() - t0
+    t_end = time.monotonic() + cfg.deadlines.register_s
+    while _register_threads() and time.monotonic() < t_end:
+        time.sleep(0.01)
+    t_threads = time.perf_counter() - t0 - t_abort
+    torch.cuda.synchronize()
+    manifest = json.load(open(os.path.join(out, "failures.json")))
+    print(json.dumps({"schedule": "budget", "abort_s": t_abort, "reason": aborted,
+                      "register_thread_end_s": t_threads,
+                      "register_threads": _register_threads(), "card": card}), flush=True)
+    check(manifest["aborted"] is True
+          and [(f["stage"], f["error_type"]) for f in manifest["failures"]]
+          == [("pipeline", "DeadlineExceeded")], f"schedule budget: manifest {manifest}")
+    check(_register_threads() == 0, "schedule budget: the register thread outlived "
+                                    "deadlines.register_s")
 
 
 def true_pose_arm(dev, view_dir: str, poses, scene, root: str, card: str) -> None:
@@ -1756,6 +2012,7 @@ def main() -> int:
     from structured_light_for_3d_model_replication_tpu_torch.ops import _build
 
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
     card = card_line()
     print(card, flush=True)
     t0 = time.perf_counter()
@@ -1784,9 +2041,14 @@ def main() -> int:
         print(f"pipeline views: {PIPE_VIEWS} rendered in {time.perf_counter() - t0:.1f}s",
               flush=True)
         lines += radius_phase(dev, data, calib, card)
-        launches.update(pipeline_phase(dev, data, calib, scene, root, card))
+        cold = pipeline_phase(dev, data, calib, scene, root, card)
+        launches.update({k: (n, "pipeline (cold, streamed)")
+                         for k, n in cold["counts"].items() if n})
+        schedule_phase(dev, data, calib, root, cold, card)
     for line in lines:
         line["launches"], line["launches_run"] = launches[line["name"]]
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f}s "
+          f"(build included)", flush=True)
     print(json.dumps({"kernels": lines}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

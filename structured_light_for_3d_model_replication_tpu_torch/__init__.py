@@ -26,6 +26,11 @@ each counterpart at the same path:
   models/reconstruction.py merge_360: per-view clouds -> 360-degree cloud
   models/meshing.py  reconstruct_mesh: cloud -> watertight mesh, STL
   pipeline/stages.py reconstruct, clean, merge_views, mesh_cloud, run_pipeline
+                     (its default schedule: cache, retries, deadlines, streaming)
+  pipeline/stagecache.py the content-addressed stage cache
+  utils/faults.py, utils/deadline.py, utils/telemetry.py, utils/profiling.py
+                     fault injection + retries, deadlines + watchdog, the
+                     flight recorder, lane overlap accounting
   cli.py             ``python -m structured_light_for_3d_model_replication_tpu_torch``
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; without

@@ -15,10 +15,14 @@
       <cloud.ply> <out.stl | out.ply> [--save-normals N.ply] [--device cuda|cpu]
   python -m structured_light_for_3d_model_replication_tpu_torch pipeline \\
       <scan root> --calib calib.mat --out <dir> [--steps ...] \\
-      [--compute-batch N] [--packed-ingest] [--device cuda|cpu]
+      [--compute-batch N] [--packed-ingest] [--no-cache] [--no-stream] \\
+      [--pair-batch N] [--trace] [--run-budget S] [--no-deadlines] \\
+      [--device cuda|cpu]
 
 The flags are the JAX CLI's, plus ``--device`` (default cuda; without
-CUDA the command fails unless ``--device cpu`` is given).
+CUDA the command fails unless ``--device cpu`` is given). Every command
+arms the fault-injection plan of the ``faults`` config section, which the
+``SL3D_FAULTS`` / ``SL3D_FAULTS_SEED`` environment variables override.
 """
 from __future__ import annotations
 
@@ -110,18 +114,19 @@ def _parser() -> argparse.ArgumentParser:
                         "disables cleaning)")
     p.add_argument("--stl-name", default="model.stl")
     p.add_argument("--no-cache", action="store_true",
-                   help="pipeline.cache=false (the port has no stage cache yet: "
-                        "every stage is computed either way)")
+                   help="pipeline.cache=false: compute every stage, read and write "
+                        "no <out>/.slscan-cache entry")
     p.add_argument("--io-workers", type=int, default=None,
                    help="host I/O threads for frame loads (parallel.io_workers)")
     p.add_argument("--compute-batch", type=int, default=None,
                    help="views per device launch for the reconstruct stage "
                         "(default: parallel.compute_batch)")
     p.add_argument("--stream", dest="stream", action="store_true", default=None,
-                   help="merge.stream (the streaming registrar is not ported: "
-                        "the barrier merge runs either way)")
+                   help="merge.stream: register pair (i, i+1) while later views "
+                        "are still being cleaned (the default)")
     p.add_argument("--no-stream", dest="stream", action="store_false",
-                   help="merge.stream=false")
+                   help="merge.stream=false: the barrier merge after the last view "
+                        "(the same bytes)")
     p.add_argument("--pair-batch", type=int, default=None,
                    help="pairs per registration launch group (merge.pair_batch)")
     p.add_argument("--packed-ingest", dest="packed_ingest", action="store_true",
@@ -129,6 +134,16 @@ def _parser() -> argparse.ArgumentParser:
                                       "(pipeline.packed_ingest)")
     p.add_argument("--no-packed-ingest", dest="packed_ingest", action="store_false",
                    help="force raw frame ingest")
+    p.add_argument("--trace", action="store_true",
+                   help="arm the flight recorder (observability.trace; env "
+                        "SL3D_TRACE=1): <out>/trace.jsonl + <out>/metrics.json")
+    p.add_argument("--run-budget", type=float, default=None, metavar="S",
+                   help="overall wall-clock budget of the run, seconds "
+                        "(pipeline.run_budget_s; 0 = unbounded): past it the run "
+                        "aborts with an aborted failure manifest")
+    p.add_argument("--no-deadlines", action="store_true",
+                   help="disable the per-lane deadlines and the stall watchdog "
+                        "(deadlines.enabled=false; env SL3D_NO_DEADLINES=1)")
     _common_args(p)
     return parser
 
@@ -142,6 +157,30 @@ def _common_args(p: argparse.ArgumentParser) -> None:
                    help="dotted config override, e.g. --set decode.n_cols=1280")
 
 
+def _print_pipeline(report, out_dir: str) -> None:
+    for counts in report.clean_counts:   # per merged view, angle order
+        print(f"[pipeline] clean {json.dumps(counts)}")
+    print(f"[pipeline] merge mode: {report.merge_mode} ({report.merge_status}), "
+          f"mesh {report.mesh_status}")
+    o = report.overlap or {}
+    if o.get("pair_launches"):
+        print(f"[pipeline] streamed merge: {o['pairs_dispatched']} pair(s) in "
+              f"{o['pair_launches']} register launch(es), register {o['register_s']}s "
+              f"vs critical path {o['critical_path_s']}s")
+    if report.cache:
+        print(f"[pipeline] stage cache: {report.cache['hits']} hits, "
+              f"{report.cache['misses']} misses")
+    print("[pipeline] walls (s): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in report.walls_s.items()))
+    if report.degraded:
+        # a degraded run completed with reduced coverage: exit 0, say so
+        print(f"[pipeline] WARNING: completed DEGRADED; see {report.manifest_path}",
+              file=sys.stderr)
+    if os.path.exists(os.path.join(out_dir, "stalls.json")):
+        print(f"[pipeline] WARNING: the stall watchdog fired; -> "
+              f"{os.path.join(out_dir, 'stalls.json')}", file=sys.stderr)
+
+
 def main(argv: list[str] | None = None) -> int:
     parser = _parser()
     args = parser.parse_args(argv)
@@ -152,8 +191,13 @@ def main(argv: list[str] | None = None) -> int:
     from structured_light_for_3d_model_replication_tpu_torch.pipeline import (
         stages,
     )
+    from structured_light_for_3d_model_replication_tpu_torch.utils import faults
 
     cfg = load_config(args.config, parse_overrides(args.set))
+    plan = faults.configure_from(cfg.faults)
+    if plan is not None:
+        print(f"[faults] CHAOS RUN: {len(plan.rules)} injection rule(s) armed "
+              f"(seed {plan.seed})", file=sys.stderr)
     if args.command == "clean":
         steps = _steps(args.steps)
         if os.path.isdir(args.input):
@@ -181,13 +225,16 @@ def main(argv: list[str] | None = None) -> int:
             cfg.merge.pair_batch = args.pair_batch
         if args.packed_ingest is not None:
             cfg.pipeline.packed_ingest = args.packed_ingest
+        if args.trace:
+            cfg.observability.trace = True
+        if args.run_budget is not None:
+            cfg.pipeline.run_budget_s = args.run_budget
+        if args.no_deadlines:
+            cfg.deadlines.enabled = False
         report = stages.run_pipeline(args.calib, args.target, args.out, cfg=cfg,
                                      steps=_steps(args.steps), stl_name=args.stl_name,
                                      device=args.device)
-        for counts in report.clean_counts:   # per view, angle order
-            print(f"[pipeline] clean {json.dumps(counts)}")
-        print("[pipeline] walls (s): " + ", ".join(
-            f"{k} {v:.3f}" for k, v in report.walls_s.items()))
+        _print_pipeline(report, args.out)
         return 0
     if args.command == "merge-360":
         if args.method:

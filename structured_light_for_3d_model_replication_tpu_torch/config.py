@@ -5,26 +5,31 @@ The port's own copy of the JAX package's config dataclasses, cut to what
 Field names and defaults are the same, so one JSON config file loads in
 both packages:
 
-  - ``projector``, ``decode``, ``triangulate``, ``clean``, ``merge`` and
-    ``mesh`` are whole copies; an unknown key there is an error, as in the
-    JAX package;
-  - ``parallel`` carries ``compute_batch`` and ``io_workers``, ``pipeline``
-    carries ``packed_ingest``, ``min_views`` and ``cache``. Other keys of
-    these two sections, and whole sections the port does not model
-    (``serving``, ``deadlines``, …), configure features the port does not
-    have yet: they load without effect.
+  - ``projector``, ``decode``, ``triangulate``, ``clean``, ``merge``,
+    ``mesh``, ``faults``, ``deadlines`` and ``observability`` are whole
+    copies (with their env overrides); an unknown key there is an error, as
+    in the JAX package;
+  - ``parallel`` carries ``compute_batch`` and ``io_workers``; ``pipeline``
+    carries every key but ``ascii_output`` and ``fused_clean``. The other
+    keys of these two sections, and the sections the port does not model
+    (``checkerboard``, ``acquire``, ``coordinator``, ``serving``,
+    ``scan_root``), configure features the port does not have yet: they
+    load without effect, and the loader logs each one set away from the
+    JAX package's default, once a process (``_DROPPED``).
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 import os
+import sys
 from dataclasses import dataclass, field
 from typing import Any
 
 __all__ = ["ProjectorConfig", "DecodeConfig", "TriangulateConfig",
            "CleanConfig", "MergeConfig", "MeshConfig", "ParallelConfig",
-           "PipelineConfig", "Config", "load_config"]
+           "PipelineConfig", "ObservabilityConfig", "DeadlinesConfig",
+           "FaultsConfig", "Config", "load_config"]
 
 
 @dataclass
@@ -85,7 +90,9 @@ class CleanConfig:
 class MergeConfig:
     """360-degree merge. ``method='posegraph'`` loads but is not ported: the
     merge raises NotImplementedError for it. ``stream``, ``pair_batch`` and
-    ``incremental`` are schedule knobs; the port reads ``pair_batch``."""
+    ``incremental`` are schedule knobs (never stage-cache key material);
+    ``incremental`` belongs to the JAX package's coordinated pods and the
+    port never reads it."""
 
     voxel_size: float = 3.0
     icp_dist_ratio: float = 1.5
@@ -97,6 +104,9 @@ class MergeConfig:
     sample_after: int = 0
     final_voxel: float = 0.5
     method: str = "sequential"   # 'sequential' | 'posegraph'
+    # streaming merge (run_pipeline): register pair (i, i+1) the moment both
+    # views are cleaned, overlapping registration with the reconstruction of
+    # later views; false = the barrier merge. Both arms give the same bytes.
     stream: bool = True
     pair_batch: int = 4          # pairs per registration launch group
     incremental: bool = False
@@ -144,20 +154,91 @@ class ParallelConfig:
 
 @dataclass
 class PipelineConfig:
-    """Ingest format of the batched reconstruct lane, the merge's view
-    floor, the stage cache (not ported yet) and the per-view side output."""
+    """The scan-to-print command (``pipeline``): ingest format, the stage
+    cache, the failure domain (retries, quarantine, the view floor, the run
+    budget) and the per-view side output."""
 
+    # content-addressed stage cache under <out>/.slscan-cache: reruns skip
+    # every stage whose inputs (frames, calib, config subtree) are unchanged
+    cache: bool = True
+    # also write each cleaned per-view cloud as <out>/views/<name>.ply
+    write_view_plys: bool = False
+    # proceed to merge when at least max(2, min_views) views survive
+    # reconstruction (failed views are quarantined and the run completes
+    # DEGRADED with a failure manifest); below the floor the run aborts
+    min_views: int = 2
+    # bounded retry + exponential backoff for TRANSIENT per-view faults: up
+    # to max_retries extra attempts, sleeping retry_backoff_s * 2^(n-1)
+    # capped at retry_backoff_max_s; permanent failures skip to quarantine
+    max_retries: int = 2
+    retry_backoff_s: float = 0.05
+    retry_backoff_max_s: float = 1.0
+    # full jitter on those sleeps (uniform in [0, delay]), seeded from the
+    # armed fault plan so chaos runs stay reproducible
+    retry_jitter: bool = True
+    # verify stage-cache payloads against their recorded digest on read; a
+    # corrupt entry is evicted and recomputed
+    verify_cache: bool = True
+    # overall wall-clock budget for one run, seconds (0 = unbounded; env
+    # SL3D_RUN_BUDGET_S), checked at stage boundaries and lane scheduling
+    # steps: exceeding it ABORTS the run with an aborted failure manifest
+    run_budget_s: float = field(
+        default_factory=lambda: float(os.environ.get("SL3D_RUN_BUDGET_S", "0")))
     # load each view as a packed bit-plane stack (frames.slbp where present,
     # packed at load otherwise) and decode from the bits on the device;
     # outputs are byte-identical to raw ingest (batched lane only)
     packed_ingest: bool = False
-    # merge proceeds when at least max(2, min_views) views are readable
-    min_views: int = 2
-    # the JAX package's content-addressed stage cache; the port has none
-    # yet and recomputes every stage (run_pipeline says so once)
-    cache: bool = True
-    # also write each cleaned per-view cloud as <out>/views/<name>.ply
-    write_view_plys: bool = False
+
+
+def _env_flag(name: str) -> bool:
+    return os.environ.get(name, "").strip().lower() in ("1", "true", "yes", "on")
+
+
+@dataclass
+class ObservabilityConfig:
+    """Run-scoped flight recorder (``utils/telemetry.py``), off by default.
+    When on, ``pipeline`` writes an append-only crash-safe ``trace.jsonl``
+    event journal plus a ``metrics.json`` registry snapshot into its out
+    dir."""
+
+    # env override SL3D_TRACE=1
+    trace: bool = field(default_factory=lambda: _env_flag("SL3D_TRACE"))
+    trace_file: str = "trace.jsonl"
+    metrics_file: str = "metrics.json"
+
+
+@dataclass
+class DeadlinesConfig:
+    """Per-lane deadlines + the lane watchdog (``utils/deadline.py``): a
+    wedged load, device dispatch, write or pair registration never hangs a
+    run. Enabled by default (env SL3D_NO_DEADLINES=1 disables); the budgets
+    are far above any healthy lane wall."""
+
+    enabled: bool = field(default_factory=lambda: not _env_flag("SL3D_NO_DEADLINES"))
+    # per-lane budgets for each bounded wait, seconds (0 = unbounded); a
+    # breach abandons THAT item (quarantined, the run goes on DEGRADED)
+    load_s: float = 300.0      # frame-stack load wait per view
+    compute_s: float = 900.0   # decode+triangulate (incl. device sync)
+    write_s: float = 300.0     # one artifact writeback wait
+    register_s: float = 900.0  # streaming-merge register-lane drain
+    drain_s: float = 600.0     # whole writeback drain budget
+    cache_s: float = 300.0     # stage-cache keying (frame-byte hashing)
+    # the watchdog: no lane heartbeat for soft_stall_s -> a warning and a
+    # trace event; for hard_stall_s -> cancel the stalled item and dump all
+    # thread stacks into stalls.json. 0 disables a level.
+    watchdog_poll_s: float = 1.0
+    soft_stall_s: float = 60.0
+    hard_stall_s: float = 300.0
+
+
+@dataclass
+class FaultsConfig:
+    """Deterministic fault injection (``utils/faults.py``). Disabled by
+    default; the SL3D_FAULTS / SL3D_FAULTS_SEED env vars override it."""
+
+    # comma list of `site[~substr]:kind[@n][xM][%p]` rules
+    spec: str = ""
+    seed: int = 0
 
 
 @dataclass
@@ -172,6 +253,9 @@ class Config:
     mesh: MeshConfig = field(default_factory=MeshConfig)
     parallel: ParallelConfig = field(default_factory=ParallelConfig)
     pipeline: PipelineConfig = field(default_factory=PipelineConfig)
+    faults: FaultsConfig = field(default_factory=FaultsConfig)
+    deadlines: DeadlinesConfig = field(default_factory=DeadlinesConfig)
+    observability: ObservabilityConfig = field(default_factory=ObservabilityConfig)
 
     def to_dict(self) -> dict[str, Any]:
         return dataclasses.asdict(self)
@@ -181,21 +265,86 @@ class Config:
             json.dump(self.to_dict(), f, indent=2)
 
 
-# classes copied in part from the JAX package's schema: keys they do not
-# carry belong to stages the port does not run yet and are dropped
-_PARTIAL = (Config, ParallelConfig, PipelineConfig)
+# The JAX package's keys the port loads without effect, with the JAX
+# package's defaults: a section name maps to its dropped keys; a name
+# mapping to a plain value is a dropped top-level key.
+_DROPPED: dict[str, Any] = {
+    "parallel": {"data_axis": 0, "model_axis": 1, "backend": "jax",
+                 "force_bf16_features": False, "merge_mesh": False,
+                 "prefetch_depth": 2, "shard_views": True},
+    "pipeline": {"ascii_output": False, "fused_clean": False},
+    "checkerboard": {"rows": 7, "cols": 7, "square_size_mm": 35.0},
+    "acquire": {
+        "http_host": "0.0.0.0", "http_port": 5000, "long_poll_hold_s": 2.0,
+        "capture_timeout_s": 20.0, "disconnect_after_s": 5.0, "settle_ms_scan": 200,
+        "settle_ms_calib": 250, "serial_port": "", "serial_baud": 115200,
+        "rotate_timeout_s": 30.0, "turns": 12, "degrees_per_turn": 30.0,
+        "simulate": False, "http_retries": 2, "http_backoff_s": 0.2,
+        "rotate_retries": 1, "capture_retries": 1, "pack_frames": False,
+        "pack_keep_raw": False},
+    "coordinator": {
+        "workers": 0, "lease_s": 45.0, "heartbeat_s": 2.0, "max_steals": 3,
+        "port": 0, "connect_timeout_s": 20.0, "listen": "", "connect": "",
+        "secret": ""},
+    "serving": {
+        "host": "127.0.0.1", "port": 8089, "max_active_scans": 4,
+        "tenant_active_quota": 2, "tenant_queue_quota": 8, "queue_depth": 64,
+        "lease_s": 30.0, "default_budget_s": 0.0, "default_weight": 1.0,
+        "engine_lanes": 1, "clean_steps": "background,cluster,radius,statistical",
+        "poll_s": 0.05, "durable": True, "drain_budget_s": 30.0,
+        "max_queue_wait_s": 0.0, "breaker_threshold": 3, "breaker_cooldown_s": 30.0,
+        "ha_enabled": False, "ha_lease_s": 5.0, "ha_renew_s": 0.0, "ha_poll_s": 0.0,
+        "fleet_enabled": False, "fleet_min_workers": 0, "fleet_max_workers": 4,
+        "fleet_poll_s": 0.5, "fleet_scale_up_queue": 4, "fleet_scale_in_idle_s": 5.0,
+        "fleet_backoff_s": 0.5, "fleet_backoff_max_s": 30.0, "fleet_flap_threshold": 3,
+        "fleet_flap_window_s": 60.0, "fleet_listen": "", "fleet_secret": "",
+        "auth_enabled": False, "auth_tenants_file": "", "auth_rate_limit": 0,
+        "auth_rate_window_s": 60.0},
+    "scan_root": "",
+}
+_SECTIONS = {"Config": None, "ParallelConfig": "parallel", "PipelineConfig": "pipeline"}
+_logged: set[str] = set()
 
 
-def _from_dict(cls: type, data: dict[str, Any]) -> Any:
-    import typing
+def _note_dropped(name: str, value: Any, default: Any, log) -> None:
+    """Log a dropped key once a process, when set away from its default."""
+    if value != default and name not in _logged:
+        _logged.add(name)
+        log(f"[config] {name}={value!r} is not ported; the port ignores it "
+            f"(default {default!r})")
 
-    hints = typing.get_type_hints(cls)
+
+def _drop(cls: type, data: dict[str, Any], log) -> dict[str, Any]:
+    """``data`` without the keys ``cls`` does not carry: those of
+    ``_DROPPED`` are logged (when set away from the default), any other is
+    an error, as in the JAX package."""
     known = {f.name for f in dataclasses.fields(cls)}
     unknown = set(data) - known
-    if unknown and cls not in _PARTIAL:
+    section = _SECTIONS.get(cls.__name__, "")
+    dropped = _DROPPED if section is None else _DROPPED.get(section, {})
+    if any(k not in dropped for k in unknown):
         raise ValueError(
             f"Unknown key(s) in config section {cls.__name__}: {sorted(unknown)}; "
             f"valid keys: {sorted(known)}")
+    for k in sorted(unknown):
+        if section is None and isinstance(dropped[k], dict):
+            for leaf, v in (data[k] or {}).items():
+                if leaf in dropped[k]:
+                    _note_dropped(f"{k}.{leaf}", v, dropped[k][leaf], log)
+        else:
+            _note_dropped(f"{section}.{k}" if section else k, data[k], dropped[k], log)
+    return {k: v for k, v in data.items() if k in known}
+
+
+def _stderr(msg: str) -> None:
+    print(msg, file=sys.stderr)
+
+
+def _from_dict(cls: type, data: dict[str, Any], log=_stderr) -> Any:
+    import typing
+
+    hints = typing.get_type_hints(cls)
+    data = _drop(cls, data, log)
     kwargs: dict[str, Any] = {}
     for f in dataclasses.fields(cls):
         if f.name not in data:
@@ -203,7 +352,7 @@ def _from_dict(cls: type, data: dict[str, Any]) -> Any:
         v = data[f.name]
         ftype = hints.get(f.name)
         if isinstance(v, dict) and dataclasses.is_dataclass(ftype):
-            kwargs[f.name] = _from_dict(ftype, v)
+            kwargs[f.name] = _from_dict(ftype, v, log)
         else:
             kwargs[f.name] = v
     return cls(**kwargs)
@@ -237,7 +386,9 @@ def _coerce(cur: Any, value: Any) -> Any:
 def load_config(path: str | None = None,
                 overrides: dict[str, Any] | None = None) -> Config:
     """Load a Config from JSON, with optional dotted-key overrides
-    (``{"decode.thresh_mode": "manual"}``)."""
+    (``{"decode.thresh_mode": "manual"}``). A key the port does not carry
+    (``_DROPPED``) loads without effect, logged to stderr once a process
+    when set away from the JAX package's default."""
     cfg = Config()
     if path:
         if not os.path.exists(path):
@@ -245,8 +396,15 @@ def load_config(path: str | None = None,
         with open(path) as f:
             cfg = _from_dict(Config, json.load(f))
     for key, value in (overrides or {}).items():
-        obj: Any = cfg
         parts = key.split(".")
+        table = _DROPPED
+        for p in parts[:-1]:
+            table = table.get(p) if isinstance(table, dict) else None
+        if isinstance(table, dict) and not isinstance(table.get(parts[-1], {}), dict):
+            default = table[parts[-1]]
+            _note_dropped(key, _coerce(default, value), default, _stderr)
+            continue
+        obj: Any = cfg
         for p in parts[:-1]:
             obj = getattr(obj, p)
         leaf = parts[-1]

@@ -12,6 +12,7 @@ import numpy as np
 from structured_light_for_3d_model_replication_tpu_torch.io.atomic import (
     atomic_write,
 )
+from structured_light_for_3d_model_replication_tpu_torch.utils import faults
 
 __all__ = ["write_ply", "read_ply", "write_mesh_ply"]
 
@@ -35,7 +36,9 @@ def _vertex_dtype(has_colors: bool, has_normals: bool) -> np.dtype:
 def write_ply(path: str, points: np.ndarray, colors: np.ndarray | None = None,
               normals: np.ndarray | None = None) -> None:
     """Write a binary point cloud: points [N,3] float, colors [N,3] uint8
-    RGB, normals [N,3] float. Crash-safe (tmp + fsync + rename)."""
+    RGB, normals [N,3] float. Crash-safe (tmp + fsync + rename); the
+    ``ply.write`` fault site fires first."""
+    faults.fire("ply.write", item=path)
     points = np.asarray(points, np.float32)
     n = points.shape[0]
     has_c = colors is not None
@@ -63,7 +66,8 @@ def write_ply(path: str, points: np.ndarray, colors: np.ndarray | None = None,
 
 def write_mesh_ply(path: str, vertices: np.ndarray, faces: np.ndarray) -> None:
     """Write a binary triangle mesh: vertices [N, 3] float, faces [M, 3]
-    int. Crash-safe (tmp + fsync + rename)."""
+    int. Crash-safe (tmp + fsync + rename); fires ``ply.write``."""
+    faults.fire("ply.write", item=path)
     vertices = np.asarray(vertices, np.float32)
     faces = np.asarray(faces, np.int32)
     n, m = vertices.shape[0], faces.shape[0]

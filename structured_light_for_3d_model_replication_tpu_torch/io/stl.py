@@ -13,6 +13,7 @@ import numpy as np
 from structured_light_for_3d_model_replication_tpu_torch.io.atomic import (
     atomic_write,
 )
+from structured_light_for_3d_model_replication_tpu_torch.utils import faults
 
 __all__ = ["face_normals", "write_stl", "read_stl"]
 
@@ -33,7 +34,9 @@ def face_normals(vertices: np.ndarray, faces: np.ndarray) -> np.ndarray:
 def write_stl(path: str, vertices: np.ndarray, faces: np.ndarray,
               normals: np.ndarray | None = None) -> None:
     """Write a binary STL: vertices [N, 3] float, faces [M, 3] int.
-    Crash-safe (tmp + fsync + rename)."""
+    Crash-safe (tmp + fsync + rename); fires ``ply.write`` as the JAX
+    package's writer does."""
+    faults.fire("ply.write", item=path)
     vertices = np.asarray(vertices, np.float32)
     faces = np.asarray(faces, np.int64)
     m = faces.shape[0]

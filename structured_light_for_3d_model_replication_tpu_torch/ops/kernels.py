@@ -22,12 +22,14 @@ float order; the plain k-NN means select the k-th distance with
 gives the same value). For CUDA tensors it checks device, dtype, shape and
 contiguity, allocates the outputs, launches the kernel on the current stream
 and raises on a non-zero CUDA error — there is no fallback. Each wrapper
-counts its launches in ``<wrapper>.launches``. The plain versions chunk their rows, so none
-materializes an N x N matrix.
+counts its launches in ``<wrapper>.launches``, under one lock: the
+pipeline's register lane launches from its own thread. The plain versions
+chunk their rows, so none materializes an N x N matrix.
 """
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -73,6 +75,16 @@ def _lib() -> ctypes.CDLL:
         lib.slscan_error_string.restype = ctypes.c_char_p
         _declared.add(id(lib))
     return lib
+
+
+_COUNT_LOCK = threading.Lock()
+
+
+def _count(wrapper) -> None:
+    """One launch of ``wrapper``'s kernel (``+=`` on an attribute is not
+    atomic across threads)."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 def _launch(name: str, device: torch.device, *args) -> None:
@@ -193,7 +205,7 @@ def decode_maps(frames_v, thr_v, *, n_bits_col: int, n_bits_row: int,
             _vec(h * w, frames_v), n_bits_col, n_bits_row, n_use_col,
             n_use_row, _avail(n_use_col, (f - 2) // 2),
             _avail(n_use_row, (f - 2 - 2 * n_bits_col) // 2), downsample)
-    decode_maps.launches += 1
+    _count(decode_maps)
     return col, row, mask
 
 
@@ -250,7 +262,7 @@ def decode_packed_maps(planes_v, white_v, black_v, thr_v, *, n_pairs: int,
             n_bits_col, n_bits_row, n_use_col, n_use_row,
             _avail(n_use_col, n_pairs), _avail(n_use_row, n_pairs - n_bits_col),
             downsample)
-    decode_packed_maps.launches += 1
+    _count(decode_packed_maps)
     return col, row, mask
 
 
@@ -352,7 +364,7 @@ def scan_fused(frames_v, thr_v, scalars, rays, *, n_bits_col: int,
             valid.data_ptr(), tex.data_ptr(), v, f, h * w,
             _vec(h * w, frames_v, rays), n_bits_col, n_bits_row, n_use_col,
             n_use_row, n_cols, n_rows, row_mode, downsample)
-    scan_fused.launches += 1
+    _count(scan_fused)
     return pts, valid, tex
 
 
@@ -420,7 +432,7 @@ def nn1(q: torch.Tensor, base: torch.Tensor):
     if p and nq:
         _launch("slscan_nn1", q.device, q.data_ptr(), base.data_ptr(),
                 idx.data_ptr(), d2.data_ptr(), p, nq, nb)
-        nn1.launches += 1
+        _count(nn1)
     return idx, d2
 
 
@@ -466,7 +478,7 @@ def ransac_score(hm: torch.Tensor, pm: torch.Tensor, sc: torch.Tensor,
     counts = torch.empty(t, dtype=torch.int32, device=hm.device)
     _launch("slscan_ransac_score", hm.device, hm.data_ptr(), pm.data_ptr(),
             sc.data_ptr(), md2, counts.data_ptr(), t, n)
-    ransac_score.launches += 1
+    _count(ransac_score)
     return counts
 
 
@@ -540,7 +552,7 @@ def knn_mean(pts: torch.Tensor, k: int):
         name = "slscan_knn_mean" if k <= SELECT_MAX_K else "slscan_knn_mean_bisect"
         _launch(name, pts.device, pts.data_ptr(), n, int(k), _KNN_R2_BITS,
                 mean.data_ptr(), cnt.data_ptr())
-        knn_mean.launches += 1
+        _count(knn_mean)
     return mean, cnt
 
 
@@ -622,7 +634,7 @@ def slab_mean_knn(pts_sorted: torch.Tensor, r: float, k: int, tile: int = 64,
     _launch(name, dev, pts_sorted.data_ptr(), L, int(k), _sq_bits(r),
             int(wblk), int(tile), float(torch.tensor(r, dtype=torch.float32)),
             mean.data_ptr(), cnt.data_ptr(), win_end.data_ptr())
-    slab_mean_knn.launches += 1
+    _count(slab_mean_knn)
     return mean, cnt, win_end
 
 
@@ -663,7 +675,7 @@ def radius_count(pts: torch.Tensor, r: float) -> torch.Tensor:
     if n:
         _launch("slscan_radius_count", pts.device, pts.data_ptr(), n,
                 float(_sq_f32(r)), counts.data_ptr())
-        radius_count.launches += 1
+        _count(radius_count)
     return counts
 
 
@@ -672,12 +684,14 @@ KERNELS = (decode_maps, decode_packed_maps, scan_fused, nn1, ransac_score,
 
 
 def reset_launch_counts() -> None:
-    for k in KERNELS:
-        k.launches = 0
+    with _COUNT_LOCK:
+        for k in KERNELS:
+            k.launches = 0
 
 
 def launch_counts() -> dict[str, int]:
-    return {k.__name__: k.launches for k in KERNELS}
+    with _COUNT_LOCK:
+        return {k.__name__: k.launches for k in KERNELS}
 
 
 reset_launch_counts()

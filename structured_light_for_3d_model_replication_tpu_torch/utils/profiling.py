@@ -1,0 +1,235 @@
+"""Lane overlap accounting and the device profiler hook.
+
+  - ``OverlapStats``: per-lane wall accounting of the reconstruct lanes and
+    the streaming register lane; its ``add`` is also the heartbeat the
+    stall watchdog listens for.
+  - ``trace``: context manager around ``torch.profiler`` so any stage can
+    emit a device trace (set ``SL3D_TRACE_DIR`` or pass a path; the trace is
+    a Chrome-trace JSON that Perfetto loads).
+"""
+from __future__ import annotations
+
+import contextlib
+import os
+import threading
+import time
+
+from structured_light_for_3d_model_replication_tpu_torch.utils import (
+    deadline as _deadline,
+)
+from structured_light_for_3d_model_replication_tpu_torch.utils import telemetry
+
+__all__ = ["OverlapStats", "trace"]
+
+
+class OverlapStats:
+    """Overlap accounting for the reconstruct lanes (load / compute / clean /
+    write) and the streaming merge's register lane.
+
+    Worker threads accumulate per-stage wall time with ``add``; the owner
+    stamps the end-to-end wall with ``finish``. The overlap is then
+    *measurable*, not asserted: ``critical_path_s`` strictly below the
+    lanes' sum (``serial_sum_s``) means they ran concurrently, and
+    ``register_s`` beside ``critical_path_s`` reads as how much pair
+    registration the stream hid. Memory is O(1) in run length: the launch
+    gauges are exact running aggregates, never retained sample lists.
+
+    Flight recorder: when a :mod:`~.utils.telemetry` tracer is active,
+    ``add``/``add_pair_launch`` emit the per-lane span events and the
+    retry/failure/launch accessors emit instants — journal-derived lane
+    walls and these sums come from the SAME calls, so the two layers
+    cannot drift. Disabled cost is one module-global None check.
+    """
+
+    _STAGES = ("load", "transfer", "compute", "clean", "write", "register")
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._stage_s = {s: 0.0 for s in self._STAGES}
+        self._retries = {s: 0 for s in self._STAGES}
+        self._failures = {s: 0 for s in self._STAGES}
+        self._items = 0
+        # batch-launch accounting (the view-batched executor): how many
+        # device launches carried how many real views, and the first
+        # dispatch wall per bucket size (the compile-cost proxy — later
+        # launches of the same bucket reuse the executable)
+        self._launches = 0
+        self._views_dispatched = 0
+        self._bv_min: int | None = None
+        self._bv_max: int | None = None
+        self._bucket_first_s: dict[int, float] = {}
+        # register-lane launch accounting (the streaming merge): how many
+        # pair-registration launches carried how many real pairs
+        self._pair_launches = 0
+        self._pairs_dispatched = 0
+        self.critical_path_s = 0.0
+
+    def add(self, stage: str, elapsed_s: float, items: int = 0,
+            view=None) -> None:
+        """Accumulate ``elapsed_s`` of wall time into ``stage`` (thread-safe).
+        ``view`` (a name or index) only annotates the trace span — it never
+        changes the aggregate accounting."""
+        if stage not in self._stage_s:
+            raise ValueError(f"unknown pipeline stage {stage!r}; "
+                             f"valid: {self._STAGES}")
+        with self._lock:
+            self._stage_s[stage] += elapsed_s
+            self._items += items
+        # lane heartbeat for the stall watchdog — emitted from the SAME
+        # call that accumulates the lane wall (the telemetry can't-drift
+        # pattern), so liveness and accounting cannot disagree. One None
+        # check when no watchdog is armed.
+        _deadline.beat(stage)
+        tr = telemetry.current()
+        if tr is not None:
+            tr.lane(stage, elapsed_s, view=view)
+
+    def add_retry(self, stage: str) -> None:
+        """Count one transient-fault retry in a lane (the resilience layer's
+        per-lane gauge: a climbing load retry count with a flat failure
+        count means backoff is absorbing the blips it is meant to)."""
+        if stage not in self._retries:
+            raise ValueError(f"unknown pipeline stage {stage!r}")
+        with self._lock:
+            self._retries[stage] += 1
+        tr = telemetry.current()
+        if tr is not None:
+            tr.instant("lane.retry", lane=stage)
+
+    def add_failure(self, stage: str) -> None:
+        """Count one exhausted/permanent per-item failure in a lane."""
+        if stage not in self._failures:
+            raise ValueError(f"unknown pipeline stage {stage!r}")
+        with self._lock:
+            self._failures[stage] += 1
+        tr = telemetry.current()
+        if tr is not None:
+            tr.instant("lane.failure", lane=stage)
+
+    def add_launch(self, n_views: int, bucket: int,
+                   dispatch_s: float) -> None:
+        """Record one batched device launch carrying ``n_views`` real views
+        padded to ``bucket`` slots; ``dispatch_s`` is the (async) dispatch
+        wall — dominated by trace+compile the first time a bucket is seen,
+        near-zero after (the no-retrace gauge)."""
+        n = int(n_views)
+        with self._lock:
+            self._launches += 1
+            self._views_dispatched += n
+            self._bv_min = n if self._bv_min is None else min(self._bv_min, n)
+            self._bv_max = n if self._bv_max is None else max(self._bv_max, n)
+            if bucket not in self._bucket_first_s:
+                self._bucket_first_s[int(bucket)] = round(dispatch_s, 4)
+        tr = telemetry.current()
+        if tr is not None:
+            tr.instant("launch", views=n, bucket=int(bucket),
+                       dispatch_s=round(dispatch_s, 6))
+
+    def add_pair_launch(self, n_pairs: int, dispatch_s: float) -> None:
+        """Record one register-lane launch carrying ``n_pairs`` real pairs
+        (group padding excluded); ``dispatch_s`` accumulates into the
+        ``register`` lane as well, so register_s vs critical_path_s reads
+        directly as how much pair registration the stream hid."""
+        n = int(n_pairs)
+        with self._lock:
+            self._pair_launches += 1
+            self._pairs_dispatched += n
+            self._stage_s["register"] += dispatch_s
+        _deadline.beat("register")
+        tr = telemetry.current()
+        if tr is not None:
+            # the register wall includes launch dispatch — mirror it as a
+            # lane span so journal-derived walls stay equal to register_s
+            tr.lane("register", dispatch_s, pairs=n)
+            tr.instant("pair_launch", pairs=n,
+                       dispatch_s=round(dispatch_s, 6))
+
+    def finish(self, critical_path_s: float) -> None:
+        self.critical_path_s = critical_path_s
+        tr = telemetry.current()
+        if tr is not None:
+            tr.instant("executor.finish",
+                       critical_path_s=round(critical_path_s, 6))
+
+    @property
+    def serial_sum_s(self) -> float:
+        return sum(self._stage_s.values())
+
+    def as_dict(self) -> dict:
+        """The bench/report payload: per-stage walls, critical path, gauges."""
+        out = {f"{s}_s": round(v, 4) for s, v in self._stage_s.items()}
+        out["critical_path_s"] = round(self.critical_path_s, 4)
+        out["serial_sum_s"] = round(self.serial_sum_s, 4)
+        out["overlap_ratio"] = (round(self.serial_sum_s / self.critical_path_s, 3)
+                                if self.critical_path_s > 0 else None)
+        out["items"] = self._items
+        out["retries"] = dict(self._retries)
+        out["failures"] = dict(self._failures)
+        out["retry_total"] = sum(self._retries.values())
+        out["failure_total"] = sum(self._failures.values())
+        # batched-launch gauges (zeros/None on the per-view executors);
+        # the per-item normalizations make batched and per-view lines
+        # directly comparable
+        out["launches"] = self._launches
+        out["views_dispatched"] = self._views_dispatched
+        out["mean_views_per_launch"] = (
+            round(self._views_dispatched / self._launches, 2)
+            if self._launches else 0.0)
+        out["min_views_per_launch"] = self._bv_min or 0
+        out["max_views_per_launch"] = self._bv_max or 0
+        out["bucket_first_dispatch_s"] = {
+            str(k): v for k, v in sorted(self._bucket_first_s.items())}
+        # register-lane gauges (zeros on runs without a streaming merge)
+        out["pair_launches"] = self._pair_launches
+        out["pairs_dispatched"] = self._pairs_dispatched
+        out["mean_pairs_per_launch"] = (
+            round(self._pairs_dispatched / self._pair_launches, 2)
+            if self._pair_launches else 0.0)
+        items = self._items
+        out["compute_per_item_s"] = (round(self._stage_s["compute"] / items, 4)
+                                     if items else None)
+        return out
+
+# torch.profiler runs one profile per process at a time, and the lanes
+# carry trace() calls that nest (a lane inside run_pipeline's stages): the
+# OUTER call owns the profile, inner entries no-op.
+_TRACE_LOCK = threading.Lock()
+_TRACE_DEPTH = 0
+
+
+@contextlib.contextmanager
+def trace(trace_dir: str | None = None):
+    """Device and host profile around a block, written as a Chrome-trace
+    JSON (``trace-<pid>-<ns>.json``) into ``trace_dir``.
+
+    No-ops unless a directory is given or ``SL3D_TRACE_DIR`` is set — safe to
+    leave in production paths. Reentrant: entering while a profile is
+    already active (any thread) no-ops the inner call, so nested stage
+    instrumentation composes; everything inside lands in the outer capture.
+    """
+    global _TRACE_DEPTH
+    trace_dir = trace_dir or os.environ.get("SL3D_TRACE_DIR")
+    if not trace_dir:
+        yield
+        return
+    with _TRACE_LOCK:
+        owner = _TRACE_DEPTH == 0
+        _TRACE_DEPTH += 1
+    try:
+        if not owner:
+            yield
+            return
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            acts.append(ProfilerActivity.CUDA)
+        with profile(activities=acts) as prof:
+            yield
+        os.makedirs(trace_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(
+            trace_dir, f"trace-{os.getpid()}-{time.time_ns()}.json"))
+    finally:
+        with _TRACE_LOCK:
+            _TRACE_DEPTH -= 1

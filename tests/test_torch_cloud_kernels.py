@@ -528,3 +528,39 @@ def test_cuda_tensors_never_take_the_plain_version(monkeypatch):
         kernels.nn1(x, x)
     with pytest.raises(RuntimeError, match="no kernel for device"):
         kernels.knn_mean(torch.zeros((4, 3), device="meta"), 2)
+
+
+def test_launch_counts_are_exact_across_threads(monkeypatch):
+    """The register lane launches from its own thread: the counts stay exact.
+    Each wrapper's launch branch runs here with the launch itself stubbed.
+    (CPython's eval loop happens not to switch threads inside an attribute
+    ``+=``; the lock makes the count exact by construction, not by luck.)"""
+    import sys
+    import threading
+
+    monkeypatch.setattr(kernels, "_on_cpu", lambda *t: False)
+    monkeypatch.setattr(kernels, "_launch", lambda *a: None)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    pts = torch.zeros((64, 3), dtype=torch.float32)
+    kernels.reset_launch_counts()
+    n, threads = 2000, 2
+    go = threading.Barrier(threads)
+
+    def worker():
+        go.wait()
+        for _ in range(n):
+            kernels.radius_count(pts, 1.0)
+
+    try:
+        ts = [threading.Thread(target=worker) for _ in range(threads)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join()
+    finally:
+        sys.setswitchinterval(interval)
+    counts = kernels.launch_counts()
+    kernels.reset_launch_counts()
+    assert counts["radius_count"] == threads * n
+    assert sum(counts.values()) == threads * n

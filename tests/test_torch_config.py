@@ -1,0 +1,79 @@
+"""The port's config sections against the JAX package's ``config.py``.
+
+Exact: every field of the sections the port copies whole (``faults``,
+``deadlines``, ``observability``, and those of earlier slices) and every
+``pipeline`` field it carries has the JAX package's name and default, also
+under the sections' environment overrides; the port's table of the keys it
+drops (``config._DROPPED``) holds the JAX package's defaults. A dropped key
+set away from its default is logged once a process (file or override), one
+at its default is not, and an unknown key is still an error.
+"""
+import dataclasses
+import json
+
+import pytest
+
+from structured_light_for_3d_model_replication_tpu import config as jconfig
+from structured_light_for_3d_model_replication_tpu_torch import config
+
+
+@pytest.fixture(autouse=True)
+def _fresh_log(monkeypatch):
+    monkeypatch.setattr(config, "_logged", set())
+
+
+@pytest.mark.parametrize("env", [{}, {"SL3D_TRACE": "1", "SL3D_NO_DEADLINES": "1",
+                                      "SL3D_RUN_BUDGET_S": "30"}])
+def test_copied_sections_have_the_jax_defaults(env, monkeypatch):
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    port, jax = config.Config().to_dict(), jconfig.Config().to_dict()
+    for section in ("faults", "deadlines", "observability", "projector", "decode",
+                    "triangulate", "clean", "merge", "mesh"):
+        assert port[section] == jax[section], section
+    for section in ("pipeline", "parallel"):
+        assert port[section] == {k: jax[section][k] for k in port[section]}
+    assert config.Config().deadlines.enabled is not bool(env)
+    assert config.Config().pipeline.run_budget_s == (30.0 if env else 0.0)
+
+
+def test_the_dropped_table_holds_the_jax_defaults():
+    jax = jconfig.Config().to_dict()
+    port = config.Config().to_dict()
+    for name, dropped in config._DROPPED.items():
+        if isinstance(dropped, dict):
+            assert dropped == {k: v for k, v in jax[name].items()
+                               if k not in port.get(name, {})}, name
+        else:
+            assert dropped == jax[name]
+    # every JAX section and top-level key is carried or dropped
+    assert set(jax) == set(port) | set(config._DROPPED)
+
+
+def test_a_dropped_key_away_from_its_default_is_logged_once(tmp_path, capsys):
+    jcfg = jconfig.Config()
+    jcfg.parallel.merge_mesh = True
+    jcfg.pipeline.fused_clean = True
+    jcfg.coordinator.workers = 3
+    jcfg.pipeline.max_retries = 5
+    jcfg.save(str(tmp_path / "jax.json"))
+    for _ in range(2):
+        cfg = config.load_config(str(tmp_path / "jax.json"))
+    cfg2 = config.load_config(None, {"serving.port": "9000", "pipeline.ascii_output": "false",
+                                     "parallel.merge_mesh": "true"})
+    err = capsys.readouterr().err.splitlines()
+    assert sorted(err) == sorted([
+        "[config] parallel.merge_mesh=True is not ported; the port ignores it "
+        "(default False)",
+        "[config] pipeline.fused_clean=True is not ported; the port ignores it "
+        "(default False)",
+        "[config] coordinator.workers=3 is not ported; the port ignores it (default 0)",
+        "[config] serving.port=9000 is not ported; the port ignores it (default 8089)"])
+    assert cfg.pipeline.max_retries == 5 and cfg2.pipeline.max_retries == 2
+    with open(tmp_path / "bad.json", "w") as f:
+        json.dump({"pipeline": {"max_retriez": 1}}, f)
+    with pytest.raises(ValueError, match="Unknown key"):
+        config.load_config(str(tmp_path / "bad.json"))
+    with pytest.raises(AttributeError):
+        config.load_config(None, {"deadlines.register": "1"})
+    assert dataclasses.fields(config.FaultsConfig)[0].name == "spec"

@@ -36,6 +36,9 @@ def _port_modules() -> list[str]:
 def test_importing_every_port_module_leaves_jax_unloaded():
     mods = _port_modules()
     assert len(mods) >= 15
+    for m in ("utils.telemetry", "utils.faults", "utils.deadline", "utils.profiling",
+              "pipeline.stagecache"):
+        assert f"{PKG}.{m}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
