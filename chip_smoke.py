@@ -112,8 +112,28 @@ Imports nothing of JAX. Phases, each of which exits non-zero on failure:
    arm (view 11 fails permanently: DEGRADED, 23 views
    merged, view 11 alone quarantined, the re-pair 10 -> 12 registered); a
    budget arm (``pipeline.run_budget_s=1``: the run aborts with a manifest
-   and the register thread ends). Every arm but the fault arm ends with no
-   failure.
+   and the register thread and every reconstruct-lane thread end). Every
+   arm but the fault arm ends with no failure;
+9. the executor: (a) ``reconstruct`` over 10 views of the phase-2 render
+   (run right after phase 3, while the render is in memory), written once
+   as PNG frame folders with libpng's adaptive row filters (loading
+   decodes PNGs with cv2, else PIL, else the port's own reader; the phase
+   prints which) and once as .slbp, in
+   four arms: serial (io_workers 1, compute_batch 1), pipelined (io_workers
+   4, compute_batch 1), batched (compute_batch 4, io_workers 4,
+   prefetch_depth 2: two batches and a ragged tail of 2) and packed (the
+   batched lane on the .slbp views). Every arm's PLYs must equal the serial
+   arm's byte for byte, the decode kernel launch once a view in the
+   per-view arms and once a batch (3) in the batched arms and nothing else
+   launch, no view fail and no lane thread outlive its run; each arm
+   prints its wall, views/s, the lanes (load, transfer, compute, write)
+   against the critical path, the bytes uploaded from pinned memory and
+   the peak device memory. (b) ``run_pipeline`` over phase 7's 24 views
+   with ``pipeline.fused_clean=true``: merged.ply, model.stl and the view
+   PLYs byte-identical to phase 7's cold run, decode_maps once a batch,
+   radius_count 2 a view, nn1, ransac_score and slab_mean_knn as many
+   launches as the cold run, no failure, and the cloud bytes between the
+   card and the host at least 3x fewer than the cold run's (both printed).
 
 Then one ``{"kernels": [...]}`` JSON line (times from phases 2, 4 and 6,
 bounds from this run's shapes, and each kernel's launches from one run of
@@ -144,6 +164,9 @@ OPS_PER_S = 67e12           # H100 SXM 32-bit non-tensor rate
 LANE_INSTR_PER_S = 132 * 128 * 1.98e9
 RECON_VIEWS = 8
 RECON_BATCH = 4
+EXEC_VIEWS = 10       # phase 9(a): two batches of 4 and a ragged tail of 2
+EXEC_BATCH = 4
+LANE_THREADS = ("sl3d-prefetch", "sl3d-drain", "sl3d-plywrite", "sl3d-register")
 SOURCE = "structured_light_for_3d_model_replication_tpu_torch/ops/csrc/decode.cu"
 CLOUD_SOURCE = "structured_light_for_3d_model_replication_tpu_torch/ops/csrc/cloud.cu"
 PALLAS = "structured_light_for_3d_model_replication_tpu/ops/pallas_kernels.py"
@@ -718,6 +741,218 @@ def stage_breakdown(dev, data: str, calib: str, packed: bool, card: str) -> None
     print(json.dumps({"breakdown": "packed" if packed else "table",
                       "views": len(sources), "wall_s": wall, "total_s": total,
                       "views_per_s": len(sources) / total, "card": card}), flush=True)
+
+
+def _write_png_views(data: str, frames_np, n_views: int) -> list[int]:
+    """n_views capture folders of numbered PNG frames, view i holding
+    frames_np[i % V]. The port's writer filters each row as libpng's
+    default heuristic does (adaptive), so the reader meets the filter mix
+    a capture written by libpng holds; each distinct view is encoded once,
+    on a pool, and copied for its repeats. Returns the rows written with
+    each filter (None, Sub, Up, Average, Paeth) over the distinct views."""
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    from structured_light_for_3d_model_replication_tpu_torch.io import png
+
+    folders = [os.path.join(data, f"view_{i * 36:03d}deg") for i in range(n_views)]
+    jobs = []
+    for i in range(min(n_views, len(frames_np))):
+        os.makedirs(folders[i])
+        for k, frame in enumerate(frames_np[i]):
+            jobs.append((os.path.join(folders[i], f"{k + 1:02d}.png"), frame))
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        kinds = list(pool.map(lambda job: png.write_png(*job), jobs))
+    for i in range(len(frames_np), n_views):
+        shutil.copytree(folders[i % len(frames_np)], folders[i])
+    return np.bincount(np.concatenate(kinds), minlength=5).tolist()
+
+
+def _png_reader() -> str:
+    """The frame loader's PNG decoder on this machine."""
+    for mod in ("cv2", "PIL"):
+        try:
+            __import__(mod)
+            return mod
+        except ImportError:
+            pass
+    return "io/png.py"
+
+
+def _lane_threads() -> list[str]:
+    """Live threads of the reconstruct lanes and the register lane."""
+    import threading
+
+    return sorted(t.name for t in threading.enumerate()
+                  if t.name.startswith(LANE_THREADS))
+
+
+def executor_phase(dev, rig, frames_np, card: str) -> None:
+    """Phase 9(a): ``reconstruct`` over EXEC_VIEWS views of the phase-2
+    render, written once as PNG frame folders with libpng's adaptive row
+    filters (loading decodes them with cv2, else PIL, else the port's own
+    reader; the phase prints which) and
+    once as .slbp containers, in four arms: serial, pipelined, batched
+    (compute_batch 4: two full batches and a ragged tail of 2) and packed
+    (the batched lane on the .slbp views). Gates: every arm's PLYs equal the
+    serial arm's byte for byte; the decode kernel launches once a view in
+    the per-view arms and once a batch in the batched arms, and nothing
+    else; no failure; no lane thread outlives a run. Each arm prints its
+    wall, views/s, the OverlapStats lanes against the critical path, the
+    bytes uploaded from pinned memory and the peak device memory."""
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.config import load_config
+    from structured_light_for_3d_model_replication_tpu_torch.io import images as imio
+    from structured_light_for_3d_model_replication_tpu_torch.io import matfile
+    from structured_light_for_3d_model_replication_tpu_torch.ops import kernels
+    from structured_light_for_3d_model_replication_tpu_torch.pipeline import stages
+
+    with tempfile.TemporaryDirectory(prefix="slscan_exec_") as root:
+        t0 = time.perf_counter()
+        calib = os.path.join(root, "calib.npz")
+        matfile.save_calibration(calib, rig.calibration())
+        png_dir, slbp_dir = os.path.join(root, "png"), os.path.join(root, "slbp")
+        filters = _write_png_views(png_dir, frames_np, EXEC_VIEWS)
+        for i in range(EXEC_VIEWS):
+            imio.save_packed_stack(os.path.join(slbp_dir, f"view_{i * 36:03d}deg"),
+                                   imio.pack_stack(frames_np[i % len(frames_np)]))
+        print(f"executor views: {EXEC_VIEWS} written as PNG and .slbp in "
+              f"{time.perf_counter() - t0:.1f}s; PNG rows by filter (None, Sub, Up, "
+              f"Average, Paeth): {filters}; PNG reader: {_png_reader()}", flush=True)
+        n_batches = -(-EXEC_VIEWS // EXEC_BATCH)
+        outs = {}
+        for arm, over, data, kernel, want in (
+                ("serial", {"parallel.io_workers": 1, "parallel.compute_batch": 1},
+                 png_dir, "decode_maps", EXEC_VIEWS),
+                ("pipelined", {"parallel.io_workers": 4, "parallel.compute_batch": 1},
+                 png_dir, "decode_maps", EXEC_VIEWS),
+                ("batched", {"parallel.io_workers": 4, "parallel.compute_batch": EXEC_BATCH,
+                             "parallel.prefetch_depth": 2}, png_dir, "decode_maps",
+                 n_batches),
+                ("packed", {"parallel.io_workers": 4, "parallel.compute_batch": EXEC_BATCH,
+                            "parallel.prefetch_depth": 2, "pipeline.packed_ingest": True},
+                 slbp_dir, "decode_packed_maps", n_batches)):
+            cfg = load_config(None, {"decode.n_cols": PROJ[0], "decode.n_rows": PROJ[1],
+                                     **over})
+            out = os.path.join(root, f"out_{arm}")
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            report = stages.reconstruct(calib, data, mode="batch", output=out, cfg=cfg,
+                                        device=dev, log=lambda m: None)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = kernels.launch_counts()
+            o = report.overlap or {}
+            print(json.dumps({
+                "executor": arm, "lane": report.lane, "wall_s": wall,
+                "views_per_s": len(report.outputs) / wall, "launches": counts,
+                "lanes_s": {k: o.get(f"{k}_s") for k in ("load", "transfer", "compute",
+                                                          "clean", "write")},
+                "critical_path_s": o.get("critical_path_s"),
+                "serial_sum_s": o.get("serial_sum_s"),
+                "max_queue_depth": o.get("max_queue_depth"),
+                "bytes_pinned": o.get("transfer_bytes_pinned"),
+                "bytes_frames": o.get("transfer_bytes_frames"),
+                "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                "card": card, "clocks": clocks()}), flush=True)
+            check(report.lane == arm, f"executor {arm}: ran the {report.lane} lane")
+            check(report.failures == [] and len(report.outputs) == EXEC_VIEWS,
+                  f"executor {arm}: {len(report.outputs)} of {EXEC_VIEWS} views, failures "
+                  f"{[f.as_dict() for f in report.failures]}")
+            check(counts[kernel] == want and sum(counts.values()) == want,
+                  f"executor {arm}: launched {counts}, not {kernel} {want} times")
+            check(arm == "serial" or (o.get("transfer_bytes_pinned") or 0) > 0,
+                  f"executor {arm}: nothing uploaded from pinned memory")
+            t_end = time.monotonic() + 10.0   # idle pool threads exit within moments
+            while _lane_threads() and time.monotonic() < t_end:
+                time.sleep(0.01)
+            check(not _lane_threads(), f"executor {arm}: lane threads {_lane_threads()} "
+                                       f"outlived the run by 10 s")
+            outs[arm] = out
+        names = sorted(os.listdir(outs["serial"]))
+        check(len(names) == EXEC_VIEWS, f"executor: serial arm wrote {names}")
+        for arm, out in outs.items():
+            check(sorted(os.listdir(out)) == names, f"executor {arm}: {os.listdir(out)}")
+            for name in names:
+                with open(os.path.join(out, name), "rb") as a, \
+                        open(os.path.join(outs["serial"], name), "rb") as b:
+                    check(a.read() == b.read(),
+                          f"executor {arm}: {name} differs from the serial arm's")
+
+
+def _cloud_bytes(overlap: dict) -> int:
+    """The cloud path's device<->host bytes: all of them less the frame
+    uploads."""
+    return (overlap.get("transfer_bytes_h2d", 0) - overlap.get("transfer_bytes_frames", 0)
+            + overlap.get("transfer_bytes_d2h", 0))
+
+
+def fused_phase(dev, data: str, calib: str, root: str, cold: dict, card: str) -> None:
+    """Phase 9(b): ``run_pipeline`` over the 24 views with
+    ``pipeline.fused_clean=true`` in a fresh directory, beside phase 7's
+    cold run. Gates: merged.ply, model.stl and every view PLY byte-identical
+    to the cold run's; decode_maps once a batch, radius_count 2 a view, nn1,
+    ransac_score and slab_mean_knn as many launches as the cold run; no
+    failure. Prints both runs' walls and cloud bytes between the card and
+    the host."""
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.config import load_config
+    from structured_light_for_3d_model_replication_tpu_torch.ops import kernels
+    from structured_light_for_3d_model_replication_tpu_torch.pipeline import stages
+
+    cfg = load_config(None, {**PIPE_OVERRIDES, "pipeline.fused_clean": True})
+    out = os.path.join(root, "pipeline_fused")
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    report = stages.run_pipeline(calib, data, out, cfg=cfg, device=dev, log=lambda m: None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    o, oc = report.overlap or {}, cold["report"].overlap or {}
+    print(json.dumps({
+        "fused": "pipeline", "wall_s": wall, "cold_wall_s": cold["wall_s"],
+        "cloud_bytes": _cloud_bytes(o), "cold_cloud_bytes": _cloud_bytes(oc),
+        "d2h": o.get("transfer_bytes_d2h"), "cold_d2h": oc.get("transfer_bytes_d2h"),
+        "fused_view": o.get("kernels", {}).get("fused_view"),
+        "lanes_s": {k: o.get(f"{k}_s") for k in ("load", "transfer", "compute", "clean",
+                                                  "write", "register")},
+        "critical_path_s": o.get("critical_path_s"),
+        "cold_lanes_s": {k: oc.get(f"{k}_s") for k in ("load", "transfer", "compute",
+                                                        "clean", "write", "register")},
+        "cold_critical_path_s": oc.get("critical_path_s"),
+        "walls_s": report.walls_s, "launches": counts,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "card": card, "clocks": clocks()}), flush=True)
+    check(report.failures == [] and report.views_computed == PIPE_VIEWS,
+          f"fused: {report.views_computed} views computed, failures "
+          f"{[f.as_dict() for f in report.failures]}")
+    cold_out = cold["out"]
+    for name in ("merged.ply", "model.stl"):
+        with open(os.path.join(out, name), "rb") as a, \
+                open(os.path.join(cold_out, name), "rb") as b:
+            check(a.read() == b.read(), f"fused: {name} differs from phase 7's cold run")
+    views = sorted(os.listdir(os.path.join(cold_out, "views")))
+    check(views == sorted(os.listdir(os.path.join(out, "views"))) and len(views) == PIPE_VIEWS,
+          "fused: the view PLYs differ in number from phase 7's")
+    for name in views:
+        with open(os.path.join(out, "views", name), "rb") as a, \
+                open(os.path.join(cold_out, "views", name), "rb") as b:
+            check(a.read() == b.read(), f"fused: view {name} differs from phase 7's")
+    n_batches = -(-PIPE_VIEWS // cfg.parallel.compute_batch)
+    check(counts["decode_maps"] == n_batches and counts["radius_count"] == 2 * PIPE_VIEWS,
+          f"fused: launched {counts}")
+    for k in ("nn1", "ransac_score", "slab_mean_knn"):
+        check(counts[k] == cold["counts"][k],
+              f"fused: {k} launched {counts[k]} times, the cold run {cold['counts'][k]}")
+    check(_cloud_bytes(o) * 3 <= _cloud_bytes(oc),
+          f"fused: {_cloud_bytes(o)} cloud bytes, not 3x fewer than the cold run's "
+          f"{_cloud_bytes(oc)}")
 
 
 def render_merge_views(root: str):
@@ -1392,8 +1627,9 @@ def _device_profile():
 
 def _device_busy(prof) -> dict:
     """Device time of a profiled run: the sum of its kernels' device times
-    (one stream, so no overlap; the aten ops that launched them are left
-    out, they carry the same time again), and the eight largest by name."""
+    (the aten ops that launched them are left out, they carry the same time
+    again; kernels on the drain, register and default streams may overlap,
+    so the sum can exceed the busy wall), and the eight largest by name."""
     from torch.autograd import DeviceType
 
     rows = []
@@ -1904,19 +2140,22 @@ def schedule_phase(dev, data: str, calib: str, root: str, cold: dict,
         aborted = f"{type(e).__name__}: {e}"
     t_abort = time.perf_counter() - t0
     t_end = time.monotonic() + cfg.deadlines.register_s
-    while _register_threads() and time.monotonic() < t_end:
+    while _lane_threads() and time.monotonic() < t_end:
         time.sleep(0.01)
     t_threads = time.perf_counter() - t0 - t_abort
     torch.cuda.synchronize()
     manifest = json.load(open(os.path.join(out, "failures.json")))
     print(json.dumps({"schedule": "budget", "abort_s": t_abort, "reason": aborted,
-                      "register_thread_end_s": t_threads,
-                      "register_threads": _register_threads(), "card": card}), flush=True)
+                      "lane_threads_end_s": t_threads,
+                      "register_threads": _register_threads(),
+                      "lane_threads": _lane_threads(), "card": card}), flush=True)
     check(manifest["aborted"] is True
           and [(f["stage"], f["error_type"]) for f in manifest["failures"]]
           == [("pipeline", "DeadlineExceeded")], f"schedule budget: manifest {manifest}")
     check(_register_threads() == 0, "schedule budget: the register thread outlived "
                                     "deadlines.register_s")
+    check(not _lane_threads(), f"schedule budget: lane threads {_lane_threads()} outlived "
+                               f"deadlines.register_s")
 
 
 def true_pose_arm(dev, view_dir: str, poses, scene, root: str, card: str) -> None:
@@ -2023,9 +2262,10 @@ def main() -> int:
     rig, frames_np, gt = render_views()
     print(f"render: {frames_np.shape} in {time.perf_counter() - t0:.1f}s", flush=True)
     lines, stacks = kernel_phase(dev, rig, frames_np, gt)
-    del frames_np
     launches = reconstruct_phase(dev, rig, stacks, card)
     del stacks
+    executor_phase(dev, rig, frames_np, card)
+    del frames_np
     with tempfile.TemporaryDirectory(prefix="slscan_merge_") as root:
         t0 = time.perf_counter()
         data, calib, poses = render_merge_views(root)
@@ -2045,6 +2285,7 @@ def main() -> int:
         launches.update({k: (n, "pipeline (cold, streamed)")
                          for k, n in cold["counts"].items() if n})
         schedule_phase(dev, data, calib, root, cold, card)
+        fused_phase(dev, data, calib, root, cold, card)
     for line in lines:
         line["launches"], line["launches_run"] = launches[line["name"]]
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f}s "

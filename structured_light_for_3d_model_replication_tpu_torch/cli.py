@@ -69,6 +69,13 @@ def _parser() -> argparse.ArgumentParser:
                    default="single")
     p.add_argument("--output", default=None,
                    help="output .ply (single) or output directory (batch/files)")
+    p.add_argument("--io-workers", type=int, default=None,
+                   help="host I/O threads for the overlapped lanes (frame "
+                        "prefetch + PLY writeback; <=1 with --compute-batch <= 1 "
+                        "runs the serial loop; default: parallel.io_workers)")
+    p.add_argument("--prefetch-depth", type=int, default=None,
+                   help="frame stacks the prefetcher may hold ahead of compute "
+                        "(default: parallel.prefetch_depth)")
     p.add_argument("--compute-batch", type=int, default=None,
                    help="views per device launch; <=1 runs one view per "
                         "launch (default: parallel.compute_batch)")
@@ -113,11 +120,18 @@ def _parser() -> argparse.ArgumentParser:
                    help="clean-chain steps per view (comma list; empty string "
                         "disables cleaning)")
     p.add_argument("--stl-name", default="model.stl")
+    p.add_argument("--ascii", action="store_true",
+                   help="write the final merged PLY in ASCII (pipeline.ascii_output: "
+                        "the reference's %%.4f layout, lossy); intermediates stay "
+                        "binary")
     p.add_argument("--no-cache", action="store_true",
                    help="pipeline.cache=false: compute every stage, read and write "
                         "no <out>/.slscan-cache entry")
     p.add_argument("--io-workers", type=int, default=None,
                    help="host I/O threads for frame loads (parallel.io_workers)")
+    p.add_argument("--prefetch-depth", type=int, default=None,
+                   help="frame stacks the prefetcher may hold ahead of compute "
+                        "(parallel.prefetch_depth)")
     p.add_argument("--compute-batch", type=int, default=None,
                    help="views per device launch for the reconstruct stage "
                         "(default: parallel.compute_batch)")
@@ -134,6 +148,14 @@ def _parser() -> argparse.ArgumentParser:
                                       "(pipeline.packed_ingest)")
     p.add_argument("--no-packed-ingest", dest="packed_ingest", action="store_false",
                    help="force raw frame ingest")
+    p.add_argument("--fused-clean", dest="fused_clean", action="store_true",
+                   default=None,
+                   help="pipeline.fused_clean: compact + clean + compact again each "
+                        "batch's views on the device and copy them to the host "
+                        "once; byte-identical to the discrete drain (batched lane "
+                        "only)")
+    p.add_argument("--no-fused-clean", dest="fused_clean", action="store_false",
+                   help="the discrete host-masked clean (pipeline.fused_clean=false)")
     p.add_argument("--trace", action="store_true",
                    help="arm the flight recorder (observability.trace; env "
                         "SL3D_TRACE=1): <out>/trace.jsonl + <out>/metrics.json")
@@ -217,8 +239,14 @@ def main(argv: list[str] | None = None) -> int:
             cfg.pipeline.cache = False
         if args.io_workers is not None:
             cfg.parallel.io_workers = args.io_workers
+        if args.prefetch_depth is not None:
+            cfg.parallel.prefetch_depth = args.prefetch_depth
         if args.compute_batch is not None:
             cfg.parallel.compute_batch = args.compute_batch
+        if args.ascii:
+            cfg.pipeline.ascii_output = True
+        if args.fused_clean is not None:
+            cfg.pipeline.fused_clean = args.fused_clean
         if args.stream is not None:
             cfg.merge.stream = args.stream
         if args.pair_batch is not None:
@@ -245,6 +273,10 @@ def main(argv: list[str] | None = None) -> int:
             with open(args.save_transforms, "w") as f:
                 json.dump([t.tolist() for t in transforms], f, indent=2)
         return 0
+    if args.io_workers is not None:
+        cfg.parallel.io_workers = args.io_workers
+    if args.prefetch_depth is not None:
+        cfg.parallel.prefetch_depth = args.prefetch_depth
     if args.compute_batch is not None:
         cfg.parallel.compute_batch = args.compute_batch
     if args.packed_ingest is not None:

@@ -9,9 +9,9 @@ both packages:
     ``mesh``, ``faults``, ``deadlines`` and ``observability`` are whole
     copies (with their env overrides); an unknown key there is an error, as
     in the JAX package;
-  - ``parallel`` carries ``compute_batch`` and ``io_workers``; ``pipeline``
-    carries every key but ``ascii_output`` and ``fused_clean``. The other
-    keys of these two sections, and the sections the port does not model
+  - ``parallel`` carries ``compute_batch``, ``io_workers`` and
+    ``prefetch_depth``; ``pipeline`` carries every key. The other keys of
+    ``parallel``, and the sections the port does not model
     (``checkerboard``, ``acquire``, ``coordinator``, ``serving``,
     ``scan_root``), configure features the port does not have yet: they
     load without effect, and the loader logs each one set away from the
@@ -143,9 +143,16 @@ class MeshConfig:
 class ParallelConfig:
     """Host-side execution knobs of the reconstruct lanes."""
 
-    # host I/O threads for frame decode. Env override: SL3D_IO_WORKERS.
+    # host I/O threads for frame decode and the reconstruct lanes' prefetch
+    # pool; <=1 (with compute_batch <= 1) runs the serial lane. Env
+    # override: SL3D_IO_WORKERS.
     io_workers: int = field(
         default_factory=lambda: int(os.environ.get("SL3D_IO_WORKERS", "4")))
+    # frame stacks the prefetcher may hold ahead of the compute stage (the
+    # batched lane holds compute_batch + prefetch_depth; each 46x1080p stack
+    # is ~95 MB of host memory). Env override: SL3D_PREFETCH_DEPTH.
+    prefetch_depth: int = field(
+        default_factory=lambda: int(os.environ.get("SL3D_PREFETCH_DEPTH", "2")))
     # views per device launch for batch reconstruct; <=1 runs one view per
     # launch. Env override: SL3D_COMPUTE_BATCH.
     compute_batch: int = field(
@@ -161,8 +168,12 @@ class PipelineConfig:
     # content-addressed stage cache under <out>/.slscan-cache: reruns skip
     # every stage whose inputs (frames, calib, config subtree) are unchanged
     cache: bool = True
-    # also write each cleaned per-view cloud as <out>/views/<name>.ply
+    # also write each cleaned per-view cloud as <out>/views/<name>.ply (on
+    # the writeback queue; always binary)
     write_view_plys: bool = False
+    # the final merged.ply in the reference's ASCII layout (%.4f, lossy);
+    # intermediate artifacts stay binary
+    ascii_output: bool = False
     # proceed to merge when at least max(2, min_views) views survive
     # reconstruction (failed views are quarantined and the run completes
     # DEGRADED with a failure manifest); below the floor the run aborts
@@ -188,6 +199,11 @@ class PipelineConfig:
     # packed at load otherwise) and decode from the bits on the device;
     # outputs are byte-identical to raw ingest (batched lane only)
     packed_ingest: bool = False
+    # the batched lane's drain compacts and cleans each batch's views on the
+    # device and copies the results to the host once; the cleaned device
+    # buffers feed the register lane's prep without a re-upload. Outputs
+    # are byte-identical to the discrete drain (batched lane only)
+    fused_clean: bool = False
 
 
 def _env_flag(name: str) -> bool:
@@ -271,8 +287,7 @@ class Config:
 _DROPPED: dict[str, Any] = {
     "parallel": {"data_axis": 0, "model_axis": 1, "backend": "jax",
                  "force_bf16_features": False, "merge_mesh": False,
-                 "prefetch_depth": 2, "shard_views": True},
-    "pipeline": {"ascii_output": False, "fused_clean": False},
+                 "shard_views": True},
     "checkerboard": {"rows": 7, "cols": 7, "square_size_mm": 35.0},
     "acquire": {
         "http_host": "0.0.0.0", "http_port": 5000, "long_poll_hold_s": 2.0,

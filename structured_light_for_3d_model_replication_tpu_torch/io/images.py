@@ -2,7 +2,9 @@
 
 A scan folder holds numbered frames ("01.png".."46.png"): white, black, then
 a (pattern, inverse) pair per Gray-code bit. ``load_stack`` reads them into
-one uint8 [F, H, W] array (cv2 when present, PIL otherwise).
+one uint8 [F, H, W] array (cv2 when present, else PIL, else the port's own
+PNG reader, ``io/png.py``, which undoes a stack's frames together);
+``save_stack`` writes such a folder of PNGs.
 
 Packed format (the same container the JAX package reads and writes): the
 white and black frames verbatim, and each of the P = (F-2)//2 pattern pairs
@@ -22,7 +24,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-__all__ = ["list_frame_files", "load_stack", "load_gray", "load_color",
+__all__ = ["list_frame_files", "load_stack", "save_stack", "load_gray", "load_color",
            "PackedStack", "pack_stack", "unpack_stack", "save_packed_stack",
            "load_packed_stack", "probe_packed", "packed_file", "count_frames",
            "PACKED_NAME"]
@@ -33,12 +35,29 @@ PACKED_NAME = "frames" + PACKED_EXT
 _PACKED_MAGIC = b"SLBP1\n"
 
 
+def _own_png_reader() -> bool:
+    """Neither cv2 nor PIL imports: PNGs go through ``io/png.py``."""
+    for mod in ("cv2", "PIL"):
+        try:
+            __import__(mod)
+            return False
+        except ImportError:
+            pass
+    return True
+
+
 def _imread(path: str, gray: bool) -> np.ndarray:
     try:
         import cv2
     except ImportError:
-        from PIL import Image
+        try:
+            from PIL import Image
+        except ImportError:
+            if not path.lower().endswith(".png"):
+                raise
+            from structured_light_for_3d_model_replication_tpu_torch.io import png
 
+            return png.read_png(path, gray=gray)
         return np.asarray(Image.open(path).convert("L" if gray else "RGB"))
     img = cv2.imread(path, 0 if gray else 1)
     if img is None:
@@ -87,6 +106,15 @@ def load_stack(source, io_workers: int | None = None):
         return unpack_stack(load_packed_stack(files[0]))
     if len(files) < 4:
         raise ValueError(f"{source}: need at least 4 frames, found {len(files)}")
+    if all(f.lower().endswith(".png") for f in files) and _own_png_reader():
+        from structured_light_for_3d_model_replication_tpu_torch.io import png
+
+        raw = png.read_pngs(files, io_workers)
+        imgs = [png.pixels(img) for img in raw]
+        for f, img in zip(files, imgs):
+            if img.shape != imgs[0].shape:
+                raise ValueError(f"{f}: frame size {img.shape} != {imgs[0].shape}")
+        return np.stack(imgs), png.pixels(raw[0], gray=False)
     first = load_gray(files[0])
     frames = np.empty((len(files),) + first.shape, np.uint8)
     frames[0] = first
@@ -107,6 +135,20 @@ def load_stack(source, io_workers: int | None = None):
         for i in rest:
             load_into(i)
     return frames, load_color(files[0])
+
+
+def save_stack(folder: str, frames: np.ndarray) -> list[str]:
+    """Write frames u8 [F, H, W] as numbered PNGs (01.png, 02.png, ...), the
+    capture folder layout ``load_stack`` reads."""
+    from structured_light_for_3d_model_replication_tpu_torch.io import png
+
+    os.makedirs(folder, exist_ok=True)
+    paths = []
+    for i, frame in enumerate(frames):
+        p = os.path.join(folder, f"{i + 1:02d}.png")
+        png.write_png(p, np.asarray(frame, np.uint8))
+        paths.append(p)
+    return paths
 
 
 # ---------------------------------------------------------------------------

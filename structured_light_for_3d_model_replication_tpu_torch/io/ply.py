@@ -1,9 +1,13 @@
 """PLY point-cloud and mesh IO, vectorized.
 
-The writers emit the binary little-endian layout the JAX package writes:
-``x y z`` float, optional ``nx ny nz`` float and ``red green blue`` uchar,
-and for meshes a ``vertex_indices`` list of three ints a face. The reader
-takes vertex PLYs, also ASCII (the reference's artifacts). Colors are RGB.
+The writers emit the layouts the JAX package writes: binary little-endian
+by default, ``x y z`` float, optional ``nx ny nz`` float and ``red green
+blue`` uchar, and for meshes a ``vertex_indices`` list of three ints a face;
+``write_ply(binary=False)`` the reference's ASCII layout (``%.4f``
+coordinates). The reader takes both. Colors are RGB.
+
+``WritebackQueue`` takes PLY writes off a producer's critical path: one
+writer thread, submission order kept, a future per write that re-raises.
 """
 from __future__ import annotations
 
@@ -12,9 +16,10 @@ import numpy as np
 from structured_light_for_3d_model_replication_tpu_torch.io.atomic import (
     atomic_write,
 )
+from structured_light_for_3d_model_replication_tpu_torch.utils import deadline as dl
 from structured_light_for_3d_model_replication_tpu_torch.utils import faults
 
-__all__ = ["write_ply", "read_ply", "write_mesh_ply"]
+__all__ = ["write_ply", "read_ply", "write_mesh_ply", "WritebackQueue"]
 
 _PLY_DTYPES = {
     "float": "<f4", "float32": "<f4", "double": "<f8", "float64": "<f8",
@@ -34,16 +39,20 @@ def _vertex_dtype(has_colors: bool, has_normals: bool) -> np.dtype:
 
 
 def write_ply(path: str, points: np.ndarray, colors: np.ndarray | None = None,
-              normals: np.ndarray | None = None) -> None:
-    """Write a binary point cloud: points [N,3] float, colors [N,3] uint8
-    RGB, normals [N,3] float. Crash-safe (tmp + fsync + rename); the
+              normals: np.ndarray | None = None, binary: bool = True) -> None:
+    """Write a point cloud: points [N,3] float, colors [N,3] uint8 RGB,
+    normals [N,3] float; binary little-endian by default. ``binary=False``
+    writes the reference's ASCII layout, ``%.4f`` coordinates (lossy: for
+    a final export only). Crash-safe (tmp + fsync + rename); the
     ``ply.write`` fault site fires first."""
     faults.fire("ply.write", item=path)
     points = np.asarray(points, np.float32)
     n = points.shape[0]
     has_c = colors is not None
     has_n = normals is not None
-    header = ["ply", "format binary_little_endian 1.0", f"element vertex {n}",
+    header = ["ply",
+              "format binary_little_endian 1.0" if binary else "format ascii 1.0",
+              f"element vertex {n}",
               "property float x", "property float y", "property float z"]
     if has_n:
         header += ["property float nx", "property float ny", "property float nz"]
@@ -51,6 +60,23 @@ def write_ply(path: str, points: np.ndarray, colors: np.ndarray | None = None,
         header += ["property uchar red", "property uchar green", "property uchar blue"]
     header.append("end_header")
 
+    if not binary:
+        cols: list[np.ndarray] = [points.astype(np.float64)]
+        fmt = "%.4f %.4f %.4f"
+        if has_n:
+            cols.append(np.asarray(normals, np.float64))
+            fmt += " %.6f %.6f %.6f"
+        if has_c:
+            cols.append(np.asarray(colors, np.float64))
+            fmt += " %d %d %d"
+        body = np.concatenate(cols, axis=1)
+        lines = [fmt % tuple(row) for row in body]
+        with atomic_write(path) as tmp, open(tmp, "w") as f:
+            f.write("\n".join(header) + "\n")
+            f.write("\n".join(lines))
+            if lines:
+                f.write("\n")
+        return
     rec = np.empty(n, _vertex_dtype(has_c, has_n))
     rec["x"], rec["y"], rec["z"] = points[:, 0], points[:, 1], points[:, 2]
     if has_n:
@@ -62,6 +88,74 @@ def write_ply(path: str, points: np.ndarray, colors: np.ndarray | None = None,
     with atomic_write(path) as tmp, open(tmp, "wb") as f:
         f.write(("\n".join(header) + "\n").encode("ascii"))
         rec.tofile(f)
+
+
+class WritebackQueue:
+    """Background PLY writes: one writer thread, so writes land on disk in
+    submission order (a crash leaves a clean prefix). ``submit`` returns a
+    Future that resolves to the path or re-raises the write's error; the
+    bytes are those of a direct ``write_ply`` call.
+
+    ``retry``: a ``faults.RetryPolicy`` under which transient write errors
+    retry in the writer thread, each retry reported to ``on_retry(path, n,
+    exc)``; ``on_write(path, elapsed_s)`` runs after each successful write.
+    """
+
+    def __init__(self, on_write=None, retry=None, on_retry=None):
+        from concurrent.futures import ThreadPoolExecutor
+
+        self._pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="sl3d-plywrite")
+        self._pending: list[tuple[str, object]] = []
+        self._on_write = on_write
+        self._retry = retry
+        self._on_retry = on_retry
+
+    def submit(self, path: str, points: np.ndarray, colors: np.ndarray | None = None,
+               normals: np.ndarray | None = None, binary: bool = True):
+        """Queue one cloud write; returns a Future resolving to ``path``."""
+
+        def write() -> str:
+            import time
+
+            dl.beat("write")   # work started: the stall watchdog's heartbeat
+            t0 = time.perf_counter()
+            if self._retry is not None:
+                faults.retry_call(
+                    lambda: write_ply(path, points, colors, normals, binary=binary),
+                    self._retry,
+                    on_retry=lambda n, e: (self._on_retry(path, n, e)
+                                           if self._on_retry else None))
+            else:
+                write_ply(path, points, colors, normals, binary=binary)
+            if self._on_write is not None:
+                self._on_write(path, time.perf_counter() - t0)
+            return path
+
+        fut = self._pool.submit(write)
+        self._pending.append((path, fut))
+        return fut
+
+    def close(self, wait: bool = True, timeout_s: float | None = None) -> None:
+        """Shut the writer down. With ``wait`` and ``timeout_s`` the pending
+        writes share one deadline; past it the queued tail is cancelled and
+        a wedged in-flight write is abandoned."""
+        if wait and timeout_s is not None and timeout_s > 0:
+            deadline = dl.Deadline.after(timeout_s, "writeback close")
+            settled = True
+            for _, f in self._pending:
+                rem = deadline.remaining()
+                if rem <= 0 or not dl.wait_settled(f, rem):
+                    settled = False
+                    break
+            self._pool.shutdown(wait=settled, cancel_futures=not settled)
+            return
+        self._pool.shutdown(wait=wait, cancel_futures=not wait)
+
+    def __enter__(self) -> "WritebackQueue":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        self.close(wait=exc_type is None)
 
 
 def write_mesh_ply(path: str, vertices: np.ndarray, faces: np.ndarray) -> None:

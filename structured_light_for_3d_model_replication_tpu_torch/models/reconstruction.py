@@ -32,7 +32,8 @@ from structured_light_for_3d_model_replication_tpu_torch.utils.device import (
     resolve_device,
 )
 
-__all__ = ["merge_360", "prep_view", "prep_from_reference", "register_prep_pairs",
+__all__ = ["merge_360", "prep_view", "prep_view_device", "prep_from_reference",
+           "register_prep_pairs",
            "finalize_chain", "transform_views_batched", "chamfer_distance",
            "FEAT_K", "NORMALS_K", "FEAT_RADIUS_SCALE"]
 
@@ -69,6 +70,14 @@ def _bucket_pad(max_count: int, slots: int | None = None, multiple: int = 2048) 
     return b if slots is None else min(b, slots)
 
 
+def _compact_order_counts(valid: torch.Tensor):
+    """Per row of ``valid`` [V, S] bool: the slot order that puts the valid
+    slots first, each group in slot order (the order host boolean masking
+    gives), and the valid counts [V]."""
+    order = torch.argsort((~valid).to(torch.uint8), dim=1, stable=True)
+    return order, valid.sum(dim=1)
+
+
 def _prep_features(p: torch.Tensor, v: torch.Tensor, feat_radius: float):
     idx, d2 = knnlib.knn(p, v, FEAT_K)
     nr = nrmlib.estimate_normals(p, v, k=NORMALS_K, idx_d2=(idx, d2))
@@ -94,6 +103,35 @@ def prep_view(points, voxel: float, sample_before: int = 0, device=None) -> _Pre
     valid = torch.arange(n_raw, device=dev) < n
     p_all, _, v_all = pc.voxel_downsample(
         pts_t, torch.zeros((n_raw, 3), dtype=torch.uint8, device=dev), valid, voxel)
+    cnt = int(v_all.sum())
+    bucket = _bucket_pad(cnt, n_raw)
+    p_c = p_all[:bucket].contiguous()
+    v_c = torch.arange(bucket, device=dev) < cnt
+    nr, feat = _prep_features(p_c, v_c, float(np.float32(FEAT_RADIUS_SCALE * voxel)))
+    return _Prep(p_c, v_c, nr, feat)
+
+
+def prep_view_device(points: torch.Tensor, count: int, voxel: float) -> _Prep:
+    """``prep_view`` of a cloud already on the card: the first ``count``
+    rows of ``points`` [B, 3] (the fused clean's output, prefix order) are
+    the view's points. The tail is set to 1e9 and the array re-padded to
+    the multiple of 8192 the host prep pads to, so every shape and every
+    bit matches ``prep_view(host points)``. Work runs on the caller's
+    current stream."""
+    reg.exact_f32_products()
+    dev = points.device
+    n = int(count)
+    n_raw = -(-max(n, 1) // 8192) * 8192
+    p = points[:n_raw].to(torch.float32)
+    rows = torch.arange(p.shape[0], device=dev)
+    p = torch.where((rows < n)[:, None], p, torch.full_like(p, 1e9))
+    if n_raw > p.shape[0]:
+        p = torch.cat([p, torch.full((n_raw - p.shape[0], 3), 1e9, dtype=torch.float32,
+                                     device=dev)])
+    p = p.contiguous()
+    valid = torch.arange(n_raw, device=dev) < n
+    p_all, _, v_all = pc.voxel_downsample(
+        p, torch.zeros((n_raw, 3), dtype=torch.uint8, device=dev), valid, voxel)
     cnt = int(v_all.sum())
     bucket = _bucket_pad(cnt, n_raw)
     p_c = p_all[:bucket].contiguous()

@@ -20,10 +20,15 @@ clouds -> the masked clean chain -> 360-degree merge -> Poisson mesh ->
     while later views are still being cleaned (``_StreamRegistrar``); the
     barrier arm runs ``merge_360`` after the last view. Both arms give the
     same bytes.
+  - the views are reconstructed and cleaned on ``reconstruct``'s lanes:
+    the clean chain runs in the lane's drain thread, beside the next view's
+    load and launch; ``pipeline.fused_clean`` keeps the span from decode
+    output to cleaned cloud on the device (``ops/fused_view.py``) and hands
+    the cleaned device buffers to the register lane.
 
 Not ported: the coordinator, ``parallel.merge_mesh``, ``merge.method=
-'posegraph'`` (``merge_360`` raises), the incremental assembly prefold, the
-prefetch pool and the writeback queue.
+'posegraph'`` (``merge_360`` raises), the incremental assembly prefold and
+``merge_360``'s device-accumulate arm.
 
 ``clean_cloud`` / ``clean_batch`` (``sl3d clean``), ``merge_views``
 (``sl3d merge-360``) and ``mesh_cloud`` (``sl3d mesh``) are the file-level
@@ -31,17 +36,29 @@ stages.
 
 ``reconstruct`` is the port's user entry point of the scan path (the JAX
 package's ``sl3d reconstruct``): it resolves the scan sources, builds one
-SLScanner on the device, and runs one of three lanes:
+SLScanner on the device, and runs the JAX package's executor, one of four
+lanes (``_lane``):
 
-  serial   one view per device launch (``parallel.compute_batch <= 1`` or a
-           single source)
-  batched  ``compute_batch`` views per launch, frames stacked [V, F, H, W]
-  packed   the batched lane fed packed bit-planes (``pipeline.packed_ingest``):
-           ~8x fewer bytes to the device, byte-identical PLYs
+  batched    ``compute_batch`` views a launch, frames stacked [V, F, H, W]
+             (``parallel.compute_batch > 1`` and several sources)
+  packed     the batched lane fed packed bit-planes (``pipeline.packed_ingest``):
+             ~8x fewer bytes to the device, byte-identical PLYs
+  pipelined  one view a launch, overlapped (``compute_batch <= 1``,
+             ``io_workers > 1``)
+  serial     one view at a time on the calling thread
 
-Each lane loads and computes a view under the retry budget, records a view
-that still fails as a ``FailureRecord`` and goes on. The batched lane fires
-``compute.view`` per view at batch assembly; any failure of a batch re-runs
+The overlapped lanes (batched, packed, pipelined) prefetch stacks on the
+``io_workers`` pool (a window of ``compute_batch + prefetch_depth``, or
+``prefetch_depth`` a view; on the card each into a slot of a ring of pinned
+host buffers, copied with ``non_blocking`` on an upload stream), dispatch
+on the calling thread while the previous launch is still in flight, and
+drain on one worker thread (``sl3d-drain``, on a stream of its own, after
+the launch's event): the device sync, compaction, the clean chain, the
+``collect`` hook, and the PLY on a ``ply.WritebackQueue``. Each lane loads
+and computes a view under the retry budget and records a view that still
+fails as a ``FailureRecord``; results are assembled in source order, so
+``outputs`` and ``failed`` are the same in every lane. The batched lane
+fires ``compute.view`` per view at batch assembly; a fault there re-runs
 its views one at a time, so one bad view never quarantines its batchmates.
 Outputs follow the JAX package's path contract: ``<output>/<view>.ply`` for
 batch/files mode, ``output`` itself (or ``<target>.ply``) for single mode.
@@ -53,7 +70,9 @@ import dataclasses
 import json
 import os
 import re
+import threading
 import time
+from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 
@@ -109,7 +128,7 @@ class BatchReport:
     failed: list[tuple[str, str]] = field(default_factory=list)  # (input, error)
     failures: list[faults.FailureRecord] = field(default_factory=list)
     retries: int = 0
-    lane: str = ""          # serial | batched | packed
+    lane: str = ""          # serial | pipelined | batched | packed (| clean)
     launches: int = 0       # device forward calls (one per batch)
     device: str = ""
     elapsed_s: float = 0.0
@@ -223,19 +242,27 @@ def _retry_stage(stage: str, fn, policy: faults.RetryPolicy, on_retry=None):
         raise
 
 
-def _stage_retry(policy: faults.RetryPolicy, report: BatchReport,
-                 stats: prof.OverlapStats, log, name: str):
+def _lane_on_retry(stats: prof.OverlapStats, policy: faults.RetryPolicy, log,
+                   lane: str, name: str | None = None):
+    """The retry hook of one lane: counted in ``stats`` and logged."""
+
+    def on_retry(n, e):
+        stats.add_retry(lane)
+        who = f"{name}: " if name else ""
+        log(f"[reconstruct] {who}transient {type(e).__name__} in {lane} ({e}); retry "
+            f"{n}/{policy.max_retries} after {policy.delay_s(n):.2f}s backoff")
+
+    return on_retry
+
+
+def _stage_retry(policy: faults.RetryPolicy, stats: prof.OverlapStats, log, name: str):
     """``retry(stage, fn)`` for one view: ``fn`` under the retry budget,
-    each retry counted in the report and in the lane's stats."""
+    each retry counted in the lane's stats (``_reconstruct_lane`` adds the
+    lanes' retries to the report)."""
 
     def retry(stage: str, fn):
-        def on_retry(n, e):
-            report.retries += 1
-            stats.add_retry(stage)
-            log(f"[reconstruct] {name}: transient {type(e).__name__} in {stage} "
-                f"({e}); retry {n}/{policy.max_retries} after "
-                f"{policy.delay_s(n):.2f}s backoff")
-        return _retry_stage(stage, fn, policy, on_retry)
+        return _retry_stage(stage, fn, policy, _lane_on_retry(stats, policy, log, stage,
+                                                              name))
 
     return retry
 
@@ -329,6 +356,32 @@ def _run_context(cfg: Config, out_dir: str | None, run_id: str, log):
 # the reconstruct lanes
 # ---------------------------------------------------------------------------
 
+@dataclass
+class _Tail:
+    """What a lane does with each compact view, after compute: the JAX
+    package's executor hooks. ``clean_steps``: the masked clean chain (None:
+    no clean); ``write_plys``: the per-view PLY at the ``mode`` / ``output``
+    path contract (on the writeback queue in the overlapped lanes);
+    ``collect(idx, src, points, colors, counts, dev=None)``: the in-memory
+    sink, called on the lane's drain thread (``dev``: the fused drain's
+    ``(device points, count)``). ``timings`` gets the clean chain's
+    ``clean_<step>_s``; the chain runs on ``device``."""
+
+    mode: str
+    output: str | None
+    device: torch.device
+    clean_steps: tuple | None = None
+    collect: object = None
+    write_plys: bool = True
+    timings: dict | None = None
+
+
+def _on_card(scanner: SLScanner) -> bool:
+    """The lanes' CUDA machinery (pinned staging, the upload and drain
+    streams, events) runs where the scanner's tensors live on a card."""
+    return scanner.device.type == "cuda" and torch.cuda.is_available()
+
+
 def _load_fired(src, cfg: Config) -> np.ndarray:
     """A view's frame stack [F, H, W] behind the ``frame.load`` site (and
     ``frame.pack`` for a packed source, whose unpack is the codec step)."""
@@ -355,28 +408,288 @@ def _load_packed_fired(src, cfg: Config) -> imio.PackedStack:
     return imio.pack_stack(frames, texture=texture)
 
 
-def _compute_fired(scanner: SLScanner, frames, cfg: Config, src,
-                   use_fused: bool | None = None):
-    """One view's decode + triangulate + compaction behind ``compute.view``.
-    ``use_fused=False`` is the per-view twin of the packed lane (decode +
-    triangulate, as ``forward_views_packed``)."""
+def _forward_fired(scanner: SLScanner, frames, cfg: Config, src,
+                   use_fused: bool | None = None) -> tri.CloudResult:
+    """One view's decode + triangulate behind ``compute.view``: ``frames``
+    [F, H, W] (host or card). ``use_fused=False`` is the per-view twin of
+    the packed lane (decode + triangulate, as ``forward_views_packed``)."""
     dl.beat("compute")
     faults.fire("compute.view", item=src)
-    out = scanner.forward_views(np.asarray(frames)[None], use_fused=use_fused,
-                                **_forward_kw(cfg))
-    return tri.compact_cloud(tri.CloudResult(out.points[0], out.colors[0], out.valid[0]))
+    frames_v = frames[None] if isinstance(frames, torch.Tensor) else np.asarray(frames)[None]
+    out = scanner.forward_views(frames_v, use_fused=use_fused, **_forward_kw(cfg))
+    return tri.CloudResult(out.points[0], out.colors[0], out.valid[0])
 
 
-def _reconstruct_serial(sources, cfg, scanner, report, emit, log, stats) -> None:
-    """One view a launch. ``emit(src, points, colors, retry)`` takes each
-    compact cloud (a PLY write, or the pipeline's clean + collect) and runs
-    its own steps through ``retry(stage, fn)``. A view that fails after its
-    retries is recorded and the loop goes on."""
+def _compute_fired(scanner: SLScanner, frames, cfg: Config, src,
+                   use_fused: bool | None = None):
+    """``_forward_fired`` and the compaction: host (points, colors)."""
+    return tri.compact_cloud(_forward_fired(scanner, frames, cfg, src, use_fused))
+
+
+class _Staging:
+    """Host -> card staging of one run's stacks (CUDA only): a ring of
+    pinned host buffers, one a slot of the prefetch window, allocated once
+    a run (again only for a stack of another shape), an upload stream, and
+    each slot's event of the last copy out of it.
+
+    The main thread takes a slot before it submits a load (``acquire``,
+    which returns a lease: the slot and the acquire's serial number); the
+    prefetch thread waits on the slot's event before it refills the buffer
+    (``fill``), so a buffer is never overwritten while a copy out of it is
+    in flight; ``release`` hands the slot back once its copy is queued.
+    A slot has one holder at a time: a lease released twice, or after its
+    slot went to another load, frees nothing, and ``fill`` or ``upload``
+    on such a lease raises. A copy from pinned memory with ``non_blocking``
+    does not block the host.
+    """
+
+    def __init__(self, device: torch.device, n_slots: int):
+        self.device = device
+        self.stream = torch.cuda.Stream(device=device)
+        self._bufs: list[tuple | None] = [None] * n_slots
+        self._events: list = [None] * n_slots
+        self._free = list(range(n_slots))
+        self._owner: list[int | None] = [None] * n_slots   # serial of the holding lease
+        self._serial = 0
+        self._lock = threading.Lock()
+        self.pinned_bytes = 0   # bytes copied to the card out of the ring
+
+    def acquire(self) -> tuple[int, int] | None:
+        with self._lock:
+            if not self._free:
+                return None
+            slot = self._free.pop(0)
+            self._serial += 1
+            self._owner[slot] = self._serial
+            return slot, self._serial
+
+    def release(self, lease: tuple[int, int] | None) -> None:
+        """Hand a lease's slot back; a lease that no longer holds its slot
+        frees nothing."""
+        if lease is None:
+            return
+        with self._lock:
+            slot, serial = lease
+            if self._owner[slot] == serial:
+                self._owner[slot] = None
+                self._free.append(slot)
+
+    def _held(self, lease: tuple[int, int]) -> int:
+        with self._lock:
+            slot, serial = lease
+            if self._owner[slot] != serial:
+                raise RuntimeError(f"staging slot {slot} is used by a load that no "
+                                   "longer holds it")
+            return slot
+
+    def fill(self, lease: tuple[int, int], arrays) -> tuple:
+        """Copy ``arrays`` (host u8) into the leased slot's pinned buffers,
+        once the slot's last copy to the card has completed."""
+        slot = self._held(lease)
+        ev = self._events[slot]
+        if ev is not None:
+            ev.synchronize()
+        bufs = self._bufs[slot]
+        if bufs is None or [tuple(b.shape) for b in bufs] != [a.shape for a in arrays]:
+            bufs = tuple(torch.empty(a.shape, dtype=torch.uint8, pin_memory=True)
+                         for a in arrays)
+            self._bufs[slot] = bufs
+        for b, a in zip(bufs, arrays):
+            np.copyto(b.numpy(), a)
+        return bufs
+
+    def upload(self, parts: list[torch.Tensor], leases: list[tuple[int, int]],
+               stacked: bool):
+        """Queue pinned ``parts`` to the card on the upload stream: into one
+        [V, ...] tensor (``stacked``), else one tensor each. Records one
+        event, which each leased slot keeps as its last copy. Returns
+        (tensor or tensors, event); the consumer's stream waits on the event
+        and takes the tensors with ``record_stream``."""
+        slots = [self._held(lease) for lease in leases]
+        with torch.cuda.stream(self.stream):
+            if stacked:
+                out = torch.empty((len(parts),) + tuple(parts[0].shape), dtype=torch.uint8,
+                                  device=self.device)
+                for j, p in enumerate(parts):
+                    out[j].copy_(p, non_blocking=True)
+            else:
+                out = tuple(p.to(self.device, non_blocking=True) for p in parts)
+            ev = torch.cuda.Event()
+            ev.record(self.stream)
+        with self._lock:
+            self.pinned_bytes += sum(int(p.numel()) for p in parts)
+        for s in slots:
+            self._events[s] = ev
+        return out, ev
+
+
+def _take_on_stream(ev, tensors, stream=None) -> None:
+    """Make ``stream`` (None: the current one) wait on ``ev`` and own
+    ``tensors`` made on another stream (``record_stream``), so the caching
+    allocator never hands their memory out while this stream still reads
+    them."""
+    stream = stream if stream is not None else torch.cuda.current_stream()
+    if ev is not None:
+        stream.wait_event(ev)
+    for t in tensors:
+        t.record_stream(stream)
+
+
+@contextlib.contextmanager
+def _drain_stream(stream, ev=None, tensors=()):
+    """The drain thread's device work: on its own stream, after ``ev`` (the
+    event recorded behind the launch that made ``tensors``)."""
+    if stream is None:
+        yield
+        return
+    with torch.cuda.stream(stream):
+        _take_on_stream(ev, tensors, stream)
+        yield
+
+
+def _writeback(cfg: Config, stats: prof.OverlapStats, policy: faults.RetryPolicy,
+               log) -> ply.WritebackQueue:
+    """The lanes' writeback queue: write walls into the ``write`` lane,
+    transient write errors retried under the pipeline policy."""
+
+    on_retry = _lane_on_retry(stats, policy, log, "write")
+    return ply.WritebackQueue(
+        on_write=lambda path, dt: stats.add("write", dt, view=os.path.basename(path)),
+        retry=policy, on_retry=lambda path, n, e: on_retry(n, e))
+
+
+def _mark_fatal(exc: BaseException) -> None:
+    """A device failure on the card that must fail the run: the in-order
+    assembly re-raises it instead of recording a view failure."""
+    with contextlib.suppress(AttributeError, TypeError):
+        exc.sl3d_fatal = True
+
+
+def _join(futs, budget_s: float | None) -> None:
+    """Wait, under one shared budget, for lane work already running: on an
+    abort no prefetch or drain thread outlives the run by more than that."""
+    deadline = dl.Deadline.after(budget_s, "lane join")
+    for f in futs:
+        if f.done():   # finished, or cancelled by the pool's shutdown
+            continue
+        rem = deadline.remaining() if deadline is not None else None
+        if rem is not None and rem <= 0:
+            return
+        dl.wait_settled(f, rem)
+
+
+class _Prefetch:
+    """The prefetch window of an overlapped lane: loads go to ``pool`` in
+    source order while fewer than ``depth`` are in flight and, on the card,
+    a staging slot is free (a slot's lease is taken before its load is
+    submitted, so the oldest loads always hold one). ``started`` keeps every future
+    of the lane (loads and drains) for the join on an abort."""
+
+    def __init__(self, pool: ThreadPoolExecutor, loader, sources, depth: int,
+                 staging: _Staging | None):
+        self.pool, self.loader, self.depth, self.staging = pool, loader, depth, staging
+        self.pending = list(enumerate(sources))
+        self.inflight: deque = deque()   # (idx, src, load future, lease)
+        self.started: list = []
+        self._next = 0
+
+    def top_up(self) -> None:
+        while self._next < len(self.pending) and len(self.inflight) < self.depth:
+            lease = None
+            if self.staging is not None:
+                lease = self.staging.acquire()
+                if lease is None:
+                    return
+            idx, src = self.pending[self._next]
+            fut = self.pool.submit(self.loader, src, lease)
+            self.started.append(fut)
+            self.inflight.append((idx, src, fut, lease))
+            self._next += 1
+
+    def release(self, lease) -> None:
+        if self.staging is not None:
+            self.staging.release(lease)
+
+
+def _finish_view(idx, src, pts, cols, cfg: Config, tail: _Tail, stats, retry,
+                 wbq: ply.WritebackQueue | None = None, counts: dict | None = None,
+                 dev=None, fire_clean: bool = False):
+    """The per-view tail every lane shares: the clean chain (unless the
+    fused drain already cleaned the view: ``counts`` given), the PLY (on
+    ``wbq``, else written here), ``collect``. ``fire_clean``: the batched
+    lane's ``clean.fused`` site fires before the chain, so a poisoned view
+    quarantines alone. Returns (out path, points, write future or None)."""
+    name = _item_name(src)
+    if tail.clean_steps is not None and counts is None:
+        t0 = time.perf_counter()
+
+        def clean():
+            if fire_clean:
+                faults.fire("clean.fused", item=src)
+            return _clean_arrays(pts, cols, cfg, tail.clean_steps, device=tail.device,
+                                 timings=tail.timings, stats=stats)
+
+        pts, cols, counts = retry("clean", clean)
+        stats.add("clean", time.perf_counter() - t0, view=name)
+    counts = counts if counts is not None else {"input": len(pts)}
+    out_path = _out_path_for(src, tail.mode, tail.output) if tail.write_plys else name
+    wfut = None
+    if tail.write_plys:
+        if wbq is not None:
+            wfut = wbq.submit(out_path, pts, cols)
+        else:
+            t0 = time.perf_counter()
+            retry("write", lambda: ply.write_ply(out_path, pts, cols))
+            stats.add("write", time.perf_counter() - t0, view=name)
+    if tail.collect is not None:
+        tail.collect(idx, src, pts, cols, counts, dev=dev)
+    return out_path, len(pts), wfut
+
+
+def _view_done(report: BatchReport, name: str, out_path: str, n_pts: int, written: bool,
+               log) -> None:
+    log(f"[reconstruct] {name}: {n_pts:,} points -> "
+        f"{out_path if written else 'in-memory handoff'}")
+    report.outputs.append(out_path)
+    report.points.append(n_pts)
+
+
+def _assemble(report: BatchReport, src, out, cfg: Config, log, stats) -> None:
+    """In-order assembly of one view's result: ``out`` is ("ok", path, n,
+    write future) or ("fail", src, exc). A write error surfaces here,
+    bounded by the write lane's budget; a device failure marked fatal
+    (``_mark_fatal``) re-raises."""
+    name = _item_name(src)
+    if out[0] == "ok":
+        _, out_path, n_pts, wfut = out
+        try:
+            if wfut is not None:
+                _lane_wait(wfut, cfg, "write", f"write of {name}")
+            _view_done(report, name, out_path, n_pts, wfut is not None, log)
+            return
+        except faults.InjectedCrash:
+            raise
+        except Exception as e:
+            _budget_check("reconstruct")
+            faults.annotate(e, stage="write")
+            err = e
+    else:
+        err = out[2]
+    if getattr(err, "sl3d_fatal", False):
+        raise err
+    _record_failure(report, src, name, err, log, stats)
+
+
+def _reconstruct_serial(sources, cfg, scanner, report, log, stats, tail: _Tail) -> dict:
+    """The reference-shaped loop: load, compute, clean, write, collect, one
+    view at a time on the calling thread (``io_workers <= 1``, or one
+    source). A view that fails after its retries is recorded and the loop
+    goes on."""
     policy = _retry_policy(cfg)
-    for src in sources:
+    for idx, src in enumerate(sources):
         _budget_check("reconstruct")
         name = _item_name(src)
-        retry = _stage_retry(policy, report, stats, log, name)
+        retry = _stage_retry(policy, stats, log, name)
         try:
             t0 = time.perf_counter()
             frames = retry("load", lambda: _load_fired(src, cfg))
@@ -385,149 +698,483 @@ def _reconstruct_serial(sources, cfg, scanner, report, emit, log, stats) -> None
             pts, cols = retry("compute", lambda: _compute_fired(scanner, frames, cfg, src))
             report.launches += 1
             stats.add("compute", time.perf_counter() - t0, items=1, view=name)
-            emit(src, pts, cols, retry)
+            out_path, n_pts, _ = _finish_view(idx, src, pts, cols, cfg, tail, stats, retry)
+            _view_done(report, name, out_path, n_pts, tail.write_plys, log)
         except Exception as e:
             _record_failure(report, src, name, e, log, stats)
+    return {}
 
 
-def _reconstruct_batched(sources, cfg, scanner, report, emit, log, stats,
-                         packed: bool) -> None:
-    """``compute_batch`` views per device launch, each compact cloud to
-    ``emit`` as in the serial lane. Stacks of one batch must share a shape;
-    a change of shape closes the batch early. ``compute.view`` fires per
-    view at batch assembly; a fault there re-runs the batch's views one at
-    a time under the retry budget (a packed stack unpacks for it: decode +
-    triangulate of the binarized stack is the packed lane's bit for bit).
-    So does a failure of the batched launch on the CPU, as in the JAX
-    package; on the card it fails the run, so a kernel that fails at the
-    batch's shape never passes as a per-view success."""
-    batch_n = max(1, cfg.parallel.compute_batch)
+def _reconstruct_pipelined(sources, cfg, scanner, report, log, stats, tail: _Tail) -> dict:
+    """The per-view overlapped lane (``compute_batch <= 1``, ``io_workers >
+    1``), the JAX package's schedule:
+
+      load     frame stacks prefetched on the ``io_workers`` pool, at most
+               ``prefetch_depth`` ahead (on the card each into a pinned
+               slot of the staging ring)
+      compute  the main thread uploads and dispatches view N+1 while view N
+               is still in flight; at most ``prefetch_depth + 1`` views are
+               dispatched and not yet drained
+      drain    one worker (``sl3d-drain``, on its own stream, after the
+               view's launch event) pays the device sync and the
+               compaction, runs the clean chain and ``collect``, and hands
+               the PLY to the writeback queue
+
+    Results are assembled strictly in source order, so ``outputs``,
+    ``failed`` and the summary equal the serial lane's."""
     policy = _retry_policy(cfg)
-    loader = _load_packed_fired if packed else _load_fired
+    depth = max(1, cfg.parallel.prefetch_depth)
+    card = _on_card(scanner)
+    staging = _Staging(scanner.device, depth) if card else None
+    drain_stream = torch.cuda.Stream(device=scanner.device) if card else None
+    load_pool = ThreadPoolExecutor(max_workers=max(1, cfg.parallel.io_workers),
+                                   thread_name_prefix="sl3d-prefetch")
+    drain_pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="sl3d-drain")
+    wbq = _writeback(cfg, stats, policy, log)
 
-    def retry_for(src):
-        return _stage_retry(policy, report, stats, log, _item_name(src))
-
-    def load(src):
+    def load_one(src, lease):
         t0 = time.perf_counter()
-        out = retry_for(src)("load", lambda: loader(src, cfg))
+        frames = _retry_stage("load", lambda: _load_fired(src, cfg), policy,
+                              _lane_on_retry(stats, policy, log, "load"))
         stats.add("load", time.perf_counter() - t0, view=_item_name(src))
-        return out
+        staged = staging.fill(lease, (frames,)) if staging is not None else None
+        return frames, staged
 
-    def finish(src, pts, cols):
-        try:
-            emit(src, pts, cols, retry_for(src))
-        except Exception as e:
-            _record_failure(report, src, _item_name(src), e, log, stats)
-
-    def one_view(src, stack):
-        frames = imio.unpack_stack(stack)[0] if packed else stack
-        try:
+    def dispatch(src, frames, staged, lease):
+        if staged is not None:
             t0 = time.perf_counter()
-            pts, cols = retry_for(src)("compute", lambda: _compute_fired(
-                scanner, frames, cfg, src, use_fused=False if packed else None))
-            report.launches += 1
-            stats.add("compute", time.perf_counter() - t0, items=1, view=_item_name(src))
-        except Exception as e:
-            _record_failure(report, src, _item_name(src), e, log, stats)
-            return
-        finish(src, pts, cols)
+            (frames,), ev = staging.upload([staged[0]], [lease], stacked=False)
+            _take_on_stream(ev, (frames,))
+            stats.add("transfer", time.perf_counter() - t0, view=_item_name(src))
+        stats.add_transfer(frames=int(frames.nbytes))
+        cloud = _forward_fired(scanner, frames, cfg, src)
+        if staged is None:
+            return cloud, None
+        done = torch.cuda.Event()
+        done.record()
+        return cloud, done
 
-    def run(batch):
-        poisoned = None
-        for src, _ in batch:
-            dl.beat("compute")
+    def drain_one(idx, src, cloud, ev):
+        name = _item_name(src)
+        with _drain_stream(drain_stream, ev, (cloud.points, cloud.colors, cloud.valid)):
+            t0 = time.perf_counter()
+            pts, cols = tri.compact_cloud(cloud)
+            stats.add("compute", time.perf_counter() - t0, items=1, view=name)
+            retry = _stage_retry(policy, stats, log, name)
+            out_path, n_pts, wfut = _finish_view(idx, src, pts, cols, cfg, tail, stats,
+                                                 retry, wbq)
+        return "ok", out_path, n_pts, wfut
+
+    results: dict[int, tuple] = {}
+    window = _Prefetch(load_pool, load_one, sources, depth, staging)
+    undrained: deque = deque()
+    aborted = True
+    try:
+        window.top_up()
+        while window.inflight:
+            _budget_check("reconstruct")
+            idx, src, lfut, lease = window.inflight.popleft()
+            stats.sample_queue(len(window.inflight))
+            name = _item_name(src)
             try:
-                faults.fire("compute.view", item=src)
+                frames, staged = _lane_wait(lfut, cfg, "load", f"load of {name}")
             except faults.InjectedCrash:
                 raise
             except Exception as e:
-                poisoned = e
-                break
-        if poisoned is None:
+                results[idx] = ("fail", src, e)
+                window.release(lease)
+                window.top_up()
+                continue
+            while len(undrained) > depth:
+                dl.wait_settled(undrained.popleft(), _lane_budget_s(cfg, "compute"))
             try:
                 t0 = time.perf_counter()
-                stacks = [s for _, s in batch]
-                if packed:
-                    cloud = scanner.forward_views_packed(
-                        np.stack([s.planes for s in stacks]),
-                        np.stack([s.white for s in stacks]),
-                        np.stack([s.black for s in stacks]),
-                        n_frames=stacks[0].n_frames, **_forward_kw(cfg))
-                else:
-                    cloud = scanner.forward_views(np.stack(stacks), **_forward_kw(cfg))
+                cloud, ev = _retry_stage("compute",
+                                         lambda: dispatch(src, frames, staged, lease),
+                                         policy, _lane_on_retry(stats, policy, log, "compute"))
                 report.launches += 1
-                views = [tri.compact_cloud(tri.CloudResult(
-                    cloud.points[j], cloud.colors[j], cloud.valid[j]))
-                    for j in range(len(batch))]
-                dt = time.perf_counter() - t0
-                stats.add("compute", dt, items=len(batch))
-                stats.add_launch(len(batch), len(batch), dt)
+                stats.add("compute", time.perf_counter() - t0, view=name)
             except faults.InjectedCrash:
                 raise
             except Exception as e:
-                if scanner.device.type == "cuda":
-                    raise
-                poisoned = e
-        if poisoned is not None:
-            if faults.is_transient(poisoned):
-                # the per-view re-run below is this transient's retry
-                report.retries += 1
-                stats.add_retry("compute")
-            log(f"[reconstruct] batch of {len(batch)} view(s) degraded to per-view "
-                f"compute ({type(poisoned).__name__}: {poisoned})")
-            for src, stack in batch:
-                one_view(src, stack)
-            return
-        for (src, _), (pts, cols) in zip(batch, views):
-            finish(src, pts, cols)
+                results[idx] = ("fail", src, e)
+                continue
+            finally:
+                window.release(lease)
+                window.top_up()
+            dfut = drain_pool.submit(drain_one, idx, src, cloud, ev)
+            window.started.append(dfut)
+            undrained.append(dfut)
+            results[idx] = ("done", dfut)
 
-    pool = ThreadPoolExecutor(max_workers=max(1, cfg.parallel.io_workers),
-                              thread_name_prefix="sl3d-load")
-    try:
-        for i in range(0, len(sources), batch_n):
+        for idx, src in window.pending:
             _budget_check("reconstruct")
-            loads = [(src, pool.submit(load, src)) for src in sources[i:i + batch_n]]
-            batch: list = []
-            for src, fut in loads:
+            kind, *rest = results[idx]
+            if kind == "done":
                 try:
-                    stack = _lane_wait(fut, cfg, "load", f"load of {_item_name(src)}")
+                    out = _lane_wait(rest[0], cfg, "compute", f"drain of {_item_name(src)}")
                 except faults.InjectedCrash:
                     raise
                 except Exception as e:
-                    _record_failure(report, src, _item_name(src), e, log, stats, "load")
-                    continue
-                if batch and stack.shape != batch[0][1].shape:
-                    run(batch)
-                    batch = []
-                batch.append((src, stack))
-            if batch:
-                run(batch)
+                    _budget_check("reconstruct")   # a wait cut by the run budget aborts
+                    out = ("fail", src, e)
+            else:
+                out = ("fail", src, rest[-1])
+            _assemble(report, src, out, cfg, log, stats)
+        aborted = False
     finally:
-        pool.shutdown(wait=False, cancel_futures=True)
+        load_pool.shutdown(wait=False, cancel_futures=True)
+        drain_pool.shutdown(wait=False, cancel_futures=True)
+        if aborted:
+            _join(window.started, cfg.deadlines.drain_s if cfg.deadlines.enabled else None)
+        wbq.close(wait=True, timeout_s=_lane_budget_s(cfg, "drain"))
+    return {"transfer_bytes_pinned": staging.pinned_bytes if staging else 0}
+
+
+def _reconstruct_batched(sources, cfg, scanner, report, log, stats, tail: _Tail,
+                         packed: bool) -> dict:
+    """The view-batched lane (``compute_batch > 1``), the JAX package's
+    schedule, ``compute_batch`` views a device launch:
+
+      load      stacks prefetched on the ``io_workers`` pool, a window of
+                ``compute_batch + prefetch_depth`` ahead. On the card each
+                raw stack lands in a pinned slot of the staging ring; a
+                packed stack's planes, white and black go to the card from
+                the prefetch thread as they arrive
+      transfer  the main thread queues the batch's copy on the upload
+                stream (raw) or stacks the views on the card (packed); the
+                compute stream waits on the copies' events
+      compute   one ``forward_views`` (``forward_views_packed``) launch a
+                batch, dispatched while the previous batch still drains; at
+                most two batches are dispatched and not yet drained
+      drain     one worker (``sl3d-drain``, its own stream, after the
+                batch's launch event): one copy of the batch to the host,
+                per-view compaction (``tri.compact_cloud``), then each
+                view's clean, ``collect`` and writeback; with
+                ``pipeline.fused_clean`` the batch is compacted and cleaned
+                on the card instead (``ops/fused_view``) and comes to the
+                host in one copy
+
+    Stacks of one batch share a shape: a change of shape closes the batch
+    early. The kernels take any V, so the view axis is not padded.
+    ``compute.view`` fires per view at assembly; a fault there, or a fault
+    injected at the fused drain's ``clean.fused`` site, re-runs the batch's
+    views one at a time under the retry budget (a packed stack unpacks for
+    it: decode + triangulate of the binarized stack is the packed lane's
+    bit for bit). Any other failure of a batched launch or drain does the
+    same on the CPU, as in the JAX package; on the card it fails the run,
+    so a kernel that fails at the batch's shape never passes as a per-view
+    success. Results are assembled in source order."""
+    policy = _retry_policy(cfg)
+    batch_n = max(1, cfg.parallel.compute_batch)
+    depth = batch_n + max(1, cfg.parallel.prefetch_depth)
+    card = _on_card(scanner)
+    staging = _Staging(scanner.device, depth) if card else None
+    drain_stream = torch.cuda.Stream(device=scanner.device) if card else None
+    use_fused = bool(cfg.pipeline.fused_clean)
+    load_pool = ThreadPoolExecutor(max_workers=max(1, cfg.parallel.io_workers),
+                                   thread_name_prefix="sl3d-prefetch")
+    drain_pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="sl3d-drain")
+    wbq = _writeback(cfg, stats, policy, log)
+    launch_lock = threading.Lock()
+
+    def count_launch():
+        with launch_lock:
+            report.launches += 1
+
+    def on_card_fatal(e: BaseException) -> bool:
+        return scanner.device.type == "cuda" and not isinstance(e, faults.InjectedFault)
+
+    def load_one(src, lease):
+        t0 = time.perf_counter()
+        frames = _retry_stage("load", lambda: _load_fired(src, cfg), policy,
+                              _lane_on_retry(stats, policy, log, "load"))
+        stats.add("load", time.perf_counter() - t0, view=_item_name(src))
+        return frames, (staging.fill(lease, (frames,)) if staging is not None else None)
+
+    def load_one_packed(src, lease):
+        t0 = time.perf_counter()
+        ps = _retry_stage("load", lambda: _load_packed_fired(src, cfg), policy,
+                          _lane_on_retry(stats, policy, log, "load"))
+        stats.add("load", time.perf_counter() - t0, view=_item_name(src))
+        dev = None
+        if staging is not None:
+            t0 = time.perf_counter()
+            bufs = staging.fill(lease, (ps.planes, ps.white, ps.black))
+            dev = staging.upload(list(bufs), [lease], stacked=False)
+            staging.release(lease)   # the copy is queued: the slot may refill
+            stats.add("transfer", time.perf_counter() - t0, view=_item_name(src))
+        stats.add_transfer(frames=ps.planes.nbytes + ps.white.nbytes + ps.black.nbytes,
+                           frames_raw=int(np.prod(ps.shape)))
+        return ps, dev
+
+    def ok(idx, src, pts, cols, counts=None, dev=None):
+        try:
+            out_path, n_pts, wfut = _finish_view(
+                idx, src, pts, cols, cfg, tail, stats,
+                _stage_retry(policy, stats, log, _item_name(src)), wbq,
+                counts=counts, dev=dev, fire_clean=True)
+        except faults.InjectedCrash:
+            raise
+        except Exception as e:
+            return "fail", src, e
+        return "ok", out_path, n_pts, wfut
+
+    def run_view_fallback(item):
+        idx, src, stack, _ = item
+        frames = imio.unpack_stack(stack)[0] if packed else stack
+        try:
+            t0 = time.perf_counter()
+            pts, cols = _retry_stage(
+                "compute", lambda: _compute_fired(scanner, frames, cfg, src,
+                                                  use_fused=False if packed else None),
+                policy, _lane_on_retry(stats, policy, log, "compute"))
+            count_launch()
+            stats.add("compute", time.perf_counter() - t0, items=1, view=_item_name(src))
+        except faults.InjectedCrash:
+            raise
+        except Exception as e:
+            return "fail", src, e
+        return ok(idx, src, pts, cols)
+
+    def fallback(items):
+        with _drain_stream(drain_stream):
+            return [run_view_fallback(it) for it in items]
+
+    def drain_fused(items, cloud):
+        from structured_light_for_3d_model_replication_tpu_torch.ops import (
+            fused_view as fvlib,
+        )
+
+        for _idx, src, _s, _d in items:
+            faults.fire("clean.fused", item=src)
+        t0 = time.perf_counter()
+        views, d2h, clean_s = fvlib.fused_clean_views(
+            cloud.points, cloud.colors, cloud.valid, cfg.clean, tail.clean_steps or (),
+            timings=tail.timings)
+        wall = time.perf_counter() - t0
+        stats.add("compute", max(0.0, wall - clean_s), items=len(items))
+        if clean_s:
+            stats.add("clean", clean_s)
+        stats.add_transfer(d2h=d2h)
+        stats.add_kernel("fused_view", wall, bucket=int(cloud.points.shape[1]),
+                         bytes_moved=d2h)
+        return [(idx, src, v.points, v.colors, v.counts, (v.dev_points, v.count))
+                for (idx, src, _s, _d), v in zip(items, views)]
+
+    def drain_batch(items, cloud, ev):
+        with _drain_stream(drain_stream, ev, (cloud.points, cloud.colors, cloud.valid)):
+            try:
+                if use_fused:
+                    views = drain_fused(items, cloud)
+                else:
+                    t0 = time.perf_counter()
+                    pts_v, cols_v, val_v = (cloud.points.cpu(), cloud.colors.cpu(),
+                                            cloud.valid.cpu())
+                    stats.add("compute", time.perf_counter() - t0, items=len(items))
+                    stats.add_transfer(d2h=sum(t.numel() * t.element_size()
+                                               for t in (pts_v, cols_v, val_v)))
+                    views = []
+                    for j, (idx, src, _s, _d) in enumerate(items):
+                        pts, cols = tri.compact_cloud(
+                            tri.CloudResult(pts_v[j], cols_v[j], val_v[j]))
+                        views.append((idx, src, pts, cols, None, None))
+            except faults.InjectedCrash:
+                raise
+            except Exception as e:
+                if on_card_fatal(e):
+                    _mark_fatal(e)
+                    raise
+                if faults.is_transient(e):
+                    # the batch-level firing spent a transient's budget; the
+                    # per-view re-run below is its retry
+                    stats.add_retry("clean" if use_fused else "compute")
+                log(f"[reconstruct] batched drain of {len(items)} view(s) failed "
+                    f"({type(e).__name__}: {e}); re-running views individually")
+                return [run_view_fallback(it) for it in items]
+            return [ok(idx, src, pts, cols, counts, dev)
+                    for idx, src, pts, cols, counts, dev in views]
+
+    def dispatch_batch(items):
+        """Main thread: assemble, upload and launch one batch; returns the
+        drain future. A poisoned batch degrades to the per-view lane inside
+        the drain worker; on the card a launch that raises fails the run."""
+        poisoned = None
+        try:
+            for it in items:
+                src = it[1]
+                dl.beat("compute")
+                try:
+                    faults.fire("compute.view", item=src)
+                except faults.InjectedCrash:
+                    raise
+                except Exception as e:
+                    poisoned = e
+                    break
+            if poisoned is None:
+                try:
+                    t0 = time.perf_counter()
+                    v = len(items)
+                    cur = torch.cuda.current_stream() if staging is not None else None
+                    if packed:
+                        if staging is not None:
+                            for it in items:
+                                parts, ev = it[3]
+                                _take_on_stream(ev, parts, cur)
+                            planes, white, black = (torch.stack([it[3][0][k] for it in items])
+                                                    for k in range(3))
+                        else:
+                            planes, white, black = (
+                                np.stack([getattr(it[2], k) for it in items])
+                                for k in ("planes", "white", "black"))
+                        stats.add("transfer", time.perf_counter() - t0)
+                        t0 = time.perf_counter()
+                        cloud = scanner.forward_views_packed(
+                            planes, white, black, n_frames=items[0][2].n_frames,
+                            **_forward_kw(cfg))
+                    else:
+                        if staging is not None:
+                            frames, ev = staging.upload([it[3][0] for it in items],
+                                                        [it[4] for it in items], stacked=True)
+                            _take_on_stream(ev, (frames,), cur)
+                        else:
+                            frames = np.stack([it[2] for it in items])
+                        stats.add("transfer", time.perf_counter() - t0)
+                        stats.add_transfer(frames=sum(int(it[2].nbytes) for it in items))
+                        t0 = time.perf_counter()
+                        cloud = scanner.forward_views(frames, **_forward_kw(cfg))
+                    count_launch()
+                    stats.add_launch(v, v, time.perf_counter() - t0)
+                    done = None
+                    if cur is not None:
+                        done = torch.cuda.Event()
+                        done.record(cur)
+                    return drain_pool.submit(drain_batch, [it[:4] for it in items], cloud,
+                                             done)
+                except faults.InjectedCrash:
+                    raise
+                except Exception as e:
+                    if scanner.device.type == "cuda":
+                        raise
+                    poisoned = e
+        finally:
+            for it in items:
+                window.release(it[4])
+        if faults.is_transient(poisoned):
+            # the assembly-time firing spent a transient's budget; the
+            # per-view re-run below is its retry
+            stats.add_retry("compute")
+        log(f"[reconstruct] batch of {len(items)} view(s) degraded to per-view compute "
+            f"({type(poisoned).__name__}: {poisoned})")
+        return drain_pool.submit(fallback, [it[:4] for it in items])
+
+    results: dict[int, tuple] = {}
+    window = _Prefetch(load_pool, load_one_packed if packed else load_one, sources, depth,
+                       staging)
+    batch_items: list[tuple] = []
+    batch_futs: deque = deque()
+
+    def flush():
+        if not batch_items:
+            return
+        # double buffer: at most 2 dispatched-but-undrained batches
+        while len(batch_futs) >= 2:
+            dl.wait_settled(batch_futs.popleft(), _lane_budget_s(cfg, "compute"))
+        dfut = dispatch_batch(list(batch_items))
+        window.started.append(dfut)
+        batch_futs.append(dfut)
+        for j, it in enumerate(batch_items):
+            results[it[0]] = ("batch", dfut, j)
+        batch_items.clear()
+        window.top_up()
+
+    aborted = True
+    try:
+        window.top_up()
+        while window.inflight:
+            _budget_check("reconstruct")
+            idx, src, lfut, lease = window.inflight.popleft()
+            stats.sample_queue(len(window.inflight))
+            window.top_up()
+            try:
+                stack, staged = _lane_wait(lfut, cfg, "load", f"load of {_item_name(src)}")
+            except faults.InjectedCrash:
+                raise
+            except Exception as e:
+                results[idx] = ("fail", src, e)
+                window.release(lease)
+                window.top_up()
+                continue
+            if batch_items and stack.shape != batch_items[0][2].shape:
+                flush()   # stacks of another shape cannot share a launch
+            # a packed load handed its lease back once its upload was queued
+            batch_items.append((idx, src, stack, staged, None if packed else lease))
+            if len(batch_items) >= batch_n:
+                flush()
+        flush()   # the ragged tail
+
+        for idx, src in window.pending:
+            _budget_check("reconstruct")
+            kind, *rest = results[idx]
+            if kind == "batch":
+                dfut, j = rest
+                try:
+                    out = _lane_wait(dfut, cfg, "compute",
+                                     f"batch drain of {_item_name(src)}")[j]
+                except faults.InjectedCrash:
+                    raise
+                except Exception as e:
+                    _budget_check("reconstruct")   # a wait cut by the run budget aborts
+                    out = ("fail", src, e)
+            else:
+                out = ("fail", src, rest[-1])
+            _assemble(report, src, out, cfg, log, stats)
+        aborted = False
+    finally:
+        load_pool.shutdown(wait=False, cancel_futures=True)
+        drain_pool.shutdown(wait=False, cancel_futures=True)
+        if aborted:
+            _join(window.started, cfg.deadlines.drain_s if cfg.deadlines.enabled else None)
+        wbq.close(wait=True, timeout_s=_lane_budget_s(cfg, "drain"))
+    return {"compute_batch": batch_n,
+            "transfer_bytes_pinned": staging.pinned_bytes if staging else 0}
 
 
 def _lane(cfg: Config, n_sources: int) -> str:
-    """batched (packed with ``pipeline.packed_ingest``) for several sources
-    at ``compute_batch`` > 1, else serial."""
-    if cfg.parallel.compute_batch > 1 and n_sources > 1:
+    """The JAX package's choice: batched (packed with
+    ``pipeline.packed_ingest``) for several sources at ``compute_batch`` >
+    1, else pipelined for several sources at ``io_workers`` > 1, else
+    serial."""
+    if n_sources > 1 and cfg.parallel.compute_batch > 1:
         return "packed" if cfg.pipeline.packed_ingest else "batched"
+    if n_sources > 1 and cfg.parallel.io_workers > 1:
+        return "pipelined"
     return "serial"
 
 
-def _reconstruct_lane(sources, cfg, scanner, report, emit, log, stats) -> None:
+def _reconstruct_lane(sources, cfg, scanner, report, log, stats, tail: _Tail) -> None:
     """Run the lane ``reconstruct`` and ``run_pipeline`` share; ``stats``
-    gets its load / compute walls and ``report.overlap`` their snapshot."""
+    gets its lanes' walls and ``report.overlap`` their snapshot. The lanes'
+    transient retries (every lane but ``register``) add to
+    ``report.retries``."""
     lane = _lane(cfg, len(sources))
+    before = _lane_retries(stats)
     t0 = time.perf_counter()
     with prof.trace():
         if lane == "serial":
-            _reconstruct_serial(sources, cfg, scanner, report, emit, log, stats)
+            extra = _reconstruct_serial(sources, cfg, scanner, report, log, stats, tail)
+        elif lane == "pipelined":
+            extra = _reconstruct_pipelined(sources, cfg, scanner, report, log, stats, tail)
         else:
-            _reconstruct_batched(sources, cfg, scanner, report, emit, log, stats,
-                                 packed=lane == "packed")
+            extra = _reconstruct_batched(sources, cfg, scanner, report, log, stats, tail,
+                                         packed=lane == "packed")
     stats.finish(time.perf_counter() - t0)
-    report.overlap = stats.as_dict()
+    report.overlap = {**stats.as_dict(), **extra}
+    report.retries += _lane_retries(stats) - before
+
+
+def _lane_retries(stats: prof.OverlapStats) -> int:
+    return sum(n for lane, n in stats.as_dict()["retries"].items() if lane != "register")
 
 
 def reconstruct(calib_path: str, target: str, mode: str = "single",
@@ -536,10 +1183,12 @@ def reconstruct(calib_path: str, target: str, mode: str = "single",
     """Scan folder(s) -> per-view colored PLY, on ``device`` (None -> cuda).
 
     ``output``: for single mode a .ply path (default ``<target>.ply``); for
-    batch/files mode a directory (default: beside each source). A view that
-    fails is recorded in ``report.failed`` / ``report.failures`` and the
-    others go on; the run owns a deadline context unless an enclosing run
-    installed one.
+    batch/files mode a directory (default: beside each source). The lane is
+    the JAX package's choice (``_lane``): batched, else pipelined, else
+    serial; outputs and report are the same in each. A view that fails is
+    recorded in ``report.failed`` / ``report.failures`` and the others go
+    on; the run owns a deadline context unless an enclosing run installed
+    one.
     """
     cfg = cfg or Config()
     dev = resolve_device(device)
@@ -556,17 +1205,10 @@ def reconstruct(calib_path: str, target: str, mode: str = "single",
     report = BatchReport(device=str(dev), lane=_lane(cfg, len(sources)),
                          run_id=tr.run_id if tr is not None else tel.new_run_id())
     t0 = time.perf_counter()
-
-    def emit(src, pts, cols, retry):
-        out_path = _out_path_for(src, mode, output)
-        retry("write", lambda: ply.write_ply(out_path, pts, cols))
-        log(f"[reconstruct] {_item_name(src)}: {len(pts):,} points -> {out_path}")
-        report.outputs.append(out_path)
-        report.points.append(len(pts))
-
     stall_dir = output if output and os.path.isdir(output) else None
     with _run_context(cfg, stall_dir, report.run_id, log):
-        _reconstruct_lane(sources, cfg, scanner, report, emit, log, prof.OverlapStats())
+        _reconstruct_lane(sources, cfg, scanner, report, log, prof.OverlapStats(),
+                          _Tail(mode, output, dev))
     report.elapsed_s = time.perf_counter() - t0
     log(f"[reconstruct] {report.summary}")
     return report
@@ -642,13 +1284,15 @@ def merge_views(input_folder: str, output_ply: str, cfg: Config | None = None,
 
 def _clean_arrays(pts: np.ndarray, cols: np.ndarray, cfg: Config,
                   steps=CLEAN_STEPS, log=None, device=None,
-                  timings: dict | None = None):
+                  timings: dict | None = None, stats: prof.OverlapStats | None = None):
     """The masked clean chain on one in-memory cloud, on ``device`` (None ->
     cuda): the cloud padded to its 2048-multiple bucket with rows at 1e9
     (valid = the first n rows), ``ops/pointcloud.clean_chain``, survivors
     taken once at the end. Returns (points', colors', counts {"input": n,
     step: survivors}). A step that leaves no point aborts the chain there
-    (later steps are not counted). ``timings`` gets ``clean_<step>_s``."""
+    (later steps are not counted). ``timings`` gets ``clean_<step>_s``;
+    ``stats`` the round trip's bytes (the cloud up, the step masks down:
+    what the fused drain does without)."""
     log = log or (lambda m: None)
     n = len(pts)
     counts = {"input": n}
@@ -664,6 +1308,9 @@ def _clean_arrays(pts: np.ndarray, cols: np.ndarray, cfg: Config,
                                  tuple(steps), timings=timings)
     masks = masks[:, :n].cpu().numpy()
     cnts = cnts.cpu().numpy()
+    if stats is not None:
+        stats.add_transfer(h2d=int(pts_pad.nbytes) + bucket,
+                           d2h=int(masks.nbytes) + int(cnts.nbytes))
     final = masks[-1]
     for i, (step, _) in enumerate(params):
         counts[step] = int(cnts[i])
@@ -698,9 +1345,9 @@ def clean_cloud(input_ply: str, output_ply: str, cfg: Config | None = None,
 
 def clean_batch(input_folder: str, output_folder: str, cfg: Config | None = None,
                 steps=CLEAN_STEPS, log=print, device=None) -> BatchReport:
-    """Clean every PLY of a folder into ``output_folder`` (reads on the I/O
-    pool); a cloud that fails is logged and listed in ``report.failed``,
-    the others go on."""
+    """Clean every PLY of a folder into ``output_folder``: reads on the I/O
+    pool, the chain per cloud, writes on the writeback queue. A cloud that
+    fails is logged and listed in ``report.failed``, the others go on."""
     cfg = cfg or Config()
     dev = resolve_device(device)
     paths = sorted(os.path.join(input_folder, f) for f in os.listdir(input_folder)
@@ -710,22 +1357,30 @@ def clean_batch(input_folder: str, output_folder: str, cfg: Config | None = None
     os.makedirs(output_folder, exist_ok=True)
     report = BatchReport(lane="clean", device=str(dev))
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=max(1, min(cfg.parallel.io_workers,
-                                                   len(paths)))) as pool:
+    with ThreadPoolExecutor(max_workers=max(1, min(cfg.parallel.io_workers, len(paths))),
+                            thread_name_prefix="sl3d-cleanread") as pool, \
+            ply.WritebackQueue() as wbq:
+        pend = []
         for src, fut in [(p, pool.submit(_read_cloud, p)) for p in paths]:
             name = os.path.basename(src)
             try:
                 pts, cols = fut.result()
                 pts, cols, _ = _clean_arrays(pts, cols, cfg, tuple(steps), device=dev)
                 out_path = os.path.join(output_folder, name)
-                ply.write_ply(out_path, pts, cols)
+                pend.append((src, out_path, len(pts), wbq.submit(out_path, pts, cols)))
             except Exception as e:  # per-item tolerance: the batch goes on
                 log(f"[clean] {name} FAILED: {e}")
                 report.failed.append((src, str(e)))
+        for src, out_path, n_pts, wfut in pend:
+            try:
+                wfut.result()
+            except Exception as e:
+                log(f"[clean] {os.path.basename(src)} FAILED: {e}")
+                report.failed.append((src, str(e)))
                 continue
-            log(f"[clean] {name}: {len(pts):,} points -> {out_path}")
+            log(f"[clean] {os.path.basename(src)}: {n_pts:,} points -> {out_path}")
             report.outputs.append(out_path)
-            report.points.append(len(pts))
+            report.points.append(n_pts)
     report.elapsed_s = time.perf_counter() - t0
     log(f"[clean] {len(report.outputs)} cloud(s) cleaned, {len(report.failed)} "
         f"failed, on {dev} in {report.elapsed_s:.2f}s")
@@ -907,7 +1562,9 @@ class _StreamRegistrar:
 
     ``run_pipeline`` feeds each view's cleaned compact cloud (host arrays)
     here the moment the lane has cleaned it (or straight from the view
-    cache); one worker thread preps the view (``recon.prep_view``) and, as
+    cache), from the reconstruct lane's drain thread; one worker thread
+    preps the view (``recon.prep_view``, or ``recon.prep_view_device`` on the
+    fused drain's device buffers) and, as
     soon as views i and i+1 are both present with every earlier view
     accounted for, registers pair i -> i+1 through
     ``recon.register_prep_pairs``, so feature prep + RANSAC + ICP overlap
@@ -928,11 +1585,15 @@ class _StreamRegistrar:
     completes DEGRADED. Such a pair is never published to the pair cache,
     and a merge holding one never to the merge cache.
 
-    Device work: the lane takes only host arrays, passes ``device``
-    explicitly, and on CUDA runs on a stream of its own (``_on_stream``, the
-    worker and ``finish``'s catch-up alike), so the clean chain's host syncs
-    on the main thread never wait on queued RANSAC/ICP work, nor the
-    reverse; every result comes back to the host. ``close`` is bounded by
+    Device work: the lane passes ``device`` explicitly and on CUDA runs on a
+    stream of its own (``_on_stream``, the worker and ``finish``'s catch-up
+    alike), so the clean chain's host syncs on the drain thread never wait
+    on queued RANSAC/ICP work, nor the reverse; every result comes back to
+    the host. A feed with ``dev=(device points, count)`` (the fused drain)
+    is prepped from that buffer with no upload: the drain's one copy to the
+    host came after the buffer was made, so it is complete when fed, and
+    the lane's stream takes it with ``record_stream`` so its memory is not
+    handed out while the prep still reads it. ``close`` is bounded by
     ``deadlines.register_s``: a worker blocked past it (a wedged device call
     cannot be cancelled) is abandoned and ``finish`` gives every pair it
     never resolved the identity fallback.
@@ -959,6 +1620,7 @@ class _StreamRegistrar:
         self._digests: dict[int, str] = {}
         self._clouds: dict[int, tuple] = {}
         self._preps: dict[int, object] = {}
+        self._devs: dict[int, tuple] = {}   # the fused drain's (points, count)
         self._frontier = 0            # first view index not yet fed
         self._chain: list[int] = []   # contiguous prefix of fed views
         self._seen: set[tuple] = set()
@@ -972,9 +1634,10 @@ class _StreamRegistrar:
             return contextlib.nullcontext()
         return torch.cuda.stream(self._stream)
 
-    def feed(self, i: int, pts: np.ndarray, cols: np.ndarray) -> None:
-        """Hand view ``i``'s cleaned cloud to the lane (any thread)."""
-        self._futs.append(self._pool.submit(self._note, i, pts, cols))
+    def feed(self, i: int, pts: np.ndarray, cols: np.ndarray, dev=None) -> None:
+        """Hand view ``i``'s cleaned cloud to the lane (any thread); ``dev``:
+        the same points on the card, ``(tensor [B, 3], count)``."""
+        self._futs.append(self._pool.submit(self._note, i, pts, cols, dev))
 
     def close(self, cancel: bool = False) -> None:
         """Drain the worker (``cancel``: drop the feeds not yet started) and
@@ -988,6 +1651,8 @@ class _StreamRegistrar:
         if budget is not None:
             deadline = dl.Deadline.after(budget, "register-lane close")
             for f in self._futs:
+                if f.done():   # finished, or cancelled by the shutdown above
+                    continue
                 rem = deadline.remaining()
                 if rem <= 0 or not dl.wait_settled(f, rem):
                     self._wedged = True
@@ -1042,10 +1707,12 @@ class _StreamRegistrar:
 
     # ---- worker internals ------------------------------------------------
 
-    def _note(self, i: int, pts, cols) -> None:
+    def _note(self, i: int, pts, cols, dev=None) -> None:
         dl.beat("register")
         self._digests[i] = StageCache.digest_arrays(points=pts, colors=cols)
         self._clouds[i] = (pts, cols)
+        if dev is not None:
+            self._devs[i] = dev
         with self._on_stream():
             while self._frontier in self._clouds:
                 self._chain.append(self._frontier)
@@ -1074,8 +1741,15 @@ class _StreamRegistrar:
         p = self._preps.get(i)
         if p is None:
             t0 = time.perf_counter()
-            p = recon.prep_view(self._clouds[i][0], self.voxel,
-                                self.cfg.merge.sample_before, device=self.device)
+            dev = self._devs.pop(i, None)
+            if dev is not None and self.cfg.merge.sample_before <= 1:
+                if self._stream is not None:
+                    dev[0].record_stream(self._stream)
+                # bit-identical to prep_view on the host points
+                p = recon.prep_view_device(dev[0], dev[1], self.voxel)
+            else:
+                p = recon.prep_view(self._clouds[i][0], self.voxel,
+                                    self.cfg.merge.sample_before, device=self.device)
             self.stats.add("register", time.perf_counter() - t0, view=i)
             self._preps[i] = p
         return p
@@ -1334,7 +2008,8 @@ def _run_pipeline_impl(calib_path, target, out_dir, cfg: Config, steps, merged_n
 
     t0 = time.perf_counter()
     merged_path = os.path.join(out_dir, merged_name)
-    _retry_stage("write", lambda: ply.write_ply(merged_path, points, colors),
+    _retry_stage("write", lambda: ply.write_ply(merged_path, points, colors,
+                                                binary=not cfg.pipeline.ascii_output),
                  _retry_policy(cfg), final_write_retry)
     walls["write_merged_s"] = time.perf_counter() - t0
     log(f"[pipeline] merged cloud -> {merged_path} ({len(points):,} points)")
@@ -1380,9 +2055,12 @@ def _run_pipeline_impl(calib_path, target, out_dir, cfg: Config, steps, merged_n
 
 def _reconstruct_missing(missing, calib, cfg, steps, view_keys, cache, collected, counts,
                          get_stream, stats, out_dir, log, dev, report) -> None:
-    """Reconstruct + clean the views the view cache missed: each cleaned
-    view is collected, published to the cache and fed to the register lane
-    (when one is armed). Failures land in ``report``."""
+    """Reconstruct + clean the views the view cache missed, on the lane
+    ``reconstruct`` takes, with the clean chain in the lane's drain
+    (``_Tail``): each cleaned view is collected, published to the cache and
+    fed to the register lane (when one is armed) from the drain thread.
+    Failures land in ``report``; a view whose wait timed out is quarantined
+    and never merges, even if its drain finishes late."""
     index = {src: i for i, src in missing}
     sources = [src for _, src in missing]
     scanner = _build_scanner(sources, calib, cfg, dev)
@@ -1390,36 +2068,38 @@ def _reconstruct_missing(missing, calib, cfg, steps, view_keys, cache, collected
     if view_dir:
         os.makedirs(view_dir, exist_ok=True)
     clean_tm: dict[str, float] = {}
-    clean_s = 0.0
+    lock = threading.Lock()
+    accepting = True
 
-    def emit(src, pts, cols, retry):
-        nonlocal clean_s
-        t0 = time.perf_counter()
-        pts, cols, c = retry("clean", lambda: _clean_arrays(
-            pts, cols, cfg, steps, device=dev, timings=clean_tm))
-        dt = time.perf_counter() - t0
-        clean_s += dt
-        stats.add("clean", dt, view=_item_name(src))
-        if view_dir:
-            retry("write", lambda: ply.write_ply(_out_path_for(src, "batch", view_dir),
-                                                 pts, cols))
+    def collect(_j, src, pts, cols, c, dev=None):
+        nonlocal accepting
         i = index[src]
-        collected[i], counts[i] = (pts, cols), c
+        with lock:
+            if not accepting:   # the lane gave up on this view: never merge it
+                return
+            collected[i], counts[i] = (pts, cols), c
         cache.put("view", view_keys[i], points=pts, colors=cols,
                   counts=np.asarray(json.dumps(c)))
         stream = get_stream()
         if stream is not None:
-            stream.feed(i, pts, cols)
+            stream.feed(i, pts, cols, dev=dev)
         log(f"[pipeline] {_item_name(src)}: {c['input']:,} -> {len(pts):,} points "
             f"after {', '.join(s for s in c if s != 'input') or 'no clean'}")
 
-    batch = BatchReport(device=str(dev), run_id=report.run_id)
+    batch = BatchReport(device=str(dev), run_id=report.run_id, lane=_lane(cfg, len(sources)))
+    tail = _Tail("batch", view_dir, dev, clean_steps=tuple(steps), collect=collect,
+                 write_plys=view_dir is not None, timings=clean_tm)
     t0 = time.perf_counter()
-    _reconstruct_lane(sources, cfg, scanner, batch, emit, log, stats)
+    try:
+        _reconstruct_lane(sources, cfg, scanner, batch, log, stats, tail)
+    finally:
+        with lock:
+            accepting = False
     tr = tel.current()
     if tr is not None:
         tr.span_end("reconstruct", time.perf_counter() - t0, views=len(sources))
-    report.walls_s["reconstruct_s"] = time.perf_counter() - t0 - clean_s
+    report.walls_s["reconstruct_s"] = time.perf_counter() - t0
+    report.walls_s["clean_s"] = (batch.overlap or {}).get("clean_s", 0.0)
     report.walls_s.update(clean_tm)
     report.failed, report.failures, report.retries = batch.failed, batch.failures, batch.retries
     report.overlap = batch.overlap
@@ -1427,6 +2107,7 @@ def _reconstruct_missing(missing, calib, cfg, steps, view_keys, cache, collected
     for i, src in missing:   # a quarantined view never also merges
         if src in failed:
             collected.pop(i, None)
+            counts.pop(i, None)
 
 
 def _merge_stage(order, collected, cfg, cache, stream, arm_stream, stats, t_stream0, log,

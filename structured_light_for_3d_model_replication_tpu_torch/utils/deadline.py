@@ -185,7 +185,11 @@ def wait_settled(fut, timeout_s: float | None) -> bool:
     """Block until ``fut`` settles (result OR exception — never raises
     either), bounded by ``timeout_s``; False if still pending at expiry.
     The backpressure-wait twin of :func:`wait_future`: callers that only
-    need "is the slot free yet" must not hang on a wedged slot."""
+    need "is the slot free yet" must not hang on a wedged slot. A future a
+    pool's ``shutdown(cancel_futures=True)`` cancelled is settled: it never
+    notifies ``concurrent.futures.wait``, so it is answered here."""
+    if fut.done():
+        return True
     if timeout_s is None or timeout_s <= 0:
         fut.exception()     # blocks without raising the work's error
         return True

@@ -1,8 +1,10 @@
 """Lane overlap accounting and the device profiler hook.
 
-  - ``OverlapStats``: per-lane wall accounting of the reconstruct lanes and
-    the streaming register lane; its ``add`` is also the heartbeat the
-    stall watchdog listens for.
+  - ``OverlapStats``: per-lane wall accounting of the reconstruct lanes
+    (load, transfer, compute, clean, write) and the streaming register
+    lane, the prefetch window's depth, device<->host bytes and kernel-lane
+    launches, under the JAX package's ``as_dict`` keys; its ``add`` is also
+    the heartbeat the stall watchdog listens for.
   - ``trace``: context manager around ``torch.profiler`` so any stage can
     emit a device trace (set ``SL3D_TRACE_DIR`` or pass a path; the trace is
     a Chrome-trace JSON that Perfetto loads).
@@ -49,6 +51,10 @@ class OverlapStats:
         self._retries = {s: 0 for s in self._STAGES}
         self._failures = {s: 0 for s in self._STAGES}
         self._items = 0
+        # queue-depth gauge: exact running aggregates, not a sample list
+        self._q_n = 0
+        self._q_sum = 0
+        self._q_max = 0
         # batch-launch accounting (the view-batched executor): how many
         # device launches carried how many real views, and the first
         # dispatch wall per bucket size (the compile-cost proxy — later
@@ -62,6 +68,16 @@ class OverlapStats:
         # pair-registration launches carried how many real pairs
         self._pair_launches = 0
         self._pairs_dispatched = 0
+        # device<->host transfer bytes (exact running sums): ``frames`` is
+        # the frame-stack upload every arm pays, so the cloud path's traffic
+        # is h2d - frames + d2h
+        self._h2d_bytes = 0
+        self._d2h_bytes = 0
+        self._frame_bytes = 0
+        # what the frame uploads would have cost unpacked (raw u8 stacks)
+        self._frame_raw_bytes = 0
+        # per-kernel-lane launch accounting: name -> [launches, wall_s, bytes]
+        self._kernels: dict[str, list] = {}
         self.critical_path_s = 0.0
 
     def add(self, stage: str, elapsed_s: float, items: int = 0,
@@ -144,6 +160,52 @@ class OverlapStats:
             tr.instant("pair_launch", pairs=n,
                        dispatch_s=round(dispatch_s, 6))
 
+    def add_transfer(self, h2d: int = 0, d2h: int = 0, frames: int = 0,
+                     frames_raw: int = 0) -> None:
+        """Accumulate device<->host bytes. ``frames`` counts the frame-stack
+        upload (it also adds into ``h2d``); ``frames_raw`` is the unpacked
+        size of the same stacks (defaults to ``frames``: the raw lane), so
+        the packed lane's wire bytes read beside what a raw upload costs."""
+        h, d, fr = int(h2d), int(d2h), int(frames)
+        fr_raw = int(frames_raw) or fr
+        with self._lock:
+            self._h2d_bytes += h + fr
+            self._d2h_bytes += d
+            self._frame_bytes += fr
+            self._frame_raw_bytes += fr_raw
+        tr = telemetry.current()
+        if tr is not None:
+            tr.instant("transfer.bytes", h2d=h + fr or None, d2h=d or None,
+                       frames=fr or None, frames_raw=fr_raw if fr_raw != fr else None)
+            if fr and fr_raw > fr:
+                tr.instant("transfer.packed_ratio", ratio=round(fr_raw / fr, 3),
+                           wire=fr, raw=fr_raw)
+
+    def add_kernel(self, name: str, wall_s: float, bucket=None,
+                   bytes_moved: int = 0) -> None:
+        """Record one kernel-lane launch (``fused_view``): wall, optional
+        bucket, and the bytes it moved across the host boundary."""
+        w = float(wall_s)
+        with self._lock:
+            agg = self._kernels.setdefault(name, [0, 0.0, 0])
+            agg[0] += 1
+            agg[1] += w
+            agg[2] += int(bytes_moved)
+        tr = telemetry.current()
+        if tr is not None:
+            tr.instant(f"kernel.{name}", wall_s=round(w, 6),
+                       bucket=int(bucket) if bucket is not None else None,
+                       bytes=int(bytes_moved) or None)
+
+    def sample_queue(self, depth: int) -> None:
+        """One sample of the prefetch window's depth."""
+        d = int(depth)
+        with self._lock:
+            self._q_n += 1
+            self._q_sum += d
+            if d > self._q_max:
+                self._q_max = d
+
     def finish(self, critical_path_s: float) -> None:
         self.critical_path_s = critical_path_s
         tr = telemetry.current()
@@ -163,6 +225,9 @@ class OverlapStats:
         out["overlap_ratio"] = (round(self.serial_sum_s / self.critical_path_s, 3)
                                 if self.critical_path_s > 0 else None)
         out["items"] = self._items
+        out["max_queue_depth"] = self._q_max
+        out["mean_queue_depth"] = (round(self._q_sum / self._q_n, 2)
+                                   if self._q_n else 0.0)
         out["retries"] = dict(self._retries)
         out["failures"] = dict(self._failures)
         out["retry_total"] = sum(self._retries.values())
@@ -185,10 +250,22 @@ class OverlapStats:
         out["mean_pairs_per_launch"] = (
             round(self._pairs_dispatched / self._pair_launches, 2)
             if self._pair_launches else 0.0)
+        out["transfer_bytes_h2d"] = self._h2d_bytes
+        out["transfer_bytes_d2h"] = self._d2h_bytes
+        out["transfer_bytes_frames"] = self._frame_bytes
+        out["transfer_bytes_frames_raw"] = self._frame_raw_bytes
+        out["frame_bytes_ratio"] = (round(self._frame_raw_bytes / self._frame_bytes, 2)
+                                    if self._frame_bytes else None)
+        out["kernels"] = {
+            name: {"launches": agg[0], "wall_s": round(agg[1], 4), "bytes_moved": agg[2]}
+            for name, agg in sorted(self._kernels.items())}
         items = self._items
         out["compute_per_item_s"] = (round(self._stage_s["compute"] / items, 4)
                                      if items else None)
+        out["transfer_per_item_s"] = (round(self._stage_s["transfer"] / items, 4)
+                                      if items else None)
         return out
+
 
 # torch.profiler runs one profile per process at a time, and the lanes
 # carry trace() calls that nest (a lane inside run_pipeline's stages): the

@@ -53,7 +53,8 @@ def test_the_dropped_table_holds_the_jax_defaults():
 def test_a_dropped_key_away_from_its_default_is_logged_once(tmp_path, capsys):
     jcfg = jconfig.Config()
     jcfg.parallel.merge_mesh = True
-    jcfg.pipeline.fused_clean = True
+    jcfg.parallel.shard_views = False
+    jcfg.pipeline.fused_clean = True   # a carried key: it loads and is not logged
     jcfg.coordinator.workers = 3
     jcfg.pipeline.max_retries = 5
     jcfg.save(str(tmp_path / "jax.json"))
@@ -65,11 +66,12 @@ def test_a_dropped_key_away_from_its_default_is_logged_once(tmp_path, capsys):
     assert sorted(err) == sorted([
         "[config] parallel.merge_mesh=True is not ported; the port ignores it "
         "(default False)",
-        "[config] pipeline.fused_clean=True is not ported; the port ignores it "
-        "(default False)",
+        "[config] parallel.shard_views=False is not ported; the port ignores it "
+        "(default True)",
         "[config] coordinator.workers=3 is not ported; the port ignores it (default 0)",
         "[config] serving.port=9000 is not ported; the port ignores it (default 8089)"])
     assert cfg.pipeline.max_retries == 5 and cfg2.pipeline.max_retries == 2
+    assert cfg.pipeline.fused_clean is True and cfg2.pipeline.ascii_output is False
     with open(tmp_path / "bad.json", "w") as f:
         json.dump({"pipeline": {"max_retriez": 1}}, f)
     with pytest.raises(ValueError, match="Unknown key"):

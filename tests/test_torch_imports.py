@@ -37,7 +37,7 @@ def test_importing_every_port_module_leaves_jax_unloaded():
     mods = _port_modules()
     assert len(mods) >= 15
     for m in ("utils.telemetry", "utils.faults", "utils.deadline", "utils.profiling",
-              "pipeline.stagecache"):
+              "pipeline.stagecache", "ops.fused_view"):
         assert f"{PKG}.{m}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

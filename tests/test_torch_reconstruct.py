@@ -81,7 +81,10 @@ def test_reconstruct_matches_jax(dataset, tmp_path, plane_eval):
 def test_packed_and_serial_lanes_write_identical_bytes(dataset, tmp_path):
     raw = _run_port(dataset, tmp_path / "raw")
     packed = _run_port(dataset, tmp_path / "packed", **{"pipeline.packed_ingest": True})
-    serial = _run_port(dataset, tmp_path / "serial", **{"parallel.compute_batch": 1})
+    # one view a launch on one I/O thread: the serial lane (at io_workers > 1
+    # the per-view pipelined lane takes compute_batch 1)
+    serial = _run_port(dataset, tmp_path / "serial", **{"parallel.compute_batch": 1,
+                                                        "parallel.io_workers": 1})
     assert (raw.lane, packed.lane, serial.lane) == ("batched", "packed", "serial")
     assert serial.launches == VIEWS
     for p in raw.outputs:
