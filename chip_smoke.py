@@ -117,8 +117,9 @@ Imports nothing of JAX. Phases, each of which exits non-zero on failure:
 9. the executor: (a) ``reconstruct`` over 10 views of the phase-2 render
    (run right after phase 3, while the render is in memory), written once
    as PNG frame folders with libpng's adaptive row filters (loading
-   decodes PNGs with cv2, else PIL, else the port's own reader; the phase
-   prints which) and once as .slbp, in
+   decodes PNGs with the port's native stack decoder where it is built,
+   else cv2, else PIL, else the port's own reader; the phase prints which)
+   and once as .slbp, in
    four arms: serial (io_workers 1, compute_batch 1), pipelined (io_workers
    4, compute_batch 1), batched (compute_batch 4, io_workers 4,
    prefetch_depth 2: two batches and a ragged tail of 2) and packed (the
@@ -129,11 +130,34 @@ Imports nothing of JAX. Phases, each of which exits non-zero on failure:
    prints its wall, views/s, the lanes (load, transfer, compute, write)
    against the critical path, the bytes uploaded from pinned memory and
    the peak device memory. (b) ``run_pipeline`` over phase 7's 24 views
-   with ``pipeline.fused_clean=true``: merged.ply, model.stl and the view
-   PLYs byte-identical to phase 7's cold run, decode_maps once a batch,
+   with ``pipeline.fused_clean=true`` and the flight recorder on:
+   merged.ply, model.stl and the view PLYs byte-identical to phase 7's
+   cold run (so tracing changes no output), decode_maps once a batch,
    radius_count 2 a view, nn1, ransac_score and slab_mean_knn as many
    launches as the cold run, no failure, and the cloud bytes between the
-   card and the host at least 3x fewer than the cold run's (both printed).
+   card and the host at least 3x fewer than the cold run's (both printed);
+10. the command surface: (a) right after phase 9(a), ``reconstruct`` with
+   ``triangulate.bitexact=true`` over 4 views of the phase-2 render
+   (decode on the card, the maps triangulated by the NumPy twin on the
+   host) and with ``parallel.backend=numpy`` (decode and triangulation on
+   the host): every PLY byte-identical between the arms, decode_maps once
+   a view and nothing else in the bit-exact arm, no kernel in the numpy
+   arm, both in the per-view pipelined lane; views/s and the host
+   triangulation seconds a view printed. (b) ``native: built <path>`` or
+   ``native: unavailable: <what>``; when built, two of phase 9(a)'s PNG
+   folders loaded by the native stack decoder equal the Python reader's
+   arrays byte for byte (seconds a view printed both ways), and phase 7's
+   merged.ply and model.stl, written natively, hold the Python writers'
+   records (the PLY header differs by one comment line; the STL normals,
+   float32 against float64-normalized, within 1e-4). (c) the port's
+   ``report`` over phase 9(b)'s traced run: ``--validate`` exits 0, the
+   report renders, ``--prometheus`` prints the metrics, ``--chrome-trace``
+   writes a trace with a track for the prefetch, drain and register
+   threads (lane and track counts printed). (d) after phase 5, its cold
+   merge again through ``merge-360 --artifacts``: merged.ply
+   byte-identical to phase 5's, one ``merge_step_NN.ply`` a chain step
+   after the base view and ``progress.json``, nn1 and ransac_score
+   launched as often as in phase 5's cold run.
 
 Then one ``{"kernels": [...]}`` JSON line (times from phases 2, 4 and 6,
 bounds from this run's shapes, and each kernel's launches from one run of
@@ -166,6 +190,10 @@ RECON_VIEWS = 8
 RECON_BATCH = 4
 EXEC_VIEWS = 10       # phase 9(a): two batches of 4 and a ragged tail of 2
 EXEC_BATCH = 4
+# phase 10(a): the numpy arm decodes and triangulates each 1080p view on the
+# host (~1 s a view on one core) and writes ~1M points a view
+BITEXACT_VIEWS = 4
+NATIVE_LOAD_VIEWS = 2   # phase 10(b): PNG folders of phase 9(a) loaded both ways
 LANE_THREADS = ("sl3d-prefetch", "sl3d-drain", "sl3d-plywrite", "sl3d-register")
 SOURCE = "structured_light_for_3d_model_replication_tpu_torch/ops/csrc/decode.cu"
 CLOUD_SOURCE = "structured_light_for_3d_model_replication_tpu_torch/ops/csrc/cloud.cu"
@@ -769,7 +797,15 @@ def _write_png_views(data: str, frames_np, n_views: int) -> list[int]:
 
 
 def _png_reader() -> str:
-    """The frame loader's PNG decoder on this machine."""
+    """The frame loader's PNG decoder on this machine: the native stack
+    decoder where it is built, else the first Python reader."""
+    from structured_light_for_3d_model_replication_tpu_torch.io import native
+
+    return "native (io/csrc/slio.cpp)" if native.available() else _python_png_reader()
+
+
+def _python_png_reader() -> str:
+    """The Python PNG decoder ``io/images.load_gray`` takes here."""
     for mod in ("cv2", "PIL"):
         try:
             __import__(mod)
@@ -881,6 +917,265 @@ def executor_phase(dev, rig, frames_np, card: str) -> None:
                         open(os.path.join(outs["serial"], name), "rb") as b:
                     check(a.read() == b.read(),
                           f"executor {arm}: {name} differs from the serial arm's")
+        native_load_phase(png_dir, card)
+
+
+def bitexact_phase(dev, rig, frames_np, card: str) -> None:
+    """Phase 10(a): ``reconstruct`` on the card with
+    ``triangulate.bitexact=true`` over BITEXACT_VIEWS views of the phase-2
+    render (.slbp), then the same views with ``parallel.backend=numpy``
+    (decode and triangulation on the host). Gates: every PLY of the
+    bit-exact arm equals the numpy arm's byte for byte; the bit-exact arm
+    launches decode_maps once a view and nothing else, the numpy arm no
+    kernel; both take the per-view pipelined lane; no failure. Prints each
+    arm's views/s and the bit-exact arm's host triangulation seconds a view
+    (maps fetched from the card and triangulated by the NumPy twin)."""
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.config import load_config
+    from structured_light_for_3d_model_replication_tpu_torch.io import images as imio
+    from structured_light_for_3d_model_replication_tpu_torch.io import matfile, ply
+    from structured_light_for_3d_model_replication_tpu_torch.ops import graycode as gc
+    from structured_light_for_3d_model_replication_tpu_torch.ops import kernels
+    from structured_light_for_3d_model_replication_tpu_torch.ops import triangulate as tri
+    from structured_light_for_3d_model_replication_tpu_torch.pipeline import stages
+
+    with tempfile.TemporaryDirectory(prefix="slscan_bitexact_") as root:
+        calib = os.path.join(root, "calib.npz")
+        matfile.save_calibration(calib, rig.calibration())
+        data = os.path.join(root, "scans")
+        for i in range(BITEXACT_VIEWS):
+            imio.save_packed_stack(os.path.join(data, f"view_{i * 90:03d}deg"),
+                                   imio.pack_stack(frames_np[i % len(frames_np)]))
+        outs, walls = {}, {}
+        for arm, over, want in (("bitexact", {"triangulate.bitexact": True}, BITEXACT_VIEWS),
+                                ("numpy", {"parallel.backend": "numpy"}, 0)):
+            cfg = load_config(None, {"decode.n_cols": PROJ[0], "decode.n_rows": PROJ[1],
+                                     **over})
+            out = os.path.join(root, f"out_{arm}")
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            report = stages.reconstruct(calib, data, mode="batch", output=out, cfg=cfg,
+                                        device=dev, log=lambda m: None)
+            torch.cuda.synchronize()
+            walls[arm] = time.perf_counter() - t0
+            counts = kernels.launch_counts()
+            check(report.failures == [] and len(report.outputs) == BITEXACT_VIEWS,
+                  f"bitexact {arm}: {len(report.outputs)} of {BITEXACT_VIEWS} views, "
+                  f"failures {[f.as_dict() for f in report.failures]}")
+            check(report.lane == "pipelined", f"bitexact {arm}: ran the {report.lane} lane")
+            check(counts["decode_maps"] == want and sum(counts.values()) == want,
+                  f"bitexact {arm}: launched {counts}, not decode_maps {want} times")
+            for p in report.outputs:
+                pts = ply.read_ply(p)["points"]
+                check(pts.shape[0] > 0.05 * CAM[0] * CAM[1] and bool(np.isfinite(pts).all()),
+                      f"bitexact {arm}: bad cloud {p}")
+            outs[arm] = out
+            print(json.dumps({"bitexact": arm, "lane": report.lane, "wall_s": walls[arm],
+                              "views_per_s": BITEXACT_VIEWS / walls[arm], "launches": counts,
+                              "points_per_view": report.points, "card": card}), flush=True)
+        names = sorted(os.listdir(outs["numpy"]))
+        check(len(names) == BITEXACT_VIEWS and names == sorted(os.listdir(outs["bitexact"])),
+              f"bitexact: PLYs {names}")
+        for name in names:
+            with open(os.path.join(outs["bitexact"], name), "rb") as a, \
+                    open(os.path.join(outs["numpy"], name), "rb") as b:
+                check(a.read() == b.read(), f"bitexact: {name} differs from the numpy arm's")
+        calib_d = matfile.load_calibration(calib)
+        host_s = []
+        for i in range(BITEXACT_VIEWS):
+            frames = frames_np[i % len(frames_np)]
+            dec = gc.decode_stack(frames, n_cols=PROJ[0], n_rows=PROJ[1], device=dev)
+            texture = np.repeat(frames[0][..., None], 3, axis=-1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tri.triangulate(dec.col_map, dec.row_map, dec.mask, texture, calib_d,
+                            bitexact=True)
+            host_s.append(time.perf_counter() - t0)
+        print(json.dumps({"bitexact": "host triangulation", "views": BITEXACT_VIEWS,
+                          "s_per_view": host_s, "median_s": float(np.median(host_s)),
+                          "card": card}), flush=True)
+
+
+def native_load_phase(png_dir: str, card: str) -> None:
+    """Phase 10(b), loads: prints ``native: built <path>`` or ``native:
+    unavailable: <what is missing>``; when built, the first
+    NATIVE_LOAD_VIEWS PNG folders of phase 9(a) loaded through the native
+    stack decoder must equal the Python reader's arrays (cv2 where present)
+    byte for byte; prints both loads' seconds a view."""
+    from structured_light_for_3d_model_replication_tpu_torch.io import images as imio
+    from structured_light_for_3d_model_replication_tpu_torch.io import native
+
+    path, missing = native.status()
+    print(f"native: built {os.path.relpath(path)}" if path else
+          f"native: unavailable: {missing}", flush=True)
+    if path is None:
+        return
+    t_native, t_python = [], []
+    for view in sorted(os.listdir(png_dir))[:NATIVE_LOAD_VIEWS]:
+        files = imio.list_frame_files(os.path.join(png_dir, view))
+        t0 = time.perf_counter()
+        w, h, _ = native.probe_png(files[0])
+        stack = native.load_gray_stack(files, w, h)
+        t_native.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        ref = np.stack([imio.load_gray(f) for f in files])
+        t_python.append(time.perf_counter() - t0)
+        check(stack is not None and stack.shape == ref.shape
+              and stack.tobytes() == ref.tobytes(),
+              f"native: {view} differs from {_python_png_reader()}'s arrays")
+    print(json.dumps({"native_load": NATIVE_LOAD_VIEWS, "frames_per_view": len(files),
+                      "native_s_per_view": t_native, "python_s_per_view": t_python,
+                      "python_reader": _python_png_reader(), "card": card}), flush=True)
+
+
+def native_write_phase(cold_out: str, card: str) -> None:
+    """Phase 10(b), writes: phase 7's merged.ply and model.stl were written
+    by the native writers (>= 100,000 points, >= 50,000 faces). Gates: the
+    PLY's records equal the Python writer's bytes for the same arrays and
+    its header differs by the ``comment slio native writer`` line alone;
+    the STL rewritten natively from its own triangles is the same file, and
+    against the Python writer its vertex and attribute bytes are equal and
+    its float32 normals within 1e-4 of the float64-normalized ones (the
+    80-byte headers differ). Prints both writers' seconds."""
+    from structured_light_for_3d_model_replication_tpu_torch.io import native, ply, stl
+
+    if not native.available():
+        print("native: unavailable, phase 7 wrote with the Python writers", flush=True)
+        return
+    timing = {}
+    with tempfile.TemporaryDirectory(prefix="slscan_native_") as tmp:
+        merged = os.path.join(cold_out, "merged.ply")
+        with open(merged, "rb") as f:
+            raw = f.read()
+        d = ply.read_ply(merged)
+        t0 = time.perf_counter()
+        ply._write_ply_py(os.path.join(tmp, "py.ply"), d["points"], d.get("colors"), None,
+                          True)
+        timing["ply_python_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ply.write_ply(os.path.join(tmp, "nat.ply"), d["points"], d.get("colors"))
+        timing["ply_native_s"] = time.perf_counter() - t0
+        with open(os.path.join(tmp, "py.ply"), "rb") as f:
+            ref = f.read()
+        with open(os.path.join(tmp, "nat.ply"), "rb") as f:
+            check(f.read() == raw, "native: merged.ply rewritten natively differs")
+        head, body = raw.split(b"end_header\n", 1)
+        rhead, rbody = ref.split(b"end_header\n", 1)
+        check(len(d["points"]) >= 100_000 and b"comment slio native writer\n" in head,
+              "native: phase 7's merged.ply was not written natively")
+        check(body == rbody and head.replace(b"comment slio native writer\n", b"") == rhead,
+              "native: merged.ply's records or header differ from the Python writer's")
+        model = os.path.join(cold_out, "model.stl")
+        with open(model, "rb") as f:
+            raw = f.read()
+        verts, faces, _ = stl.read_stl(model)
+        check(len(faces) >= 50_000 and raw.startswith(b"slio native stl"),
+              "native: phase 7's model.stl was not written natively")
+        t0 = time.perf_counter()
+        stl.write_stl(os.path.join(tmp, "nat.stl"), verts, faces)
+        timing["stl_native_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        stl.write_stl(os.path.join(tmp, "py.stl"), verts, faces,
+                      normals=stl.face_normals(verts, faces))
+        timing["stl_python_s"] = time.perf_counter() - t0
+        with open(os.path.join(tmp, "nat.stl"), "rb") as f:
+            check(f.read() == raw, "native: model.stl rewritten natively differs")
+        with open(os.path.join(tmp, "py.stl"), "rb") as f:
+            ref = f.read()
+        rec = np.dtype([("normal", "<f4", 3), ("v", "<f4", 9), ("attr", "<u2")])
+        a, b = np.frombuffer(raw[84:], rec), np.frombuffer(ref[84:], rec)
+        dn = float(np.abs(a["normal"] - b["normal"]).max())
+        check(raw[80:84] == ref[80:84] and a["v"].tobytes() == b["v"].tobytes()
+              and a["attr"].tobytes() == b["attr"].tobytes() and dn < 1e-4,
+              f"native: model.stl differs from the Python writer's (normals by {dn})")
+    print(json.dumps({"native_write": {"points": int(len(d["points"])),
+                                       "faces": int(len(faces)), **timing,
+                                       "stl_normal_max_diff": dn}, "card": card}), flush=True)
+
+
+def report_phase(out: str, card: str) -> None:
+    """Phase 10(c): the port's ``report`` over phase 9(b)'s traced run:
+    ``--validate`` exits 0, the report renders, ``--prometheus`` prints the
+    run's metrics, ``--chrome-trace`` writes a trace with a track for each
+    executor thread (prefetch, drain, register). Prints the lane and track
+    counts."""
+    import contextlib
+    import io
+
+    from structured_light_for_3d_model_replication_tpu_torch import cli
+
+    def run(*argv) -> tuple[int, str]:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["report", out, *argv])
+        return rc, buf.getvalue()
+
+    rc, text = run("--validate")
+    check(rc == 0 and "journal valid" in text, f"report --validate: rc {rc}: {text[-500:]}")
+    rc, text = run()
+    check(rc == 0 and text.startswith("flight recorder report") and "clean close" in text,
+          f"report: rc {rc}: {text[-500:]}")
+    print(text, flush=True)
+    rc, prom = run("--prometheus")
+    check(rc == 0 and "# TYPE sl3d_run_wall_seconds gauge" in prom,
+          f"report --prometheus: rc {rc}: {prom[-500:]}")
+    trace = os.path.join(out, "trace.json")
+    rc, text = run("--chrome-trace", trace)
+    check(rc == 0 and os.path.isfile(trace), f"report --chrome-trace: rc {rc}: {text}")
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    tracks = sorted(e["args"]["name"] for e in events if e.get("name") == "thread_name")
+    lanes = sorted({t.split(" [")[0] for t in tracks})
+    for th in ("sl3d-prefetch", "sl3d-drain", "sl3d-register"):
+        check(any(f"[{th}" in t for t in tracks), f"report: no track of a {th} thread in "
+                                                   f"{tracks}")
+    print(json.dumps({"report": "chrome trace", "lanes": lanes, "n_lanes": len(lanes),
+                      "tracks": tracks, "n_tracks": len(tracks),
+                      "prometheus_lines": len(prom.splitlines()), "card": card}), flush=True)
+
+
+def artifacts_phase(dev, ply_dir: str, root: str, launches: dict, card: str) -> None:
+    """Phase 10(d): phase 5's cold merge again through ``merge-360
+    --artifacts``. Gates: merged.ply equals phase 5's cold run's byte for
+    byte; one ``merge_step_NN.ply`` a chain step after the base view and
+    ``progress.json``; nn1 and ransac_score launch as many times as in
+    phase 5's cold run."""
+    import contextlib
+    import io
+
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch import cli
+    from structured_light_for_3d_model_replication_tpu_torch.ops import kernels
+
+    art = os.path.join(root, "artifacts")
+    out = os.path.join(root, "merged_artifacts.ply")
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main(["merge-360", ply_dir, out, "--artifacts", art,
+                       "--device", str(dev)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    check(rc == 0, f"merge-360 --artifacts: exit {rc}")
+    with open(out, "rb") as a, open(os.path.join(root, "merged_flagship.ply"), "rb") as b:
+        check(a.read() == b.read(), "merge-360 --artifacts: merged.ply differs from "
+                                    "phase 5's cold run")
+    names = sorted(os.listdir(art))
+    want = [f"merge_step_{i:02d}.ply" for i in range(1, MERGE_VIEWS)] + ["progress.json"]
+    check(names == want, f"merge-360 --artifacts: wrote {names}")
+    with open(os.path.join(art, "progress.json")) as f:
+        steps = [e["step"] for e in json.load(f)]
+    check(steps == list(range(1, MERGE_VIEWS)), f"merge-360 --artifacts: progress {steps}")
+    for k in ("nn1", "ransac_score"):
+        check(counts[k] == launches[k][0], f"merge-360 --artifacts: {k} launched "
+                                           f"{counts[k]} times, phase 5 {launches[k][0]}")
+    print(json.dumps({"artifacts": "merge-360", "wall_s": wall, "launches": counts,
+                      "files": len(names), "card": card}), flush=True)
 
 
 def _cloud_bytes(overlap: dict) -> int:
@@ -892,8 +1187,9 @@ def _cloud_bytes(overlap: dict) -> int:
 
 def fused_phase(dev, data: str, calib: str, root: str, cold: dict, card: str) -> None:
     """Phase 9(b): ``run_pipeline`` over the 24 views with
-    ``pipeline.fused_clean=true`` in a fresh directory, beside phase 7's
-    cold run. Gates: merged.ply, model.stl and every view PLY byte-identical
+    ``pipeline.fused_clean=true`` and the flight recorder on
+    (``observability.trace``, read by phase 10(c)) in a fresh directory,
+    beside phase 7's cold run. Gates: merged.ply, model.stl and every view PLY byte-identical
     to the cold run's; decode_maps once a batch, radius_count 2 a view, nn1,
     ransac_score and slab_mean_knn as many launches as the cold run; no
     failure. Prints both runs' walls and cloud bytes between the card and
@@ -904,7 +1200,8 @@ def fused_phase(dev, data: str, calib: str, root: str, cold: dict, card: str) ->
     from structured_light_for_3d_model_replication_tpu_torch.ops import kernels
     from structured_light_for_3d_model_replication_tpu_torch.pipeline import stages
 
-    cfg = load_config(None, {**PIPE_OVERRIDES, "pipeline.fused_clean": True})
+    cfg = load_config(None, {**PIPE_OVERRIDES, "pipeline.fused_clean": True,
+                             "observability.trace": True})
     out = os.path.join(root, "pipeline_fused")
     kernels.reset_launch_counts()
     torch.cuda.synchronize()
@@ -2265,6 +2562,7 @@ def main() -> int:
     launches = reconstruct_phase(dev, rig, stacks, card)
     del stacks
     executor_phase(dev, rig, frames_np, card)
+    bitexact_phase(dev, rig, frames_np, card)
     del frames_np
     with tempfile.TemporaryDirectory(prefix="slscan_merge_") as root:
         t0 = time.perf_counter()
@@ -2275,6 +2573,7 @@ def main() -> int:
         pose_dir, _ = write_pose_views(root)
         lines += merge_kernel_phase(dev, ply_dir, poses, card)
         launches.update(merge_phase(dev, ply_dir, poses, pose_dir, root, card))
+        artifacts_phase(dev, ply_dir, root, launches, card)
     with tempfile.TemporaryDirectory(prefix="slscan_pipeline_") as root:
         t0 = time.perf_counter()
         data, calib, scene = render_pipeline_views(root)
@@ -2286,6 +2585,8 @@ def main() -> int:
                          for k, n in cold["counts"].items() if n})
         schedule_phase(dev, data, calib, root, cold, card)
         fused_phase(dev, data, calib, root, cold, card)
+        report_phase(os.path.join(root, "pipeline_fused"), card)
+        native_write_phase(cold["out"], card)
     for line in lines:
         line["launches"], line["launches_run"] = launches[line["name"]]
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f}s "

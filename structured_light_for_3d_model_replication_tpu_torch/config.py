@@ -9,8 +9,8 @@ both packages:
     ``mesh``, ``faults``, ``deadlines`` and ``observability`` are whole
     copies (with their env overrides); an unknown key there is an error, as
     in the JAX package;
-  - ``parallel`` carries ``compute_batch``, ``io_workers`` and
-    ``prefetch_depth``; ``pipeline`` carries every key. The other keys of
+  - ``parallel`` carries ``backend``, ``compute_batch``, ``io_workers``
+    and ``prefetch_depth``; ``pipeline`` carries every key. The other keys of
     ``parallel``, and the sections the port does not model
     (``checkerboard``, ``acquire``, ``coordinator``, ``serving``,
     ``scan_root``), configure features the port does not have yet: they
@@ -29,7 +29,7 @@ from typing import Any
 __all__ = ["ProjectorConfig", "DecodeConfig", "TriangulateConfig",
            "CleanConfig", "MergeConfig", "MeshConfig", "ParallelConfig",
            "PipelineConfig", "ObservabilityConfig", "DeadlinesConfig",
-           "FaultsConfig", "Config", "load_config"]
+           "FaultsConfig", "Config", "load_config", "jax_dict"]
 
 
 @dataclass
@@ -143,6 +143,10 @@ class MeshConfig:
 class ParallelConfig:
     """Host-side execution knobs of the reconstruct lanes."""
 
+    # 'jax': the port's device path (the name is the JAX package's, so one
+    # JSON config serves both packages); 'numpy': the host reference path,
+    # decode and triangulate through the NumPy twins (no scanner, no batch)
+    backend: str = "jax"
     # host I/O threads for frame decode and the reconstruct lanes' prefetch
     # pool; <=1 (with compute_batch <= 1) runs the serial lane. Env
     # override: SL3D_IO_WORKERS.
@@ -195,15 +199,15 @@ class PipelineConfig:
     # steps: exceeding it ABORTS the run with an aborted failure manifest
     run_budget_s: float = field(
         default_factory=lambda: float(os.environ.get("SL3D_RUN_BUDGET_S", "0")))
-    # load each view as a packed bit-plane stack (frames.slbp where present,
-    # packed at load otherwise) and decode from the bits on the device;
-    # outputs are byte-identical to raw ingest (batched lane only)
-    packed_ingest: bool = False
     # the batched lane's drain compacts and cleans each batch's views on the
     # device and copies the results to the host once; the cleaned device
     # buffers feed the register lane's prep without a re-upload. Outputs
     # are byte-identical to the discrete drain (batched lane only)
     fused_clean: bool = False
+    # load each view as a packed bit-plane stack (frames.slbp where present,
+    # packed at load otherwise) and decode from the bits on the device;
+    # outputs are byte-identical to raw ingest (batched lane only)
+    packed_ingest: bool = False
 
 
 def _env_flag(name: str) -> bool:
@@ -285,7 +289,7 @@ class Config:
 # package's defaults: a section name maps to its dropped keys; a name
 # mapping to a plain value is a dropped top-level key.
 _DROPPED: dict[str, Any] = {
-    "parallel": {"data_axis": 0, "model_axis": 1, "backend": "jax",
+    "parallel": {"data_axis": 0, "model_axis": 1,
                  "force_bf16_features": False, "merge_mesh": False,
                  "shard_views": True},
     "checkerboard": {"rows": 7, "cols": 7, "square_size_mm": 35.0},
@@ -321,15 +325,17 @@ _SECTIONS = {"Config": None, "ParallelConfig": "parallel", "PipelineConfig": "pi
 _logged: set[str] = set()
 
 
-def _note_dropped(name: str, value: Any, default: Any, log) -> None:
-    """Log a dropped key once a process, when set away from its default."""
+def _note_dropped(name: str, value: Any, default: Any, log, seen: dict) -> None:
+    """Record a dropped key's value in ``seen`` (by dotted name) and log it
+    once a process, when set away from its default."""
+    seen[name] = value
     if value != default and name not in _logged:
         _logged.add(name)
         log(f"[config] {name}={value!r} is not ported; the port ignores it "
             f"(default {default!r})")
 
 
-def _drop(cls: type, data: dict[str, Any], log) -> dict[str, Any]:
+def _drop(cls: type, data: dict[str, Any], log, seen: dict) -> dict[str, Any]:
     """``data`` without the keys ``cls`` does not carry: those of
     ``_DROPPED`` are logged (when set away from the default), any other is
     an error, as in the JAX package."""
@@ -345,9 +351,10 @@ def _drop(cls: type, data: dict[str, Any], log) -> dict[str, Any]:
         if section is None and isinstance(dropped[k], dict):
             for leaf, v in (data[k] or {}).items():
                 if leaf in dropped[k]:
-                    _note_dropped(f"{k}.{leaf}", v, dropped[k][leaf], log)
+                    _note_dropped(f"{k}.{leaf}", v, dropped[k][leaf], log, seen)
         else:
-            _note_dropped(f"{section}.{k}" if section else k, data[k], dropped[k], log)
+            _note_dropped(f"{section}.{k}" if section else k, data[k], dropped[k], log,
+                          seen)
     return {k: v for k, v in data.items() if k in known}
 
 
@@ -355,11 +362,13 @@ def _stderr(msg: str) -> None:
     print(msg, file=sys.stderr)
 
 
-def _from_dict(cls: type, data: dict[str, Any], log=_stderr) -> Any:
+def _from_dict(cls: type, data: dict[str, Any], log=_stderr,
+               seen: dict | None = None) -> Any:
     import typing
 
+    seen = {} if seen is None else seen
     hints = typing.get_type_hints(cls)
-    data = _drop(cls, data, log)
+    data = _drop(cls, data, log, seen)
     kwargs: dict[str, Any] = {}
     for f in dataclasses.fields(cls):
         if f.name not in data:
@@ -367,7 +376,7 @@ def _from_dict(cls: type, data: dict[str, Any], log=_stderr) -> Any:
         v = data[f.name]
         ftype = hints.get(f.name)
         if isinstance(v, dict) and dataclasses.is_dataclass(ftype):
-            kwargs[f.name] = _from_dict(ftype, v, log)
+            kwargs[f.name] = _from_dict(ftype, v, log, seen)
         else:
             kwargs[f.name] = v
     return cls(**kwargs)
@@ -403,13 +412,15 @@ def load_config(path: str | None = None,
     """Load a Config from JSON, with optional dotted-key overrides
     (``{"decode.thresh_mode": "manual"}``). A key the port does not carry
     (``_DROPPED``) loads without effect, logged to stderr once a process
-    when set away from the JAX package's default."""
+    when set away from the JAX package's default; ``jax_dict`` gives it
+    back."""
     cfg = Config()
+    seen: dict[str, Any] = {}
     if path:
         if not os.path.exists(path):
             raise FileNotFoundError(f"Config file not found: {path}")
         with open(path) as f:
-            cfg = _from_dict(Config, json.load(f))
+            cfg = _from_dict(Config, json.load(f), seen=seen)
     for key, value in (overrides or {}).items():
         parts = key.split(".")
         table = _DROPPED
@@ -417,7 +428,7 @@ def load_config(path: str | None = None,
             table = table.get(p) if isinstance(table, dict) else None
         if isinstance(table, dict) and not isinstance(table.get(parts[-1], {}), dict):
             default = table[parts[-1]]
-            _note_dropped(key, _coerce(default, value), default, _stderr)
+            _note_dropped(key, _coerce(default, value), default, _stderr, seen)
             continue
         obj: Any = cfg
         for p in parts[:-1]:
@@ -425,4 +436,38 @@ def load_config(path: str | None = None,
         leaf = parts[-1]
         cur = getattr(obj, leaf)  # raises AttributeError on unknown keys
         setattr(obj, leaf, _coerce(cur, value))
+    cfg._dropped = seen
     return cfg
+
+
+# The JAX package's key order where the port's differs: the top-level
+# sections and ``parallel``, whose dropped keys sit between the port's.
+_JAX_ORDER: dict[str, tuple[str, ...]] = {
+    "": ("projector", "checkerboard", "decode", "triangulate", "clean", "merge",
+         "mesh", "acquire", "parallel", "pipeline", "faults", "coordinator",
+         "deadlines", "observability", "serving", "scan_root"),
+    "parallel": ("data_axis", "model_axis", "backend", "force_bf16_features",
+                 "merge_mesh", "io_workers", "prefetch_depth", "compute_batch",
+                 "shard_views"),
+}
+
+
+def jax_dict(cfg: Config) -> dict[str, Any]:
+    """The resolved configuration as the JAX package's ``Config.to_dict``
+    gives it for the same file and overrides (the ``config`` command's
+    JSON): the port's keys, and each dropped key at the value the loader
+    read (else the JAX package's default), in the JAX package's order."""
+    seen = getattr(cfg, "_dropped", {})
+    ours = cfg.to_dict()
+    out: dict[str, Any] = {}
+    for top in _JAX_ORDER[""]:
+        dropped = _DROPPED.get(top)
+        if top not in ours:
+            out[top] = ({k: seen.get(f"{top}.{k}", v) for k, v in dropped.items()}
+                        if isinstance(dropped, dict) else seen.get(top, dropped))
+            continue
+        sec = dict(ours[top])
+        for k, v in (dropped or {}).items():
+            sec[k] = seen.get(f"{top}.{k}", v)
+        out[top] = {k: sec[k] for k in _JAX_ORDER.get(top, sec)}
+    return out

@@ -2,9 +2,11 @@
 
 A scan folder holds numbered frames ("01.png".."46.png"): white, black, then
 a (pattern, inverse) pair per Gray-code bit. ``load_stack`` reads them into
-one uint8 [F, H, W] array (cv2 when present, else PIL, else the port's own
-PNG reader, ``io/png.py``, which undoes a stack's frames together);
-``save_stack`` writes such a folder of PNGs.
+one uint8 [F, H, W] array in the JAX package's order: the native stack
+decoder (``io/native.py``, all frames on a thread pool) when it is built,
+else cv2, else PIL, else the port's own PNG reader (``io/png.py``, which
+undoes a stack's frames together); ``save_stack`` writes such a folder of
+PNGs (cv2, else PIL, else ``io/png.py``, as the JAX package writes them).
 
 Packed format (the same container the JAX package reads and writes): the
 white and black frames verbatim, and each of the P = (F-2)//2 pattern pairs
@@ -24,7 +26,8 @@ from dataclasses import dataclass
 
 import numpy as np
 
-__all__ = ["list_frame_files", "load_stack", "save_stack", "load_gray", "load_color",
+__all__ = ["list_frame_files", "load_stack", "save_stack", "save_image", "load_gray",
+           "load_color",
            "PackedStack", "pack_stack", "unpack_stack", "save_packed_stack",
            "load_packed_stack", "probe_packed", "packed_file", "count_frames",
            "PACKED_NAME"]
@@ -65,6 +68,30 @@ def _imread(path: str, gray: bool) -> np.ndarray:
     return img if gray else img[:, :, ::-1]  # BGR -> RGB at the IO boundary
 
 
+def _imwrite(path: str, img: np.ndarray) -> None:
+    try:
+        import cv2
+    except ImportError:
+        try:
+            from PIL import Image
+        except ImportError:
+            if not path.lower().endswith(".png"):
+                raise
+            from structured_light_for_3d_model_replication_tpu_torch.io import png
+
+            png.write_png(path, img)
+            return
+        Image.fromarray(img).save(path)
+        return
+    if not cv2.imwrite(path, img if img.ndim == 2 else img[:, :, ::-1]):
+        raise IOError(f"failed to write {path}")
+
+
+def save_image(path: str, img: np.ndarray) -> None:
+    """Write one image; color images are RGB (the IO-boundary convention)."""
+    _imwrite(path, np.asarray(img, np.uint8))
+
+
 def load_gray(path: str) -> np.ndarray:
     return _imread(path, gray=True)
 
@@ -98,14 +125,23 @@ def load_stack(source, io_workers: int | None = None):
     """Load a capture folder/list -> (frames u8 [F,H,W], texture u8 [H,W,3]).
 
     The texture is the white frame in color. A packed container unpacks
-    (lossless for decode). ``io_workers`` > 1 decodes the frames on a
-    thread pool; the arrays are identical either way.
+    (lossless for decode). PNG frames go through the native stack decoder
+    when it is built (byte-exact on gray PNGs; on color PNGs its BT.601
+    gray may differ from cv2's by one level, as in the JAX package). Else
+    ``io_workers`` > 1 decodes the frames on a thread pool; the arrays are
+    identical either way.
     """
+    from structured_light_for_3d_model_replication_tpu_torch.io import native
+
     files = list_frame_files(source)
     if len(files) == 1 and files[0].endswith(PACKED_EXT):
         return unpack_stack(load_packed_stack(files[0]))
     if len(files) < 4:
         raise ValueError(f"{source}: need at least 4 frames, found {len(files)}")
+    probe = native.probe_png(files[0])
+    stack = None if probe is None else native.load_gray_stack(files, probe[0], probe[1])
+    if stack is not None:
+        return stack, load_color(files[0])
     if all(f.lower().endswith(".png") for f in files) and _own_png_reader():
         from structured_light_for_3d_model_replication_tpu_torch.io import png
 
@@ -137,16 +173,14 @@ def load_stack(source, io_workers: int | None = None):
     return frames, load_color(files[0])
 
 
-def save_stack(folder: str, frames: np.ndarray) -> list[str]:
-    """Write frames u8 [F, H, W] as numbered PNGs (01.png, 02.png, ...), the
-    capture folder layout ``load_stack`` reads."""
-    from structured_light_for_3d_model_replication_tpu_torch.io import png
-
+def save_stack(folder: str, frames: np.ndarray, ext: str = "png") -> list[str]:
+    """Write frames u8 [F, H, W] as numbered images (01.png, 02.png, ...),
+    the capture folder layout ``load_stack`` reads."""
     os.makedirs(folder, exist_ok=True)
     paths = []
     for i, frame in enumerate(frames):
-        p = os.path.join(folder, f"{i + 1:02d}.png")
-        png.write_png(p, np.asarray(frame, np.uint8))
+        p = os.path.join(folder, f"{i + 1:02d}.{ext}")
+        _imwrite(p, np.asarray(frame, np.uint8))
         paths.append(p)
     return paths
 

@@ -4,7 +4,10 @@ The writers emit the layouts the JAX package writes: binary little-endian
 by default, ``x y z`` float, optional ``nx ny nz`` float and ``red green
 blue`` uchar, and for meshes a ``vertex_indices`` list of three ints a face;
 ``write_ply(binary=False)`` the reference's ASCII layout (``%.4f``
-coordinates). The reader takes both. Colors are RGB.
+coordinates). The reader takes both. Colors are RGB. A binary cloud of
+100,000 points or more goes through the native writer (``io/native.py``)
+where it is built, as in the JAX package: the same records, and a
+``comment slio native writer`` line in the header.
 
 ``WritebackQueue`` takes PLY writes off a producer's critical path: one
 writer thread, submission order kept, a future per write that re-raises.
@@ -13,8 +16,11 @@ from __future__ import annotations
 
 import numpy as np
 
+from structured_light_for_3d_model_replication_tpu_torch.io import native
 from structured_light_for_3d_model_replication_tpu_torch.io.atomic import (
     atomic_write,
+    commit,
+    discard,
 )
 from structured_light_for_3d_model_replication_tpu_torch.utils import deadline as dl
 from structured_light_for_3d_model_replication_tpu_torch.utils import faults
@@ -47,6 +53,20 @@ def write_ply(path: str, points: np.ndarray, colors: np.ndarray | None = None,
     ``ply.write`` fault site fires first."""
     faults.fire("ply.write", item=path)
     points = np.asarray(points, np.float32)
+    if binary and points.shape[0] >= 100_000:
+        tmp = path + ".tmp"
+        try:
+            if native.write_ply_native(tmp, points, colors, normals):
+                commit(tmp, path)
+                return
+        finally:
+            discard(tmp)
+    _write_ply_py(path, points, colors, normals, binary)
+
+
+def _write_ply_py(path: str, points: np.ndarray, colors, normals, binary: bool) -> None:
+    """The Python writer of ``write_ply`` (every size without the native
+    library)."""
     n = points.shape[0]
     has_c = colors is not None
     has_n = normals is not None

@@ -3,15 +3,20 @@
 The port's copy of the JAX package's ``io/stl.py``: 80-byte header, uint32
 count, 50-byte records, normals computed from the winding when not
 supplied. The same header and record layout, so both packages write the
-same bytes for the same arrays (the JAX package's native writer for large
-meshes is not ported; numpy writes every size).
+same bytes for the same arrays. A mesh of 50,000 faces or more with no
+normals given goes through the native writer (``io/native.py``) where it
+is built, as in the JAX package: its header reads ``slio native stl`` and
+its normals are computed in float32.
 """
 from __future__ import annotations
 
 import numpy as np
 
+from structured_light_for_3d_model_replication_tpu_torch.io import native
 from structured_light_for_3d_model_replication_tpu_torch.io.atomic import (
     atomic_write,
+    commit,
+    discard,
 )
 from structured_light_for_3d_model_replication_tpu_torch.utils import faults
 
@@ -40,6 +45,14 @@ def write_stl(path: str, vertices: np.ndarray, faces: np.ndarray,
     vertices = np.asarray(vertices, np.float32)
     faces = np.asarray(faces, np.int64)
     m = faces.shape[0]
+    if normals is None and m >= 50_000:
+        tmp = path + ".tmp"
+        try:
+            if native.write_stl_native(tmp, vertices, faces):
+                commit(tmp, path)
+                return
+        finally:
+            discard(tmp)
     if normals is None:
         normals = face_normals(vertices, faces)
     rec = np.zeros(m, _RECORD)

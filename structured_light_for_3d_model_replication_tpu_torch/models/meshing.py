@@ -35,7 +35,7 @@ def reconstruct_mesh(points, valid=None, normals=None, cfg: MeshConfig | None = 
     tm = timings if timings is not None else {}
     if cfg.mode == "surface":
         raise NotImplementedError(
-            "mesh.mode='surface' (ball pivoting) is not ported (ROADMAP A9, legacy "
+            "mesh.mode='surface' (ball pivoting) is not ported (ROADMAP A5, legacy "
             "mesh modes); use 'watertight'")
     if cfg.mode != "watertight":
         raise ValueError(f"mesh.mode must be 'watertight' or 'surface', got {cfg.mode!r}")

@@ -224,10 +224,13 @@ def transform_views_batched(points_list, transforms, device=None):
 
 def finalize_chain(clouds, T_pairs, gfit_all, ifit_all, irmse_all,
                    cfg: MergeConfig | None = None, log=print,
-                   timings: dict | None = None, device=None):
+                   timings: dict | None = None, device=None, step_callback=None):
     """Chain-accumulate the pair transforms (host f32 matmuls), move views
     1..n-1 into view 0's frame in one batch, concatenate, and run the final
-    voxel/outlier pass. Returns (points, colors, transforms)."""
+    voxel/outlier pass. Returns (points, colors, transforms).
+    ``step_callback(i, new_points, new_colors, total)`` gets each newly
+    folded view's moved arrays and the running point count, view 0 first
+    as a seed call with ``i == 0``; it changes nothing of the merge."""
     cfg = cfg or MergeConfig()
     tm = timings if timings is not None else {}
     n = len(clouds)
@@ -245,6 +248,13 @@ def finalize_chain(clouds, T_pairs, gfit_all, ifit_all, irmse_all,
         transforms.append(t_accum.copy())
     moved = transform_views_batched([clouds[i][0] for i in range(1, n)],
                                     transforms[1:], device=device)
+    if step_callback is not None:
+        total = len(clouds[0][0])
+        step_callback(0, np.asarray(clouds[0][0], np.float32),
+                      np.asarray(clouds[0][1], np.uint8), total)
+        for i in range(1, n):
+            total += len(moved[i - 1])
+            step_callback(i, moved[i - 1], np.asarray(clouds[i][1], np.uint8), total)
     points = np.concatenate([np.asarray(clouds[0][0], np.float32)] + moved)
     colors = np.concatenate([np.asarray(c, np.uint8) for _, c in clouds])
     tm["accumulate_s"] = time.perf_counter() - t0
@@ -283,17 +293,18 @@ def _postprocess_merged(points, colors, cfg: MergeConfig, tm: dict | None = None
 
 
 def merge_360(clouds, cfg: MergeConfig | None = None, log=print,
-              timings: dict | None = None, device=None):
+              timings: dict | None = None, device=None, step_callback=None):
     """Merge ordered per-view clouds [(points [N, 3] f32, colors [N, 3] u8),
     ...] into one 360-degree cloud on ``device`` (None -> cuda). Returns
     (points, colors, transforms); transforms[i] maps view i into view 0's
     frame. ``timings`` is filled with preprocess_s / register_s /
     accumulate_s / postprocess_s (host wall, synchronized by the host
-    transfers that end each stage)."""
+    transfers that end each stage). ``step_callback``: as in
+    ``finalize_chain``."""
     cfg = cfg or MergeConfig()
     if cfg.method != "sequential":
         raise NotImplementedError(
-            f"merge.method={cfg.method!r} is not ported (ROADMAP A9, legacy merge "
+            f"merge.method={cfg.method!r} is not ported (ROADMAP A5, legacy merge "
             f"modes: merge_360_posegraph); use 'sequential'")
     dev = resolve_device(device)
     voxel = float(cfg.voxel_size)
@@ -310,7 +321,7 @@ def merge_360(clouds, cfg: MergeConfig | None = None, log=print,
         [(preps[i], preps[i - 1]) for i in range(1, n)], list(range(n - 1)), cfg, voxel)
     tm["register_s"] = time.perf_counter() - t0
     return finalize_chain(clouds, T_all, gfit, ifit, irmse, cfg, log=log,
-                          timings=tm, device=dev)
+                          timings=tm, device=dev, step_callback=step_callback)
 
 
 def chamfer_distance(a, b, device=None) -> float:

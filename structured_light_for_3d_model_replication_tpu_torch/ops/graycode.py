@@ -12,6 +12,10 @@ The decode itself is a kernel (``ops/kernels.decode_maps`` for raw frames,
 plain PyTorch version on a CPU tensor. Otsu histograms are built with
 ``torch.bincount`` on the frames' device and scored on the host in float64,
 so every backend picks the same bin.
+
+``decode_stack_np`` is the all-host decode of the ``parallel.backend =
+'numpy'`` reference path: the JAX package's NumPy arithmetic, bit-equal to
+its ``decode_stack_np`` (and to the decode kernel).
 """
 from __future__ import annotations
 
@@ -27,7 +31,7 @@ from structured_light_for_3d_model_replication_tpu_torch.utils.device import (
 
 __all__ = ["gray_bits", "generate_pattern_stack", "frames_per_view",
            "otsu_threshold", "resolve_thresholds", "resolve_thresholds_views",
-           "decode_stack", "decode_packed", "DecodeResult"]
+           "decode_stack", "decode_packed", "decode_stack_np", "DecodeResult"]
 
 
 def _n_bits(size: int) -> int:
@@ -278,3 +282,76 @@ def decode_packed(planes, white, black, texture=None, *, n_frames: int,
         black[None].contiguous(), threshold_tensor(ss, cs, planes.device),
         n_frames, plan)
     return DecodeResult(col[0], row[0], mask[0], texture)
+
+
+# ---------------------------------------------------------------------------
+# The NumPy reference decode (the numpy backend), the JAX package's
+# arithmetic op for op
+# ---------------------------------------------------------------------------
+
+def _gray_to_binary_np(g: np.ndarray) -> np.ndarray:
+    g = g ^ (g >> 1)
+    g = g ^ (g >> 2)
+    g = g ^ (g >> 4)
+    g = g ^ (g >> 8)
+    return g
+
+
+def _decode_axis_np(fr, start: int, max_bits: int, n_use: int, n_frames=None):
+    """One axis from the (pattern, inverse) pairs at fr[start:]: the first
+    ``n_use`` bit pairs, MSB first, Gray -> binary, scaled to full range;
+    pairs past the end of a truncated stack (``n_frames``) read as 0."""
+    avail = n_use if n_frames is None else max(0, min(n_use, (n_frames - start) // 2))
+    pat = fr[start:start + 2 * avail:2]
+    inv = fr[start + 1:start + 2 * avail:2]
+    bits = (pat > inv).astype(np.int32)
+    weights = (1 << np.arange(n_use - 1, n_use - 1 - avail, -1, dtype=np.int32))
+    if avail == 0:
+        gray = np.zeros(fr.shape[1:], np.int32)
+    else:
+        gray = np.sum(bits * weights[:, None, None], axis=0)
+    return _gray_to_binary_np(gray) * (1 << (max_bits - n_use))
+
+
+def _resolve_thresholds_np(frames: np.ndarray, thresh_mode: str, shadow_val: float,
+                           contrast_val: float) -> tuple[float, float]:
+    """(shadow, contrast): Otsu of the white frame and of the clipped
+    white - black difference in ``otsu`` mode, else the manual values (as
+    the JAX package's NumPy path, ``otsu_device`` reads as manual here)."""
+    if thresh_mode != "otsu":
+        return float(shadow_val), float(contrast_val)
+    white = frames[0]
+    diff = np.clip(white.astype(np.float32) - frames[1].astype(np.float32),
+                   0, 255).astype(np.uint8)
+    h_w = np.bincount(white.astype(np.uint8).reshape(-1), minlength=256)[:256]
+    h_d = np.bincount(diff.reshape(-1), minlength=256)[:256]
+    return float(_otsu_from_hist(h_w)), float(_otsu_from_hist(h_d))
+
+
+def decode_stack_np(frames: np.ndarray, texture: np.ndarray | None = None, *,
+                    n_cols: int = 1920, n_rows: int = 1080, n_sets_col: int = 11,
+                    n_sets_row: int = 11, thresh_mode: str = "otsu",
+                    shadow_val: float = 40.0, contrast_val: float = 10.0,
+                    downsample: int = 1,
+                    skip_remaining_before_row: bool = False) -> DecodeResult:
+    """Decode a [F, H, W] capture stack on the host (numpy arrays in and
+    out): the reference decode of the numpy backend."""
+    if texture is None:
+        texture = np.repeat(frames[0][..., None], 3, axis=-1).astype(np.uint8)
+    shadow, contrast = _resolve_thresholds_np(frames, thresh_mode, shadow_val,
+                                              contrast_val)
+    plan = decode_plan(frames.shape[0], n_cols=n_cols, n_rows=n_rows,
+                       n_sets_col=n_sets_col, n_sets_row=n_sets_row,
+                       downsample=downsample,
+                       skip_remaining_before_row=skip_remaining_before_row)
+    need = 2 + 2 * (plan.n_bits_col + plan.n_bits_row)
+    n_frames = frames.shape[0] if frames.shape[0] < need else None
+    fr = frames.astype(np.int16)
+    white, black = fr[0], fr[1]
+    mask = (white > shadow) & ((white - black) > contrast)
+    col_map = _decode_axis_np(fr, 2, plan.n_bits_col, plan.n_use_col,
+                              n_frames) * downsample
+    row_map = _decode_axis_np(fr, 2 + 2 * plan.n_bits_col, plan.n_bits_row,
+                              plan.n_use_row, n_frames) * downsample
+    return DecodeResult(col_map.astype(np.int32), row_map.astype(np.int32), mask,
+                        texture)

@@ -47,6 +47,13 @@ lanes (``_lane``):
              ``io_workers > 1``)
   serial     one view at a time on the calling thread
 
+The scanner-free arms build no SLScanner and never take the batched lane
+(they triangulate one view at a time on the host):
+``triangulate.bitexact`` decodes on the device (the decode kernel, once a
+view) and triangulates through the NumPy twin, bit-equal to the NumPy
+reference path; ``parallel.backend='numpy'`` decodes and triangulates on
+the host (``decode_stack_np``, ``triangulate_np``).
+
 The overlapped lanes (batched, packed, pipelined) prefetch stacks on the
 ``io_workers`` pool (a window of ``compute_batch + prefetch_depth``, or
 ``prefetch_depth`` a view; on the card each into a slot of a ring of pinned
@@ -110,7 +117,8 @@ from structured_light_for_3d_model_replication_tpu_torch.utils.device import (
 
 __all__ = ["BatchReport", "reconstruct", "reconstruct_source",
            "sort_ply_paths_by_angle", "merge_views", "CLEAN_STEPS", "clean_cloud",
-           "clean_batch", "mesh_cloud", "PipelineReport", "run_pipeline"]
+           "clean_batch", "mesh_cloud", "PipelineReport", "run_pipeline",
+           "write_patterns"]
 
 CLEAN_STEPS = pc.CLEAN_STEPS
 
@@ -188,11 +196,18 @@ def _forward_kw(cfg: Config) -> dict:
                 contrast_val=d.contrast_val)
 
 
-def _build_scanner(sources, calib: dict, cfg: Config, device=None) -> SLScanner:
-    """One SLScanner for the run; the camera size comes from the first
-    source (packed header or first frame)."""
-    if cfg.triangulate.bitexact:
-        raise ValueError("triangulate.bitexact is not ported yet")
+def _scanner_free(cfg: Config) -> bool:
+    """The numpy backend and the bit-exact export triangulate each view
+    through the NumPy twin on the host: no scanner, no batched lane."""
+    return cfg.parallel.backend == "numpy" or cfg.triangulate.bitexact
+
+
+def _build_scanner(sources, calib: dict, cfg: Config, device=None) -> SLScanner | None:
+    """One SLScanner for the run, or None for the scanner-free arms; the
+    camera size comes from the first source (packed header or first
+    frame)."""
+    if _scanner_free(cfg):
+        return None
     first = imio.list_frame_files(sources[0])
     hdr = imio.probe_packed(first[0])
     if hdr is not None:
@@ -209,11 +224,36 @@ def _build_scanner(sources, calib: dict, cfg: Config, device=None) -> SLScanner:
         plane_eval=cfg.triangulate.plane_eval, device=device)
 
 
+def _host_cloud(frames: np.ndarray, texture: np.ndarray, calib: dict, cfg: Config,
+                device: torch.device) -> tri.CloudResult:
+    """One view of the scanner-free arms (numpy arrays out): the numpy
+    backend decodes and triangulates on the host; the bit-exact export
+    decodes on ``device`` and triangulates the fetched maps through the
+    NumPy twin (``plane_eval='quadratic'`` raises there)."""
+    d, t = cfg.decode, cfg.triangulate
+    kw = dict(n_cols=d.n_cols, n_rows=d.n_rows, n_sets_col=d.n_sets_col,
+              n_sets_row=d.n_sets_row, thresh_mode=d.thresh_mode,
+              shadow_val=d.shadow_val, contrast_val=d.contrast_val,
+              downsample=cfg.projector.downsample)
+    if cfg.parallel.backend == "numpy":
+        dec = gc.decode_stack_np(frames, texture, **kw)
+        return tri.triangulate_np(dec.col_map, dec.row_map, dec.mask, dec.texture, calib,
+                                  row_mode=t.row_mode, epipolar_tol=t.epipolar_tol,
+                                  plane_eval=t.plane_eval)
+    dec = gc.decode_stack(frames, device=device, **kw)
+    return tri.triangulate(dec.col_map, dec.row_map, dec.mask, texture, calib,
+                           row_mode=t.row_mode, epipolar_tol=t.epipolar_tol,
+                           plane_eval=t.plane_eval, bitexact=True)
+
+
 def reconstruct_source(source, calib: dict, cfg: Config, scanner=None,
                        device=None) -> tuple[np.ndarray, np.ndarray]:
     """One scan source -> compact (points [M, 3] f32, colors [M, 3] u8)."""
+    frames, texture = imio.load_stack(source, io_workers=cfg.parallel.io_workers)
+    if _scanner_free(cfg):
+        return tri.compact_cloud(_host_cloud(frames, texture, calib, cfg,
+                                             resolve_device(device)))
     scanner = scanner or _build_scanner([source], calib, cfg, device)
-    frames, _ = imio.load_stack(source, io_workers=cfg.parallel.io_workers)
     return tri.compact_cloud(scanner.forward(frames, **_forward_kw(cfg)))
 
 
@@ -365,7 +405,8 @@ class _Tail:
     ``collect(idx, src, points, colors, counts, dev=None)``: the in-memory
     sink, called on the lane's drain thread (``dev``: the fused drain's
     ``(device points, count)``). ``timings`` gets the clean chain's
-    ``clean_<step>_s``; the chain runs on ``device``."""
+    ``clean_<step>_s``; the chain runs on ``device``. ``calib``: what the
+    scanner-free arms triangulate against."""
 
     mode: str
     output: str | None
@@ -374,23 +415,27 @@ class _Tail:
     collect: object = None
     write_plys: bool = True
     timings: dict | None = None
+    calib: dict | None = None
 
 
-def _on_card(scanner: SLScanner) -> bool:
+def _on_card(scanner: SLScanner | None) -> bool:
     """The lanes' CUDA machinery (pinned staging, the upload and drain
-    streams, events) runs where the scanner's tensors live on a card."""
-    return scanner.device.type == "cuda" and torch.cuda.is_available()
+    streams, events) runs where the scanner's tensors live on a card; the
+    scanner-free arms take none of it."""
+    return (scanner is not None and scanner.device.type == "cuda"
+            and torch.cuda.is_available())
 
 
-def _load_fired(src, cfg: Config) -> np.ndarray:
-    """A view's frame stack [F, H, W] behind the ``frame.load`` site (and
-    ``frame.pack`` for a packed source, whose unpack is the codec step)."""
+def _load_fired(src, cfg: Config) -> tuple[np.ndarray, np.ndarray]:
+    """A view's (frame stack [F, H, W], texture [H, W, 3]) behind the
+    ``frame.load`` site (and ``frame.pack`` for a packed source, whose
+    unpack is the codec step)."""
     dl.beat("load")
     faults.fire("frame.load", item=src)
     if imio.packed_file(src) is not None:
         dl.beat("load")
         faults.fire("frame.pack", item=src)
-    return imio.load_stack(src, io_workers=cfg.parallel.io_workers)[0]
+    return imio.load_stack(src, io_workers=cfg.parallel.io_workers)
 
 
 def _load_packed_fired(src, cfg: Config) -> imio.PackedStack:
@@ -408,22 +453,28 @@ def _load_packed_fired(src, cfg: Config) -> imio.PackedStack:
     return imio.pack_stack(frames, texture=texture)
 
 
-def _forward_fired(scanner: SLScanner, frames, cfg: Config, src,
-                   use_fused: bool | None = None) -> tri.CloudResult:
+def _forward_fired(scanner: SLScanner | None, frames, cfg: Config, src,
+                   use_fused: bool | None = None, texture=None,
+                   tail: _Tail | None = None) -> tri.CloudResult:
     """One view's decode + triangulate behind ``compute.view``: ``frames``
     [F, H, W] (host or card). ``use_fused=False`` is the per-view twin of
-    the packed lane (decode + triangulate, as ``forward_views_packed``)."""
+    the packed lane (decode + triangulate, as ``forward_views_packed``).
+    Without a scanner, the scanner-free arm (``_host_cloud``) against
+    ``tail.calib`` on ``tail.device``, colored by ``texture``."""
     dl.beat("compute")
     faults.fire("compute.view", item=src)
+    if scanner is None:
+        return _host_cloud(frames, texture, tail.calib, cfg, tail.device)
     frames_v = frames[None] if isinstance(frames, torch.Tensor) else np.asarray(frames)[None]
     out = scanner.forward_views(frames_v, use_fused=use_fused, **_forward_kw(cfg))
     return tri.CloudResult(out.points[0], out.colors[0], out.valid[0])
 
 
-def _compute_fired(scanner: SLScanner, frames, cfg: Config, src,
-                   use_fused: bool | None = None):
+def _compute_fired(scanner: SLScanner | None, frames, cfg: Config, src,
+                   use_fused: bool | None = None, texture=None, tail: _Tail | None = None):
     """``_forward_fired`` and the compaction: host (points, colors)."""
-    return tri.compact_cloud(_forward_fired(scanner, frames, cfg, src, use_fused))
+    return tri.compact_cloud(_forward_fired(scanner, frames, cfg, src, use_fused,
+                                            texture, tail))
 
 
 class _Staging:
@@ -692,10 +743,11 @@ def _reconstruct_serial(sources, cfg, scanner, report, log, stats, tail: _Tail) 
         retry = _stage_retry(policy, stats, log, name)
         try:
             t0 = time.perf_counter()
-            frames = retry("load", lambda: _load_fired(src, cfg))
+            frames, texture = retry("load", lambda: _load_fired(src, cfg))
             stats.add("load", time.perf_counter() - t0, view=name)
             t0 = time.perf_counter()
-            pts, cols = retry("compute", lambda: _compute_fired(scanner, frames, cfg, src))
+            pts, cols = retry("compute", lambda: _compute_fired(
+                scanner, frames, cfg, src, texture=texture, tail=tail))
             report.launches += 1
             stats.add("compute", time.perf_counter() - t0, items=1, view=name)
             out_path, n_pts, _ = _finish_view(idx, src, pts, cols, cfg, tail, stats, retry)
@@ -734,20 +786,20 @@ def _reconstruct_pipelined(sources, cfg, scanner, report, log, stats, tail: _Tai
 
     def load_one(src, lease):
         t0 = time.perf_counter()
-        frames = _retry_stage("load", lambda: _load_fired(src, cfg), policy,
-                              _lane_on_retry(stats, policy, log, "load"))
+        frames, texture = _retry_stage("load", lambda: _load_fired(src, cfg), policy,
+                                       _lane_on_retry(stats, policy, log, "load"))
         stats.add("load", time.perf_counter() - t0, view=_item_name(src))
         staged = staging.fill(lease, (frames,)) if staging is not None else None
-        return frames, staged
+        return frames, texture, staged
 
-    def dispatch(src, frames, staged, lease):
+    def dispatch(src, frames, texture, staged, lease):
         if staged is not None:
             t0 = time.perf_counter()
             (frames,), ev = staging.upload([staged[0]], [lease], stacked=False)
             _take_on_stream(ev, (frames,))
             stats.add("transfer", time.perf_counter() - t0, view=_item_name(src))
         stats.add_transfer(frames=int(frames.nbytes))
-        cloud = _forward_fired(scanner, frames, cfg, src)
+        cloud = _forward_fired(scanner, frames, cfg, src, texture=texture, tail=tail)
         if staged is None:
             return cloud, None
         done = torch.cuda.Event()
@@ -777,7 +829,7 @@ def _reconstruct_pipelined(sources, cfg, scanner, report, log, stats, tail: _Tai
             stats.sample_queue(len(window.inflight))
             name = _item_name(src)
             try:
-                frames, staged = _lane_wait(lfut, cfg, "load", f"load of {name}")
+                frames, texture, staged = _lane_wait(lfut, cfg, "load", f"load of {name}")
             except faults.InjectedCrash:
                 raise
             except Exception as e:
@@ -790,7 +842,8 @@ def _reconstruct_pipelined(sources, cfg, scanner, report, log, stats, tail: _Tai
             try:
                 t0 = time.perf_counter()
                 cloud, ev = _retry_stage("compute",
-                                         lambda: dispatch(src, frames, staged, lease),
+                                         lambda: dispatch(src, frames, texture, staged,
+                                                          lease),
                                          policy, _lane_on_retry(stats, policy, log, "compute"))
                 report.launches += 1
                 stats.add("compute", time.perf_counter() - t0, view=name)
@@ -887,7 +940,7 @@ def _reconstruct_batched(sources, cfg, scanner, report, log, stats, tail: _Tail,
 
     def load_one(src, lease):
         t0 = time.perf_counter()
-        frames = _retry_stage("load", lambda: _load_fired(src, cfg), policy,
+        frames = _retry_stage("load", lambda: _load_fired(src, cfg)[0], policy,
                               _lane_on_retry(stats, policy, log, "load"))
         stats.add("load", time.perf_counter() - t0, view=_item_name(src))
         return frames, (staging.fill(lease, (frames,)) if staging is not None else None)
@@ -1143,9 +1196,9 @@ def _reconstruct_batched(sources, cfg, scanner, report, log, stats, tail: _Tail,
 def _lane(cfg: Config, n_sources: int) -> str:
     """The JAX package's choice: batched (packed with
     ``pipeline.packed_ingest``) for several sources at ``compute_batch`` >
-    1, else pipelined for several sources at ``io_workers`` > 1, else
-    serial."""
-    if n_sources > 1 and cfg.parallel.compute_batch > 1:
+    1 with a scanner, else pipelined for several sources at ``io_workers``
+    > 1, else serial."""
+    if n_sources > 1 and cfg.parallel.compute_batch > 1 and not _scanner_free(cfg):
         return "packed" if cfg.pipeline.packed_ingest else "batched"
     if n_sources > 1 and cfg.parallel.io_workers > 1:
         return "pipelined"
@@ -1208,7 +1261,7 @@ def reconstruct(calib_path: str, target: str, mode: str = "single",
     stall_dir = output if output and os.path.isdir(output) else None
     with _run_context(cfg, stall_dir, report.run_id, log):
         _reconstruct_lane(sources, cfg, scanner, report, log, prof.OverlapStats(),
-                          _Tail(mode, output, dev))
+                          _Tail(mode, output, dev, calib=calib))
     report.elapsed_s = time.perf_counter() - t0
     log(f"[reconstruct] {report.summary}")
     return report
@@ -1226,11 +1279,12 @@ def sort_ply_paths_by_angle(paths: list[str]) -> list[str]:
 
 
 def merge_views(input_folder: str, output_ply: str, cfg: Config | None = None,
-                log=print, device=None, timings: dict | None = None):
+                log=print, device=None, timings: dict | None = None, step_callback=None):
     """Folder of per-view PLYs -> one registered 360-degree cloud PLY, on
     ``device`` (None -> cuda). A view that cannot be read is dropped with a
     warning as long as max(2, pipeline.min_views) readable views remain.
-    Returns (points, colors, transforms)."""
+    ``step_callback(i, points, colors, total)`` is ``merge_360``'s (e.g.
+    ``StageRecorder.merge_step``). Returns (points, colors, transforms)."""
     cfg = cfg or Config()
     dev = resolve_device(device)
     out_abs = os.path.abspath(output_ply)
@@ -1272,7 +1326,8 @@ def merge_views(input_folder: str, output_ply: str, cfg: Config | None = None,
         clouds.append((np.asarray(d["points"], np.float32), np.asarray(c, np.uint8)))
     with prof.trace():
         points, colors, transforms = recon.merge_360(clouds, cfg.merge, log=log,
-                                                     timings=timings, device=dev)
+                                                     timings=timings, device=dev,
+                                                     step_callback=step_callback)
     ply.write_ply(output_ply, points, colors)
     log(f"[merge] wrote {output_ply} ({len(points):,} points)")
     return points, colors, transforms
@@ -1284,7 +1339,8 @@ def merge_views(input_folder: str, output_ply: str, cfg: Config | None = None,
 
 def _clean_arrays(pts: np.ndarray, cols: np.ndarray, cfg: Config,
                   steps=CLEAN_STEPS, log=None, device=None,
-                  timings: dict | None = None, stats: prof.OverlapStats | None = None):
+                  timings: dict | None = None, stats: prof.OverlapStats | None = None,
+                  step_callback=None):
     """The masked clean chain on one in-memory cloud, on ``device`` (None ->
     cuda): the cloud padded to its 2048-multiple bucket with rows at 1e9
     (valid = the first n rows), ``ops/pointcloud.clean_chain``, survivors
@@ -1292,7 +1348,8 @@ def _clean_arrays(pts: np.ndarray, cols: np.ndarray, cfg: Config,
     step: survivors}). A step that leaves no point aborts the chain there
     (later steps are not counted). ``timings`` gets ``clean_<step>_s``;
     ``stats`` the round trip's bytes (the cloud up, the step masks down:
-    what the fused drain does without)."""
+    what the fused drain does without). ``step_callback(step, points,
+    colors)`` gets each step's surviving cloud."""
     log = log or (lambda m: None)
     n = len(pts)
     counts = {"input": n}
@@ -1315,6 +1372,8 @@ def _clean_arrays(pts: np.ndarray, cols: np.ndarray, cfg: Config,
     for i, (step, _) in enumerate(params):
         counts[step] = int(cnts[i])
         log(f"[clean] {step}: {int(cnts[i]):,} points remain")
+        if step_callback is not None:
+            step_callback(step, pts[masks[i]], cols[masks[i]])
         if int(cnts[i]) == 0:
             log("[clean] WARNING: all points removed; aborting chain")
             final = masks[i]
@@ -1331,13 +1390,16 @@ def _read_cloud(path: str):
 
 
 def clean_cloud(input_ply: str, output_ply: str, cfg: Config | None = None,
-                steps=CLEAN_STEPS, log=print, device=None) -> dict:
+                steps=CLEAN_STEPS, log=print, device=None, step_callback=None) -> dict:
     """The clean chain on one cloud PLY (background plane -> largest
     cluster -> radius outlier -> statistical outlier, each selectable), on
-    ``device`` (None -> cuda). Returns the per-step counts."""
+    ``device`` (None -> cuda). ``step_callback(name, points, colors)`` gets
+    each step's surviving cloud (``acquire.viewer.StageRecorder``); it
+    changes nothing of the output. Returns the per-step counts."""
     cfg = cfg or Config()
     pts, cols = _read_cloud(input_ply)
-    pts, cols, counts = _clean_arrays(pts, cols, cfg, tuple(steps), log=log, device=device)
+    pts, cols, counts = _clean_arrays(pts, cols, cfg, tuple(steps), log=log, device=device,
+                                      step_callback=step_callback)
     ply.write_ply(output_ply, pts, cols)
     log(f"[clean] wrote {output_ply} ({len(pts):,} points)")
     return counts
@@ -1385,6 +1447,18 @@ def clean_batch(input_folder: str, output_folder: str, cfg: Config | None = None
     log(f"[clean] {len(report.outputs)} cloud(s) cleaned, {len(report.failed)} "
         f"failed, on {dev} in {report.elapsed_s:.2f}s")
     return report
+
+
+def write_patterns(out_dir: str, cfg: Config | None = None, log=print) -> list[str]:
+    """The projector's Gray-code pattern stack (``projector`` config) as
+    numbered images under ``out_dir``: the frames a capture projects."""
+    cfg = cfg or Config()
+    p = cfg.projector
+    frames = gc.generate_pattern_stack(p.width, p.height, brightness=p.brightness,
+                                       downsample=p.downsample)
+    paths = imio.save_stack(out_dir, frames)
+    log(f"[patterns] {len(paths)} frames -> {out_dir}")
+    return paths
 
 
 # ---------------------------------------------------------------------------
@@ -1548,6 +1622,18 @@ def _engine_json(dev: torch.device) -> str:
     return json.dumps({"engine": "torch", "device": dev.type})
 
 
+def _engine(cfg: Config) -> str:
+    return "numpy" if cfg.parallel.backend == "numpy" else "torch"
+
+
+def _engine_key(cfg: Config, dev: torch.device) -> str:
+    """``_engine_json`` with the numpy backend's engine (its host decode
+    and triangulation) in place of ``torch``."""
+    tag = json.loads(_engine_json(dev))
+    tag["engine"] = _engine(cfg)
+    return json.dumps(tag)
+
+
 def _merge_numeric_json(cfg: Config) -> str:
     """The merge config subtree minus its schedule knobs — the key material
     shared by the merge entry and every per-pair entry."""
@@ -1609,7 +1695,7 @@ class _StreamRegistrar:
         self.voxel = float(cfg.merge.voxel_size)
         self.pair_batch = max(1, cfg.merge.pair_batch)
         self.policy = _retry_policy(cfg)
-        self._pair_cfg = _merge_numeric_json(cfg) + _engine_json(device)
+        self._pair_cfg = _merge_numeric_json(cfg) + _engine_key(cfg, device)
         self._stream = torch.cuda.Stream(device=device) if device.type == "cuda" else None
         self._pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="sl3d-register")
         self._futs: list = []
@@ -1826,7 +1912,7 @@ def _view_plan(calib_path: str, target: str, cfg: Config, steps: tuple[str, ...]
                          f"{len(sources)}")
     sources = sort_ply_paths_by_angle(sources)
     view_cfg = config_subtree(cfg, ("decode", "triangulate", "projector", "clean")) + \
-        json.dumps({"steps": list(steps)}) + _engine_json(dev)
+        json.dumps({"steps": list(steps)}) + _engine_key(cfg, dev)
     t0 = time.perf_counter()
     with tel.stage("cache.keys", views=len(sources)):
         view_keys = cache.keys_parallel(
@@ -1862,7 +1948,8 @@ def run_pipeline(calib_path: str, target: str, out_dir: str, cfg: Config | None 
             os.path.join(out_dir, cfg.observability.trace_file),
             run_id=report.run_id,
             meta={"tool": "pipeline", "target": os.path.abspath(target),
-                  "engine": "torch", "device": str(dev),
+                  "backend": cfg.parallel.backend, "engine": _engine(cfg),
+                  "device": str(dev),
                   "merge_method": cfg.merge.method, "merge_stream": cfg.merge.stream,
                   "host_cpus": os.cpu_count(),
                   "device_count": torch.cuda.device_count() if dev.type == "cuda" else 0})
@@ -2019,7 +2106,7 @@ def _run_pipeline_impl(calib_path, target, out_dir, cfg: Config, steps, merged_n
     _budget_check("mesh")
     t0 = time.perf_counter()
     mesh_key = cache.key("mesh", digests=[StageCache.digest_arrays(points=points)],
-                         config_json=config_subtree(cfg, ("mesh",)) + _engine_json(dev))
+                         config_json=config_subtree(cfg, ("mesh",)) + _engine_key(cfg, dev))
     hit = cache.get("mesh", mesh_key)
     if hit is not None:
         verts = np.asarray(hit["verts"], np.float32)
@@ -2088,7 +2175,7 @@ def _reconstruct_missing(missing, calib, cfg, steps, view_keys, cache, collected
 
     batch = BatchReport(device=str(dev), run_id=report.run_id, lane=_lane(cfg, len(sources)))
     tail = _Tail("batch", view_dir, dev, clean_steps=tuple(steps), collect=collect,
-                 write_plys=view_dir is not None, timings=clean_tm)
+                 write_plys=view_dir is not None, timings=clean_tm, calib=calib)
     t0 = time.perf_counter()
     try:
         _reconstruct_lane(sources, cfg, scanner, batch, log, stats, tail)
@@ -2119,7 +2206,7 @@ def _merge_stage(order, collected, cfg, cache, stream, arm_stream, stats, t_stre
     digests = [StageCache.digest_arrays(points=collected[i][0], colors=collected[i][1])
                for i in order]
     merge_key = cache.key("merge", digests=digests,
-                          config_json=_merge_numeric_json(cfg) + _engine_json(dev))
+                          config_json=_merge_numeric_json(cfg) + _engine_key(cfg, dev))
     hit = cache.get("merge", merge_key)
     if hit is not None:
         if stream is not None:

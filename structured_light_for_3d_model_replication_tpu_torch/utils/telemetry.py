@@ -49,11 +49,16 @@ import threading
 import time
 
 __all__ = [
-    "SCHEMA", "Tracer", "MetricsRegistry", "current", "activate",
-    "deactivate", "new_run_id", "stage",
+    "SCHEMA", "LANE_ORDER", "Tracer", "MetricsRegistry", "current", "activate",
+    "deactivate", "new_run_id", "stage", "prometheus_text", "read_journal",
+    "export_chrome_trace",
 ]
 
 SCHEMA = "sl3d-trace-v1"
+# the lanes top to bottom in a report and a Chrome trace: the executor's
+# five, the register lane, the JAX package's assembly lane, run stages
+LANE_ORDER = ("load", "transfer", "compute", "clean", "write", "register",
+              "assembly", "stage")
 
 # histogram bucket ladders: log-ish spacing for seconds, powers of two for
 # per-launch counts. The +inf bucket is implicit (the overflow count).
@@ -397,3 +402,139 @@ def stage(name: str, **fields):
         return
     with tr.span(name, **fields):
         yield
+
+
+# ---------------------------------------------------------------------------
+# readers and exporters (the JAX package's, for ``report``)
+# ---------------------------------------------------------------------------
+
+def _prom_escape(v) -> str:
+    """Label-value escaping of the Prometheus exposition format (backslash,
+    double quote, newline)."""
+    return str(v).replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
+
+
+def _prom_labels(labels: dict, extra: dict | None = None) -> str:
+    items = dict(labels)
+    if extra:
+        items.update(extra)
+    if not items:
+        return ""
+    return "{" + ",".join(f'{k}="{_prom_escape(v)}"' for k, v in sorted(items.items())) + "}"
+
+
+def prometheus_text(metrics: dict) -> str:
+    """Prometheus exposition text of a ``MetricsRegistry.as_dict`` payload
+    (or a loaded ``metrics.json``)."""
+    lines: list[str] = []
+    typed: set[str] = set()
+
+    def head(name, kind):
+        if name not in typed:
+            typed.add(name)
+            lines.append(f"# TYPE {name} {kind}")
+
+    for row in metrics.get("counters", []):
+        head(row["name"], "counter")
+        lines.append(f"{row['name']}{_prom_labels(row['labels'])} {row['value']}")
+    for row in metrics.get("gauges", []):
+        head(row["name"], "gauge")
+        lines.append(f"{row['name']}{_prom_labels(row['labels'])} {row['value']}")
+    for h in metrics.get("histograms", []):
+        name = h["name"]
+        head(name, "histogram")
+        cum = 0
+        for edge, c in zip(h["buckets"] + ["+Inf"], h["counts"]):
+            cum += c
+            lines.append(f"{name}_bucket{_prom_labels(h['labels'], {'le': edge})} {cum}")
+        lines.append(f"{name}_sum{_prom_labels(h['labels'])} {h['sum']}")
+        lines.append(f"{name}_count{_prom_labels(h['labels'])} {h['count']}")
+    return "\n".join(lines) + "\n"
+
+
+def read_journal(path: str) -> dict:
+    """Parse a ``trace.jsonl`` tolerantly: every well-formed line is an
+    event; a torn trailing line or stray corruption counts in
+    ``truncated``. The journal holds one segment a run (a rerun into the
+    same out dir appends a new meta line): ``meta`` / ``events`` are the
+    latest run's, ``segments`` the whole history in order."""
+    entries: list[dict] = []
+    truncated = 0
+    with open(path, encoding="utf-8", errors="replace") as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                obj = json.loads(line)
+            except ValueError:
+                truncated += 1
+                continue
+            if not isinstance(obj, dict) or "type" not in obj:
+                truncated += 1
+                continue
+            entries.append(obj)
+    starts = [i for i, o in enumerate(entries) if o["type"] == "meta"]
+    segments: list[dict] = []
+    if not starts:
+        segments.append({"meta": None, "events": entries})
+    else:
+        if starts[0] != 0:
+            segments.append({"meta": None, "events": entries[:starts[0]]})
+        for a, b in zip(starts, starts[1:] + [len(entries)]):
+            segments.append({"meta": entries[a], "events": entries[a + 1:b]})
+    last = segments[-1]
+    return {"meta": last["meta"], "events": last["events"], "truncated": truncated,
+            "segments": segments,
+            "runs": sum(1 for s in segments if s["meta"] is not None)}
+
+
+def export_chrome_trace(journal_path: str, out_path: str) -> dict:
+    """A journal as Chrome trace-event JSON (Perfetto, chrome://tracing):
+    one track a distinct (lane, thread), sorted by ``LANE_ORDER``. Returns
+    {events, lanes, tracks, truncated}."""
+    j = read_journal(journal_path)
+    meta = j["meta"] or {}
+    run_id = meta.get("run_id", "?")
+    pid = 1
+    tids: dict[tuple, int] = {}
+    out: list[dict] = [{"ph": "M", "pid": pid, "name": "process_name",
+                        "args": {"name": f"sl3d run {run_id}"}}]
+
+    def tid_for(lane: str, th: str) -> int:
+        key = (lane, th)
+        tid = tids.get(key)
+        if tid is None:
+            tid = tids[key] = len(tids) + 1
+            order = LANE_ORDER.index(lane) if lane in LANE_ORDER else len(LANE_ORDER)
+            out.append({"ph": "M", "pid": pid, "tid": tid, "name": "thread_name",
+                        "args": {"name": f"{lane} [{th}]"}})
+            out.append({"ph": "M", "pid": pid, "tid": tid, "name": "thread_sort_index",
+                        "args": {"sort_index": order * 64 + tid}})
+        return tid
+
+    for ev in j["events"]:
+        t_us = float(ev.get("t", 0.0)) * 1e6
+        th = str(ev.get("th", "main"))
+        if ev["type"] == "span":
+            lane = ev.get("lane") or "stage"
+            name = (ev.get("stage") if ev["ev"] == "stage"
+                    else str(ev.get("view", ev.get("pair", lane))))
+            args = {k: v for k, v in ev.items() if k not in ("type", "ev", "t", "dur", "th")}
+            out.append({"ph": "X", "pid": pid, "tid": tid_for(lane, th), "ts": t_us,
+                        "dur": float(ev.get("dur", 0.0)) * 1e6, "name": str(name),
+                        "cat": ev["ev"], "args": args})
+        elif ev["type"] == "instant":
+            args = {k: v for k, v in ev.items() if k not in ("type", "ev", "t", "th")}
+            lane = ev.get("lane") or "events"
+            out.append({"ph": "i", "s": "t", "pid": pid, "tid": tid_for(lane, th),
+                        "ts": t_us, "name": ev["ev"], "cat": "instant", "args": args})
+    payload = {"traceEvents": out, "displayTimeUnit": "ms",
+               "metadata": {"schema": SCHEMA, "run_id": run_id,
+                            "truncated_lines": j["truncated"]}}
+    tmp = out_path + ".tmp"
+    with open(tmp, "w", encoding="utf-8") as f:
+        json.dump(payload, f, separators=(",", ":"))
+    os.replace(tmp, out_path)
+    return {"events": len(out), "lanes": len({k[0] for k in tids}),
+            "tracks": len(tids), "truncated": j["truncated"]}

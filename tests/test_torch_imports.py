@@ -4,7 +4,9 @@ A subprocess imports every port module (this process already imported jax
 through tests/conftest.py) and checks that ``jax`` never loaded; an AST scan
 checks every port file and ``chip_smoke.py`` for imports of ``jax`` or of
 the JAX package. Also: the CUDA sources are in the tree, and a build
-without a working nvcc raises instead of falling back.
+without a working nvcc raises instead of falling back; the native IO
+runtime's source is the port's own copy, and the port never loads the JAX
+package's ``native/libslio.so``.
 """
 import ast
 import os
@@ -37,7 +39,8 @@ def test_importing_every_port_module_leaves_jax_unloaded():
     mods = _port_modules()
     assert len(mods) >= 15
     for m in ("utils.telemetry", "utils.faults", "utils.deadline", "utils.profiling",
-              "pipeline.stagecache", "ops.fused_view"):
+              "pipeline.stagecache", "ops.fused_view", "io.native", "pipeline.report",
+              "acquire.viewer"):
         assert f"{PKG}.{m}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -120,3 +123,14 @@ def test_failed_or_impossible_build_raises(tmp_path, monkeypatch):
                         lambda p: False if str(p).endswith("nvcc") else real_isfile(p))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build._nvcc()
+
+
+def test_the_native_io_source_is_the_ports_own():
+    src = (ROOT / PKG / "io" / "csrc" / "slio.cpp").read_text()
+    for entry in ("slio_probe_png", "slio_load_gray_stack", "slio_write_ply",
+                  "slio_write_stl", "slio_abi_version"):
+        assert f"int {entry}(" in src
+    assert "int slio_abi_version() { return 1; }" in src
+    binding = (ROOT / PKG / "io" / "native.py").read_text()
+    assert 'os.path.join(_HERE, "csrc", "slio.cpp")' in binding
+    assert "SLIO_LIBRARY" not in binding and "parents" not in binding

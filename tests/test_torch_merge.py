@@ -183,7 +183,7 @@ def test_merge_views_floor_device_and_method(clouds, tmp_path, monkeypatch):
         stages.merge_views(str(tmp_path), str(tmp_path / "m.ply"), device="cpu", **QUIET)
     cfg = config.Config()
     cfg.merge.method = "posegraph"
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
         rec.merge_360(clouds, cfg.merge, device="cpu", **QUIET)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -148,7 +148,7 @@ def test_reconstruct_mesh_end_to_end_matches_the_jax_package():
     assert _chamfer(vt, vj) < 0.5 * cell
     assert meshproc.mesh_volume(vt, ft) > 0   # outward winding
     tcfg.mode = "surface"
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(NotImplementedError, match="A5"):
         meshing.reconstruct_mesh(pts, cfg=tcfg, device="cpu", **QUIET)
 
 
