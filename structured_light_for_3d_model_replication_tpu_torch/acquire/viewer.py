@@ -54,20 +54,15 @@ class StageRecorder:
     def merge_step(self, i: int, points, colors, total=None) -> None:
         """The merge's ``step_callback``: ``points`` / ``colors`` are the
         newly folded view's arrays and ``total`` the running point count;
-        ``i == 0`` seeds the base view without writing an artifact. A list
-        ``points`` / ``colors`` is the full state (``total`` ignored)."""
-        if isinstance(points, (list, tuple)):
-            views_p = [np.asarray(p) for p in points]
-            views_c = [np.asarray(c) for c in colors]
-        else:
-            with self._lock:
-                if i == 0:
-                    self._merge_p, self._merge_c = [], []
-                self._merge_p.append(np.asarray(points))
-                self._merge_c.append(np.asarray(colors))
-                views_p, views_c = list(self._merge_p), list(self._merge_c)
+        ``i == 0`` seeds the base view without writing an artifact."""
+        with self._lock:
             if i == 0:
-                return
+                self._merge_p, self._merge_c = [], []
+            self._merge_p.append(np.asarray(points))
+            self._merge_c.append(np.asarray(colors))
+            views_p, views_c = list(self._merge_p), list(self._merge_c)
+        if i == 0:
+            return
         total = int(total) if total is not None else sum(len(p) for p in views_p)
         stride = max(1, total // self.max_points)
         pts = np.concatenate([p[::stride] for p in views_p])

@@ -460,6 +460,10 @@ def jax_dict(cfg: Config) -> dict[str, Any]:
     seen = getattr(cfg, "_dropped", {})
     ours = cfg.to_dict()
     out: dict[str, Any] = {}
+    for top, order in _JAX_ORDER.items():   # a key missing here would drop silently
+        keys = set(ours) if top == "" else set(ours[top]) | set(_DROPPED[top])
+        if not keys <= set(order):
+            raise AssertionError(f"_JAX_ORDER[{top!r}] lacks {sorted(keys - set(order))}")
     for top in _JAX_ORDER[""]:
         dropped = _DROPPED.get(top)
         if top not in ours:

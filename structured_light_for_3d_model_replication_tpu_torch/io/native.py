@@ -9,9 +9,10 @@ g++ builds the library at first use into ``io/_native_build/<hash>/`` (the
 hash covers the source and the flags), published by an atomic rename so
 concurrent first users never load a torn file; ``slio_abi_version() == 1``
 is checked; a library that does not load (one built on another host) is
-built anew. Where g++, libpng's header or libpng itself is missing,
-``available()`` is False, one stderr line names what is missing, and the
-callers take the Python readers and writers, as in the JAX package. Where
+built anew. Where the source (an install without package data), g++,
+libpng's header or libpng itself is missing, ``available()`` is False, one
+stderr line names what is missing, and the callers take the Python readers
+and writers, as in the JAX package. Where
 the toolchain is there and the build or the ABI check fails, the call
 raises.
 """
@@ -77,8 +78,10 @@ def _missing(cxx: str | None, work: str) -> str | None:
 
 def build(root: str | None = None) -> tuple[str | None, str | None]:
     """Build the library unless this source and these flags were built
-    already. Returns (path, None), or (None, what is missing) where g++ or
-    libpng is absent; a failed build raises."""
+    already. Returns (path, None), or (None, what is missing) where the
+    source, g++ or libpng is absent; a failed build raises."""
+    if not os.path.isfile(SOURCE):
+        return None, f"source {SOURCE} not found"
     path = library_path(root)
     if os.path.isfile(path):
         return path, None

@@ -12,6 +12,8 @@ merge reads:
                     steps)
   kdtree_build,     scipy ``cKDTree`` on the host: the exact complement of
   kdtree_distances_rows  the outlier pass's uncertified rows
+  knn_np,           the same on numpy arrays (cKDTree), the numpy backend's
+  radius_count_np   clean chain (``pointcloud.clean_chain_np``)
 
 Every selection here and in the kernels runs on difference distances, so
 the JAX package's recompute of the |q|^2+|b|^2-2q.b selection
@@ -24,7 +26,7 @@ import numpy as np
 import torch
 
 __all__ = ["FAR", "sq_dist", "knn", "radius_count", "kdtree_build",
-           "kdtree_distances_rows"]
+           "kdtree_distances_rows", "knn_np", "radius_count_np"]
 
 FAR = 1e9  # coordinate of invalid/padded points: far from everything
 _BLOCK = 1 << 22  # elements of one [queries, base] distance block
@@ -172,3 +174,58 @@ def kdtree_distances_rows(points: np.ndarray, valid: np.ndarray,
     last = out[np.arange(out.shape[0]), np.maximum(fin - 1, 0)]
     fill = (np.arange(k)[None, :] >= fin[:, None]) & (fin > 0)[:, None]
     return np.where(fill, last[:, None], out)
+
+
+def knn_np(points: np.ndarray, valid: np.ndarray | None, k: int):
+    """(indices i32 [N, k], squared distances f32 [N, k]) of each row's k
+    nearest OTHER valid rows by cKDTree (the JAX package's ``knn_np`` with
+    ``exclude_self``): with fewer than k others a row repeats its last
+    neighbour, with none it keeps index 0 at inf."""
+    from scipy.spatial import cKDTree
+
+    n = points.shape[0]
+    if valid is None:
+        valid = np.ones(n, bool)
+    vi = np.where(valid)[0]
+    if len(vi) == 0:
+        return np.zeros((n, k), np.int32), np.full((n, k), np.inf, np.float32)
+    kk = min(k + 1, len(vi))
+    d, j = cKDTree(points[vi]).query(points, k=kk, workers=-1)
+    d = np.asarray(d).reshape(n, kk)
+    j = np.asarray(j).reshape(n, kk)
+    if kk == k + 1:
+        # d is sorted: inf the (at most one) self entry, take the k smallest
+        cand = vi[j]
+        dd = np.where(cand == np.arange(n)[:, None], np.inf, d)
+        order = np.argsort(dd, axis=1, kind="stable")[:, :k]
+        rows = np.arange(n)[:, None]
+        return (cand[rows, order].astype(np.int32),
+                dd[rows, order].astype(np.float32) ** 2)
+    idx = np.zeros((n, k), np.int32)
+    d2 = np.full((n, k), np.inf, np.float32)
+    for row in range(n):
+        keep = vi[j[row]] != row
+        cand, dd = vi[j[row]][keep][:k], d[row][keep][:k]
+        idx[row, :len(cand)] = cand
+        d2[row, :len(dd)] = dd.astype(np.float32) ** 2
+        if 0 < len(cand) < k:
+            idx[row, len(cand):] = cand[-1]
+            d2[row, len(dd):] = d2[row, len(dd) - 1]
+    return idx, d2
+
+
+def radius_count_np(points: np.ndarray, valid: np.ndarray | None,
+                    radius: float) -> np.ndarray:
+    """Number of OTHER valid rows within ``radius`` of each row, i32 [N],
+    by cKDTree (the JAX package's ``radius_count_np``)."""
+    from scipy.spatial import cKDTree
+
+    n = points.shape[0]
+    if valid is None:
+        valid = np.ones(n, bool)
+    vi = np.where(valid)[0]
+    if len(vi) == 0:
+        return np.zeros(n, np.int32)
+    counts = np.asarray(cKDTree(points[vi]).query_ball_point(points, radius,
+                                                              return_length=True), np.int32)
+    return counts - valid.astype(np.int32)

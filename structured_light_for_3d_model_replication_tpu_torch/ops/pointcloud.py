@@ -26,6 +26,12 @@ a cell hint, a cloud above 32768 rows takes its cell from the median
 nearest-neighbour spacing (``_estimate_spacing``), as the JAX package's
 accelerator arm does, on either device. The JAX package's other selectors
 (the jnp top_k engines and their tuner arms) are not ported.
+
+``clean_chain_np`` is the numpy backend's chain: the same masked steps on
+the host over numpy arrays (cKDTree neighbours, a region-growing DBSCAN,
+RANSAC draws from ``np.random.default_rng(0)``), step for step the JAX
+package's ``clean_chain_np``, except that a degenerate plane hypothesis
+scores 0 there as it does on the device (ROADMAP C2).
 """
 from __future__ import annotations
 
@@ -39,7 +45,9 @@ from structured_light_for_3d_model_replication_tpu_torch.ops import knn as knnli
 
 __all__ = ["voxel_downsample", "statistical_outlier_mask", "DENSE_MAX",
            "radius_outlier_mask", "segment_plane", "cluster_labels",
-           "largest_cluster_mask", "CLEAN_STEPS", "chain_params", "clean_chain"]
+           "largest_cluster_mask", "CLEAN_STEPS", "chain_params", "clean_chain",
+           "statistical_outlier_mask_np", "radius_outlier_mask_np", "segment_plane_np",
+           "cluster_labels_np", "largest_cluster_mask_np", "clean_chain_np"]
 
 DENSE_MAX = 32768     # the dense engine's largest cloud
 _SLAB_FAR = 3e9
@@ -447,3 +455,114 @@ def clean_chain(points: torch.Tensor, valid: torch.Tensor, cfg,
             key = f"clean_{step}_s"
             timings[key] = timings.get(key, 0.0) + time.perf_counter() - t0
     return torch.stack(masks), torch.stack(counts).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# The numpy backend's chain, on the host
+# ---------------------------------------------------------------------------
+
+def statistical_outlier_mask_np(points: np.ndarray, valid: np.ndarray,
+                                nb_neighbors: int = 20, std_ratio: float = 2.0) -> np.ndarray:
+    """``statistical_outlier_mask`` by cKDTree; float32 statistics."""
+    _, d2 = knnlib.knn_np(points, valid, nb_neighbors)
+    mean_d = np.sqrt(np.maximum(d2, 0)).mean(axis=1).astype(np.float32)
+    ok = valid & np.isfinite(mean_d)
+    n_valid = np.maximum(ok.sum(), 1)
+    mu = np.where(ok, mean_d, 0.0).sum() / n_valid
+    var = np.where(ok, (mean_d - mu) ** 2, 0.0).sum() / n_valid
+    return ok & (mean_d <= mu + np.float32(std_ratio) * np.sqrt(var))
+
+
+def radius_outlier_mask_np(points: np.ndarray, valid: np.ndarray, radius: float = 5.0,
+                           nb_points: int = 100) -> np.ndarray:
+    return valid & (knnlib.radius_count_np(points, valid, radius) >= nb_points)
+
+
+def segment_plane_np(points: np.ndarray, valid: np.ndarray, distance_threshold: float = 2.0,
+                     num_iterations: int = 512, seed: int = 0):
+    """``segment_plane`` in float64 with draws from ``default_rng(seed)``
+    among the valid rows; the first best hypothesis wins, a degenerate one
+    scores 0 and has no inliers."""
+    rng = np.random.default_rng(seed)
+    pts = points.astype(np.float64)
+    tri = rng.choice(np.where(valid)[0], size=(num_iterations, 3))
+    p0, p1, p2 = pts[tri[:, 0]], pts[tri[:, 1]], pts[tri[:, 2]]
+    nrm = np.cross(p1 - p0, p2 - p0)
+    norm = np.sqrt((nrm * nrm).sum(-1, keepdims=True))
+    nrm = nrm / np.maximum(norm, 1e-12)
+    d = -(nrm * p0).sum(-1)
+    plane_ok = norm[:, 0] > 1e-12
+    best_score, best = -1, 0
+    for t in range(num_iterations):
+        score = int(((np.abs(pts @ nrm[t] + d[t]) <= distance_threshold) & valid).sum()) \
+            if plane_ok[t] else 0
+        if score > best_score:
+            best_score, best = score, t
+    inliers = (np.abs(pts @ nrm[best] + d[best]) <= distance_threshold) & valid & plane_ok[best]
+    return np.concatenate([nrm[best], [d[best]]]).astype(np.float32), inliers
+
+
+def cluster_labels_np(points: np.ndarray, valid: np.ndarray, eps: float = 5.0,
+                      min_points: int = 200) -> np.ndarray:
+    """Exact DBSCAN labels i64 [N] by cKDTree region growing (noise -1)."""
+    from scipy.spatial import cKDTree
+
+    n = points.shape[0]
+    vi = np.where(valid)[0]
+    labels = np.full(n, -1, np.int64)
+    if len(vi) == 0:
+        return labels
+    tree = cKDTree(points[vi])
+    neigh = tree.query_ball_point(points[vi], eps)
+    core = np.array([len(x) - 1 for x in neigh]) >= min_points
+    labels_v = np.full(len(vi), -1, np.int64)
+    cur = 0
+    for i in range(len(vi)):
+        if labels_v[i] != -1 or not core[i]:
+            continue
+        stack = [i]
+        labels_v[i] = cur
+        while stack:
+            j = stack.pop()
+            if not core[j]:
+                continue
+            for m in neigh[j]:
+                if labels_v[m] == -1:
+                    labels_v[m] = cur
+                    stack.append(m)
+        cur += 1
+    labels[vi] = labels_v
+    return labels
+
+
+def largest_cluster_mask_np(points: np.ndarray, valid: np.ndarray, eps: float = 5.0,
+                            min_points: int = 200) -> np.ndarray:
+    labels = cluster_labels_np(points, valid, eps, min_points)
+    pos = labels[labels >= 0]
+    if pos.size == 0:
+        return np.zeros_like(valid)
+    return valid & (labels == np.bincount(pos).argmax())
+
+
+def clean_chain_np(points: np.ndarray, valid: np.ndarray, cfg, steps=CLEAN_STEPS):
+    """``clean_chain`` on the host over numpy arrays (no padding): returns
+    (masks [S, N] bool, counts [S] i32)."""
+    params = chain_params(cfg, steps)
+    n = points.shape[0]
+    if n == 0 or not params:
+        return np.zeros((len(params), n), bool), np.zeros(len(params), np.int32)
+    masks, counts = [], []
+    v = np.asarray(valid, bool)
+    for step, kw in params:
+        kw = dict(kw)
+        if step == "background":
+            v = v & ~segment_plane_np(points, v, kw["dist"], kw["trials"])[1]
+        elif step == "cluster":
+            v = largest_cluster_mask_np(points, v, kw["eps"], kw["min_points"])
+        elif step == "radius":
+            v = v & radius_outlier_mask_np(points, v, kw["radius"], kw["nb_points"])
+        else:
+            v = v & statistical_outlier_mask_np(points, v, kw["nb"], kw["std"])
+        masks.append(v)
+        counts.append(int(v.sum()))
+    return np.stack(masks), np.asarray(counts, np.int32)

@@ -52,7 +52,9 @@ The scanner-free arms build no SLScanner and never take the batched lane
 ``triangulate.bitexact`` decodes on the device (the decode kernel, once a
 view) and triangulates through the NumPy twin, bit-equal to the NumPy
 reference path; ``parallel.backend='numpy'`` decodes and triangulates on
-the host (``decode_stack_np``, ``triangulate_np``).
+the host (``decode_stack_np``, ``triangulate_np``) and, as in the JAX
+package, also cleans there (``clean_chain_np``); the merge and the mesh
+run on the device in both arms, as the JAX package runs them under jax.
 
 The overlapped lanes (batched, packed, pipelined) prefetch stacks on the
 ``io_workers`` pool (a window of ``compute_batch + prefetch_depth``, or
@@ -1344,7 +1346,8 @@ def _clean_arrays(pts: np.ndarray, cols: np.ndarray, cfg: Config,
     """The masked clean chain on one in-memory cloud, on ``device`` (None ->
     cuda): the cloud padded to its 2048-multiple bucket with rows at 1e9
     (valid = the first n rows), ``ops/pointcloud.clean_chain``, survivors
-    taken once at the end. Returns (points', colors', counts {"input": n,
+    taken once at the end; under ``parallel.backend='numpy'`` the host
+    chain ``clean_chain_np`` on the unpadded cloud instead. Returns (points', colors', counts {"input": n,
     step: survivors}). A step that leaves no point aborts the chain there
     (later steps are not counted). ``timings`` gets ``clean_<step>_s``;
     ``stats`` the round trip's bytes (the cloud up, the step masks down:
@@ -1356,18 +1359,21 @@ def _clean_arrays(pts: np.ndarray, cols: np.ndarray, cfg: Config,
     params = pc.chain_params(cfg.clean, tuple(steps))
     if not params:
         return pts, cols, counts
-    dev = resolve_device(device)
-    bucket = recon._bucket_pad(n)
-    pts_pad = np.full((bucket, 3), knnlib.FAR, np.float32)
-    pts_pad[:n] = pts
-    valid = torch.arange(bucket, device=dev) < n
-    masks, cnts = pc.clean_chain(torch.from_numpy(pts_pad).to(dev), valid, cfg.clean,
-                                 tuple(steps), timings=timings)
-    masks = masks[:, :n].cpu().numpy()
-    cnts = cnts.cpu().numpy()
-    if stats is not None:
-        stats.add_transfer(h2d=int(pts_pad.nbytes) + bucket,
-                           d2h=int(masks.nbytes) + int(cnts.nbytes))
+    if cfg.parallel.backend == "numpy":
+        masks, cnts = pc.clean_chain_np(pts, np.ones(n, bool), cfg.clean, tuple(steps))
+    else:
+        dev = resolve_device(device)
+        bucket = recon._bucket_pad(n)
+        pts_pad = np.full((bucket, 3), knnlib.FAR, np.float32)
+        pts_pad[:n] = pts
+        valid = torch.arange(bucket, device=dev) < n
+        masks, cnts = pc.clean_chain(torch.from_numpy(pts_pad).to(dev), valid, cfg.clean,
+                                     tuple(steps), timings=timings)
+        masks = masks[:, :n].cpu().numpy()
+        cnts = cnts.cpu().numpy()
+        if stats is not None:
+            stats.add_transfer(h2d=int(pts_pad.nbytes) + bucket,
+                               d2h=int(masks.nbytes) + int(cnts.nbytes))
     final = masks[-1]
     for i, (step, _) in enumerate(params):
         counts[step] = int(cnts[i])
@@ -1613,25 +1619,15 @@ def _failure_manifest(out_dir: str, report: PipelineReport, views_total: int,
 _MERGE_SCHEDULE_KNOBS = ("stream", "pair_batch", "incremental")
 
 
-def _engine_json(dev: torch.device) -> str:
-    """The port's tag in every cache key, where the JAX package puts its
-    backend: the engine and the device type. The CPU runs the kernels'
+def _engine_json(cfg: Config, dev: torch.device) -> str:
+    """The port's tag in every cache key: ``parallel.backend``, as the JAX
+    package keys it (the numpy backend decodes, triangulates and cleans on
+    the host), the engine and the device type. The CPU runs the kernels'
     plain versions, which are not bit-equal to them, and meshes at a
     shallower depth, so a directory written on one device never hands its
     entries to a run on the other."""
-    return json.dumps({"engine": "torch", "device": dev.type})
-
-
-def _engine(cfg: Config) -> str:
-    return "numpy" if cfg.parallel.backend == "numpy" else "torch"
-
-
-def _engine_key(cfg: Config, dev: torch.device) -> str:
-    """``_engine_json`` with the numpy backend's engine (its host decode
-    and triangulation) in place of ``torch``."""
-    tag = json.loads(_engine_json(dev))
-    tag["engine"] = _engine(cfg)
-    return json.dumps(tag)
+    return json.dumps({"backend": cfg.parallel.backend, "engine": "torch",
+                       "device": dev.type})
 
 
 def _merge_numeric_json(cfg: Config) -> str:
@@ -1695,7 +1691,7 @@ class _StreamRegistrar:
         self.voxel = float(cfg.merge.voxel_size)
         self.pair_batch = max(1, cfg.merge.pair_batch)
         self.policy = _retry_policy(cfg)
-        self._pair_cfg = _merge_numeric_json(cfg) + _engine_key(cfg, device)
+        self._pair_cfg = _merge_numeric_json(cfg) + _engine_json(cfg, device)
         self._stream = torch.cuda.Stream(device=device) if device.type == "cuda" else None
         self._pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="sl3d-register")
         self._futs: list = []
@@ -1912,7 +1908,7 @@ def _view_plan(calib_path: str, target: str, cfg: Config, steps: tuple[str, ...]
                          f"{len(sources)}")
     sources = sort_ply_paths_by_angle(sources)
     view_cfg = config_subtree(cfg, ("decode", "triangulate", "projector", "clean")) + \
-        json.dumps({"steps": list(steps)}) + _engine_key(cfg, dev)
+        json.dumps({"steps": list(steps)}) + _engine_json(cfg, dev)
     t0 = time.perf_counter()
     with tel.stage("cache.keys", views=len(sources)):
         view_keys = cache.keys_parallel(
@@ -1948,7 +1944,7 @@ def run_pipeline(calib_path: str, target: str, out_dir: str, cfg: Config | None 
             os.path.join(out_dir, cfg.observability.trace_file),
             run_id=report.run_id,
             meta={"tool": "pipeline", "target": os.path.abspath(target),
-                  "backend": cfg.parallel.backend, "engine": _engine(cfg),
+                  "backend": cfg.parallel.backend, "engine": "torch",
                   "device": str(dev),
                   "merge_method": cfg.merge.method, "merge_stream": cfg.merge.stream,
                   "host_cpus": os.cpu_count(),
@@ -2106,7 +2102,7 @@ def _run_pipeline_impl(calib_path, target, out_dir, cfg: Config, steps, merged_n
     _budget_check("mesh")
     t0 = time.perf_counter()
     mesh_key = cache.key("mesh", digests=[StageCache.digest_arrays(points=points)],
-                         config_json=config_subtree(cfg, ("mesh",)) + _engine_key(cfg, dev))
+                         config_json=config_subtree(cfg, ("mesh",)) + _engine_json(cfg, dev))
     hit = cache.get("mesh", mesh_key)
     if hit is not None:
         verts = np.asarray(hit["verts"], np.float32)
@@ -2206,7 +2202,7 @@ def _merge_stage(order, collected, cfg, cache, stream, arm_stream, stats, t_stre
     digests = [StageCache.digest_arrays(points=collected[i][0], colors=collected[i][1])
                for i in order]
     merge_key = cache.key("merge", digests=digests,
-                          config_json=_merge_numeric_json(cfg) + _engine_key(cfg, dev))
+                          config_json=_merge_numeric_json(cfg) + _engine_json(cfg, dev))
     hit = cache.get("merge", merge_key)
     if hit is not None:
         if stream is not None:

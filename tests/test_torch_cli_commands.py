@@ -4,7 +4,7 @@ against the JAX package's CLI and recorder:
 
 - ``config`` prints the JAX package's JSON text, character for character,
   at the defaults, under ``--set`` (port keys and keys the port does not
-  carry) and under ``--config``;
+  carry) and under ``--config``; a key missing from its order raises;
 - ``patterns`` writes files byte-equal to the JAX package's
   ``write_patterns`` (both write with cv2);
 - ``synth --views 2`` writes the JAX command's layout and frame bytes; its
@@ -69,6 +69,20 @@ def test_config_prints_the_jax_json(argv, tmp_path, capsys):
     json.loads(text)
 
 
+@pytest.mark.parametrize("top,key", [("parallel", "io_workers"), ("parallel", "data_axis"),
+                                     ("", "pipeline")])
+def test_config_refuses_a_key_its_order_lacks(monkeypatch, top, key):
+    """A port key or a dropped key missing from the JAX order would leave
+    the ``config`` output silently: ``jax_dict`` raises instead."""
+    from structured_light_for_3d_model_replication_tpu_torch import config as pconfig
+
+    order = dict(pconfig._JAX_ORDER)
+    order[top] = tuple(k for k in order[top] if k != key)
+    monkeypatch.setattr(pconfig, "_JAX_ORDER", order)
+    with pytest.raises(AssertionError, match=key):
+        pconfig.jax_dict(pconfig.Config())
+
+
 def test_patterns_equal_the_jax_package(tmp_path, capsys):
     over = ["--set", "projector.width=96", "--set", "projector.height=40",
             "--set", "projector.downsample=2"]
@@ -109,7 +123,7 @@ def _progress(d):
 def test_the_recorder_equals_the_jax_recorder(tmp_path):
     rng = np.random.default_rng(2)
     views = [(rng.normal(0, 30, (n, 3)).astype(np.float32),
-              rng.integers(0, 256, (n, 3)).astype(np.uint8)) for n in (900, 700, 1100)]
+              rng.integers(0, 256, (n, 3)).astype(np.uint8)) for n in (900, 700, 1100, 600)]
     for cap in (200_000, 500):       # the stride caps the preview at 500 points
         mine = viewer.StageRecorder(str(tmp_path / f"p{cap}"), max_points_per_step=cap)
         theirs = jviewer.StageRecorder(str(tmp_path / f"j{cap}"), max_points_per_step=cap)
@@ -119,7 +133,6 @@ def test_the_recorder_equals_the_jax_recorder(tmp_path):
             mine.merge_step(i, p, c, total)
             theirs.merge_step(i, p, c, total)
         for rec in (mine, theirs):
-            rec.merge_step(3, [v[0] for v in views], [v[1] for v in views])
             rec.save_cloud("clean_background", views[0][0], views[0][1])
             rec.save_cloud("clean_radius.ply", views[1][0])
         names = sorted(os.listdir(tmp_path / f"j{cap}"))

@@ -4,7 +4,7 @@ against the JAX package's ``io/native.py`` and the Python readers/writers.
 The port's library is built with g++ into a temporary directory; the JAX
 package's ``native/slio.cpp`` is built there too, with the same flags, and
 its ``io/native`` is pointed at it (``SLIO_LIBRARY``). Exactly, byte for
-byte:
+byte, under the same flags:
 
 - gray PNG stacks (noise, gradients, odd sizes): the port's native decode
   equals the JAX package's native decode and cv2's gray read;
@@ -19,13 +19,21 @@ byte:
   vertex and attribute bytes are equal and the float32 face normals
   within 1e-4 of the numpy writer's float64-normalized ones (the 80-byte
   header differs), as in the JAX package;
+- the JAX package's source built with its Makefile's flags (``-march=native``
+  and GCC's default contraction) writes the same gray stacks, PLY bytes and
+  STL headers, vertices and attributes; only STL face normals differ: by
+  at most 1e-5 on faces of nonzero area, and on zero-area faces, where an
+  FMA residue may give a unit normal in place of zeros;
 - ``load_stack`` takes the native decoder first;
-- a host without g++ or without libpng reports ``available() is False``
-  (one stderr line names what is missing) and the Python paths run;
+- a host without g++ or without libpng, or an install without the source,
+  reports ``available() is False`` (one stderr line names what is missing)
+  and the Python paths run: the cv2 stack read, the numpy PLY and STL
+  writers at and above the native thresholds;
 - a source that does not compile, or a library with another ABI version,
   raises.
 """
 import os
+import re
 import shutil
 import subprocess
 
@@ -171,10 +179,49 @@ def test_load_stack_takes_the_native_decoder_first(libs, tmp_path, monkeypatch):
     np.testing.assert_array_equal(texture, jtex)
 
 
-@pytest.mark.parametrize("what", ["g++", "libpng"])
+def test_the_makefile_build_differs_only_in_stl_normals(libs, tmp_path, monkeypatch):
+    """The JAX package's library as its Makefile builds it, against the
+    port's: PNG decode and the PLY writer do no float arithmetic, so they
+    match on any host; the STL normals may be contracted into FMAs."""
+    make = open(os.path.join(ROOT, "native", "Makefile")).read()
+    flags = re.search(r"^CXXFLAGS \?= (.*)$", make, re.M).group(1).split()
+    jpath = str(tmp_path / "libslio_make.so")
+    subprocess.run(["g++", *flags, "-shared", "-o", jpath,
+                    os.path.join(ROOT, "native", "slio.cpp"), *native.LIBS], check=True)
+    frames = _frames(np.random.default_rng(9), 4, 33, 47)
+    paths = jimio.save_stack(str(tmp_path / "v"), frames)
+    pts, cols, nrm = _cloud(1000)
+    rng = np.random.default_rng(11)
+    verts = rng.normal(0, 10, (2000, 3)).astype(np.float32)
+    faces = rng.integers(0, 2000, (5000, 3)).astype(np.int32)
+    faces[:50, 2] = faces[:50, 1]                         # zero-area faces
+    native.write_ply_native(str(tmp_path / "p.ply"), pts, cols, nrm)
+    native.write_stl_native(str(tmp_path / "p.stl"), verts, faces)
+    monkeypatch.setenv("SLIO_LIBRARY", jpath)
+    monkeypatch.setattr(jnative, "_LIB", None)
+    monkeypatch.setattr(jnative, "_TRIED", False)
+    np.testing.assert_array_equal(jnative.load_gray_stack(paths, 47, 33),
+                                  native.load_gray_stack(paths, 47, 33))
+    jnative.write_ply_native(str(tmp_path / "j.ply"), pts, cols, nrm)
+    jnative.write_stl_native(str(tmp_path / "j.stl"), verts, faces)
+    assert (tmp_path / "p.ply").read_bytes() == (tmp_path / "j.ply").read_bytes()
+    got, want = (tmp_path / "p.stl").read_bytes(), (tmp_path / "j.stl").read_bytes()
+    assert got[:84] == want[:84]
+    rec = np.dtype([("normal", "<f4", 3), ("v", "<f4", 9), ("attr", "<u2")])
+    a, b = np.frombuffer(got[84:], rec), np.frombuffer(want[84:], rec)
+    assert a["v"].tobytes() == b["v"].tobytes() and a["attr"].tobytes() == b["attr"].tobytes()
+    tri = verts[faces].astype(np.float64)
+    area = np.linalg.norm(np.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0]), axis=1)
+    assert np.abs(a["normal"] - b["normal"])[area > 0].max() <= 1e-5
+    assert not a["normal"][area == 0].any()
+
+
+@pytest.mark.parametrize("what", ["g++", "libpng", "source"])
 def test_a_host_without_the_toolchain_falls_back(tmp_path, monkeypatch, capsys, what):
     if what == "g++":
         monkeypatch.setattr(native.shutil, "which", lambda name: None)
+    elif what == "source":          # an install that left out io/csrc/slio.cpp
+        monkeypatch.setattr(native, "SOURCE", str(tmp_path / "csrc" / "slio.cpp"))
     else:
         monkeypatch.setattr(native, "_PROBE", "#include <no_such_png_header.h>\n"
                                               "int main() { return 0; }\n")
@@ -191,6 +238,13 @@ def test_a_host_without_the_toolchain_falls_back(tmp_path, monkeypatch, capsys, 
     pts, cols, _ = _cloud(100_000)
     ply.write_ply(str(tmp_path / "p.ply"), pts, cols)
     assert b"slio" not in (tmp_path / "p.ply").read_bytes()[:200]
+    assert ply.read_ply(str(tmp_path / "p.ply"))["points"].tobytes() == pts.tobytes()
+    rng = np.random.default_rng(2)
+    verts = rng.normal(0, 10, (1000, 3)).astype(np.float32)
+    faces = rng.integers(0, 1000, (50_000, 3)).astype(np.int32)
+    stl.write_stl(str(tmp_path / "m.stl"), verts, faces)
+    assert (tmp_path / "m.stl").read_bytes()[:4] == b"stru"
+    assert len((tmp_path / "m.stl").read_bytes()) == 84 + 50 * 50_000
     frames = _frames(np.random.default_rng(5), 4, 20, 24)
     jimio.save_stack(str(tmp_path / "v"), frames)
     np.testing.assert_array_equal(imio.load_stack(str(tmp_path / "v"))[0], frames)

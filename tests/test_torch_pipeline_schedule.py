@@ -308,7 +308,8 @@ def test_a_cache_written_on_the_other_device_is_all_misses(dataset, cold, tmp_pa
     out, _, want = cold
     _seed(out, tmp_path, stages_=("view", "pair", "merge", "mesh"))
     engine = stages._engine_json
-    monkeypatch.setattr(stages, "_engine_json", lambda dev: engine(torch.device("cuda")))
+    monkeypatch.setattr(stages, "_engine_json",
+                        lambda cfg, dev: engine(cfg, torch.device("cuda")))
     report = _run(dataset, tmp_path)
     assert (report.views_computed, report.views_cached) == (4, 0)
     assert (report.merge_status, report.mesh_status) == ("computed", "computed")
