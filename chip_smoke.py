@@ -58,7 +58,10 @@ Imports nothing of JAX. Phases, each of which exits non-zero on failure:
    (``library_ms``; the port never calls it);
 5. the merge path: ``merge_views`` over the 24 PLYs with the default
    ``Config()`` (4096 trials), three times (cold, warm, warm under
-   torch.profiler). Launch counts zeroed before each run, read after: nn1,
+   torch.profiler), each taking ``merge_360``'s device arm (one stacked
+   prep, one batched chain register, the accumulate and postprocess on the
+   card); every run prints its arm and the gate's reason where it refused.
+   Launch counts zeroed before each run, read after: nn1,
    ransac_score and slab_mean_knn must each have launched. The merged
    points are held against the true sphere surfaces at 1.5x the JAX
    package's errors on the same views (this scene's poses drift in both
@@ -66,7 +69,13 @@ Imports nothing of JAX. Phases, each of which exits non-zero on failure:
    voxel (merged cloud <= 32768 points) must launch knn_mean and not
    slab_mean_knn. A third, the pose scene (``synthetic.lumpy_views`` at the
    same 24 poses, a surface that registers), holds the recovered transforms
-   against the true turntable poses at 1.5x the JAX package's errors;
+   against the true turntable poses at 1.5x the JAX package's errors. Then
+   the host-list arm (``prep_view``, ``register_prep_pairs``,
+   ``finalize_chain``: the streamed pipeline's computation) on the same
+   flagship and pose clouds under the same gates; printed beside the
+   device arm: per-view rotation and translation differences, the chamfer
+   distance between the two merged clouds, each arm's split and launches,
+   and (profiled) the bytes copied between the card and the host;
 6. radius_count at the clean chain's shape, on the pipeline scene
    (``utils/synthetic.pipeline_scene``: the three spheres on a floor plane,
    24 turntable views at 768x576, a 512x256 projector, stored as .slbp):
@@ -153,11 +162,32 @@ Imports nothing of JAX. Phases, each of which exits non-zero on failure:
    ``report`` over phase 9(b)'s traced run: ``--validate`` exits 0, the
    report renders, ``--prometheus`` prints the metrics, ``--chrome-trace``
    writes a trace with a track for the prefetch, drain and register
-   threads (lane and track counts printed). (d) after phase 5, its cold
-   merge again through ``merge-360 --artifacts``: merged.ply
-   byte-identical to phase 5's, one ``merge_step_NN.ply`` a chain step
-   after the base view and ``progress.json``, nn1 and ransac_score
-   launched as often as in phase 5's cold run.
+   threads (lane and track counts printed). (d) after phase 5, its flagship
+   merge again through ``merge-360 --artifacts`` (a step callback closes
+   the device arm's gate): merged.ply byte-identical to phase 5's
+   host-list arm's, one ``merge_step_NN.ply`` a chain step after the base
+   view and ``progress.json``, nn1 and ransac_score launched as often as
+   in that host-list run;
+11. the legacy merge and mesh modes and the standalone registration, each
+   gated at 1.5x the JAX package's errors on the same inputs on the CPU:
+   (a) after phase 10(d), ``merge_views`` with ``merge.method=posegraph``
+   over the pose scene (poses gated) and the 24 flagship views (surface
+   distance gated), the loop-closure decision equal to the JAX package's
+   (``POSEGRAPH_JAX``); (c) ``ransac_global_registration`` and
+   ``icp_point_to_plane`` on pose views 1 -> 0, and ``icp_point_to_plane``
+   with a dst of more than 131,072 rows (the flagship cloud against its
+   noisy copy under ``BIG_ICP_MOTION``): ransac_score and nn1 launched, the
+   recovered transforms gated (``STANDALONE_JAX``), times printed; (e)
+   phase 5's flagship merge with ``parallel.force_bf16_features=true``:
+   fitness printed beside the f32 run, the same arm and kernels launched;
+   (b) after phase 10(b), ``mesh_cloud`` with ``mesh.mode=surface`` over
+   the mesh arm's ~188k points: faces within 1 % of the JAX package's, the
+   STL's distance to the true spheres within 1.5x (``SURFACE_JAX``), the
+   time printed; (d) ``run_pipeline`` with ``merge.method=posegraph`` and
+   ``mesh.mode=surface`` over phase 7's 24 views with its view cache
+   copied in: the notice that merge.stream is ignored, merge_mode
+   posegraph, no failure, the merged cloud's distance to the truth printed
+   beside phase 7's.
 
 Then one ``{"kernels": [...]}`` JSON line (times from phases 2, 4 and 6,
 bounds from this run's shapes, and each kernel's launches from one run of
@@ -318,6 +348,27 @@ MESH_JAX = {
     "from_merged_p99_mm": 0.12543843958863254,
     "boundary_edges": 8345,
     "nonmanifold_edges": 2898}
+
+
+# Phase 11's gates: the JAX package's errors on the same inputs on the CPU.
+# POSEGRAPH_JAX: its merge_360_posegraph of the pose scene and the flagship
+# views (tools/torch_merge_reference.py --method posegraph), with its loop-
+# closure decision; STANDALONE_JAX: its ransac_global_registration and
+# icp_point_to_plane on phase 11(c)'s inputs (--standalone); SURFACE_JAX: its
+# mesh_cloud(mode='surface') of mesh_cloud()'s points
+# (tools/torch_pipeline_reference.py --mesh --mesh-mode surface).
+POSEGRAPH_JAX = {
+    "pose": {"rot_max_deg": 0.03241526204213792, "trans_max_mm": 0.4240676461287093,
+             "rot_median_deg": 0.017146736606979924,
+             "trans_median_mm": 0.2528480328508235, "loop_closure": True},
+    "flagship": {"surf_median_mm": 113.74800818585553, "surf_p99_mm": 224.90183808359023,
+                 "loop_closure": True}}
+STANDALONE_JAX = {
+    "lumpy ransac": {"rot_deg": 0.34077346345985354, "trans_mm": 2.3457899767767403},
+    "lumpy icp": {"rot_deg": 0.004177404294689227, "trans_mm": 0.0292038824674947},
+    "large icp": {"rot_deg": 0.0013489626678874114, "trans_mm": 0.008671122000002075}}
+SURFACE_JAX = {"faces": 511057, "surf_median_mm": 0.03402390588220783,
+               "surf_p99_mm": 0.12912492856332847}
 
 
 def fail(msg: str) -> None:
@@ -1136,12 +1187,13 @@ def report_phase(out: str, card: str) -> None:
                       "prometheus_lines": len(prom.splitlines()), "card": card}), flush=True)
 
 
-def artifacts_phase(dev, ply_dir: str, root: str, launches: dict, card: str) -> None:
-    """Phase 10(d): phase 5's cold merge again through ``merge-360
-    --artifacts``. Gates: merged.ply equals phase 5's cold run's byte for
-    byte; one ``merge_step_NN.ply`` a chain step after the base view and
-    ``progress.json``; nn1 and ransac_score launch as many times as in
-    phase 5's cold run."""
+def artifacts_phase(dev, ply_dir: str, root: str, host: dict, card: str) -> None:
+    """Phase 10(d): phase 5's flagship merge again through ``merge-360
+    --artifacts``, whose step callback closes the device arm's gate: the
+    host-list arm. Gates: merged.ply equals phase 5's host-list arm's byte
+    for byte; one ``merge_step_NN.ply`` a chain step after the base view and
+    ``progress.json``; nn1 and ransac_score launch as many times as in that
+    host-list run."""
     import contextlib
     import io
 
@@ -1162,9 +1214,9 @@ def artifacts_phase(dev, ply_dir: str, root: str, launches: dict, card: str) -> 
     wall = time.perf_counter() - t0
     counts = kernels.launch_counts()
     check(rc == 0, f"merge-360 --artifacts: exit {rc}")
-    with open(out, "rb") as a, open(os.path.join(root, "merged_flagship.ply"), "rb") as b:
+    with open(out, "rb") as a, open(os.path.join(root, "merged_flagship_host.ply"), "rb") as b:
         check(a.read() == b.read(), "merge-360 --artifacts: merged.ply differs from "
-                                    "phase 5's cold run")
+                                    "phase 5's host-list arm")
     names = sorted(os.listdir(art))
     want = [f"merge_step_{i:02d}.ply" for i in range(1, MERGE_VIEWS)] + ["progress.json"]
     check(names == want, f"merge-360 --artifacts: wrote {names}")
@@ -1172,8 +1224,9 @@ def artifacts_phase(dev, ply_dir: str, root: str, launches: dict, card: str) -> 
         steps = [e["step"] for e in json.load(f)]
     check(steps == list(range(1, MERGE_VIEWS)), f"merge-360 --artifacts: progress {steps}")
     for k in ("nn1", "ransac_score"):
-        check(counts[k] == launches[k][0], f"merge-360 --artifacts: {k} launched "
-                                           f"{counts[k]} times, phase 5 {launches[k][0]}")
+        check(counts[k] == host["counts"][k],
+              f"merge-360 --artifacts: {k} launched {counts[k]} times, phase 5's host-list "
+              f"arm {host['counts'][k]}")
     print(json.dumps({"artifacts": "merge-360", "wall_s": wall, "launches": counts,
                       "files": len(names), "card": card}), flush=True)
 
@@ -1453,6 +1506,23 @@ def pose_accuracy(transforms, poses) -> dict:
             "trans_median_mm": float(np.median(trans))}
 
 
+def pose_accuracy_chord(transforms, poses) -> dict:
+    """pose_accuracy with ``transform_error``'s chord angle, which resolves
+    the hundredths of a degree the posegraph merge reaches (the trace's
+    arccos rounds angles under ~0.03 degrees of a float32 rotation)."""
+    from structured_light_for_3d_model_replication_tpu_torch.utils import (
+        synthetic as syn,
+    )
+
+    errs = [transform_error(T, truth)
+            for T, truth in zip(transforms, syn.turntable_transforms(poses))]
+    rot = np.array([e["rot_deg"] for e in errs])
+    trans = np.array([e["trans_mm"] for e in errs])
+    return {"rot_max_deg": float(rot.max()), "trans_max_mm": float(trans.max()),
+            "rot_median_deg": float(np.median(rot)),
+            "trans_median_mm": float(np.median(trans))}
+
+
 def merge_accuracy(transforms, points, poses) -> dict:
     """pose_accuracy, and the merged points' distance to the true sphere
     surfaces of the flagship scene (view 0's frame)."""
@@ -1464,6 +1534,41 @@ def merge_accuracy(transforms, points, poses) -> dict:
     return dict(pose_accuracy(transforms, poses),
                 surf_median_mm=float(np.median(surf)),
                 surf_p99_mm=float(np.percentile(surf, 99)), points=int(len(points)))
+
+
+# Phase 11(c)'s large ICP: the flagship cloud (``flagship_cloud``, 182,828
+# rows, above the JAX package's 131,072-row Mosaic gate) with 0.05 mm of
+# seeded noise, moved by the inverse of this known transform (degrees about
+# y, mm): ICP must bring it back.
+BIG_ICP_MOTION = (2.0, (1.0, -0.5, 0.8))
+
+
+def known_transform(deg: float, t) -> np.ndarray:
+    """A rotation of ``deg`` degrees about y and a translation, 4x4 f32."""
+    a = np.radians(deg)
+    T = np.eye(4, dtype=np.float32)
+    T[:3, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]]
+    T[:3, 3] = t
+    return T
+
+
+def big_icp_inputs(cloud: np.ndarray):
+    """(src, dst, T): dst the cloud, src its noisy copy that T maps onto it."""
+    T = known_transform(*BIG_ICP_MOTION)
+    noisy = cloud + np.random.default_rng(0).normal(0, 0.05, cloud.shape)
+    src = ((noisy - T[:3, 3]) @ T[:3, :3]).astype(np.float32)
+    return src, np.asarray(cloud, np.float32), T
+
+
+def transform_error(T, truth) -> dict:
+    """Rotation (degrees) and translation (mm) error of one 4x4 transform.
+    The angle comes from the chord, 2 asin(|R - R_true|_F / (2 sqrt 2)),
+    which resolves the small angles a trace's arccos rounds to zero."""
+    T = np.asarray(T, np.float64)
+    truth = np.asarray(truth, np.float64)
+    chord = np.linalg.norm(T[:3, :3] - truth[:3, :3]) / (2 * np.sqrt(2))
+    return {"rot_deg": float(np.degrees(2 * np.arcsin(min(chord, 1.0)))),
+            "trans_mm": float(np.linalg.norm(T[:3, 3] - truth[:3, 3]))}
 
 
 def flagship_cloud(dev, views, truth):
@@ -1941,39 +2046,95 @@ def _device_busy(prof) -> dict:
             "top": [{"name": k[:80], "ms": ms, "count": c} for k, ms, c in rows[:8]]}
 
 
-def merge_phase(dev, ply_dir: str, poses, pose_dir: str, root: str,
-                card: str) -> dict[str, tuple[int, str]]:
+def _memcpy_bytes(prof, root: str) -> dict:
+    """Bytes copied between the host and the card in a profiled run: the sum
+    of the trace's memcpy records (``args.bytes``) by direction."""
+    path = os.path.join(root, "memcpy_trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    os.remove(path)
+    out = {"h2d": 0, "d2h": 0, "records": 0}
+    for e in events:
+        if e.get("cat") != "gpu_memcpy":
+            continue
+        name, b = e.get("name", ""), int(e.get("args", {}).get("bytes", 0))
+        out["records"] += 1
+        if "HtoD" in name:
+            out["h2d"] += b
+        elif "DtoH" in name:
+            out["d2h"] += b
+    return out
+
+
+def _fits(logs) -> dict:
+    """Mean global and ICP fitness over a merge's logged pairs."""
+    g, i = [], []
+    for m in logs:
+        if "global fit" in m and "ICP fit" in m:
+            g.append(float(m.split("global fit ")[1].split()[0]))
+            i.append(float(m.split("ICP fit ")[1].split()[0]))
+    return {"pairs": len(g), "gfit_mean": float(np.mean(g)) if g else None,
+            "ifit_mean": float(np.mean(i)) if i else None}
+
+
+def merge_phase(dev, ply_dir: str, poses, pose_dir: str, root: str, card: str):
     """Phase 5: merge_views over the 24 flagship PLYs three times (the
     first run pays one-time costs: scipy's import, CUDA modules loaded on
     first use; the third runs under torch.profiler for the device's busy
-    time), the small arm, then the pose scene. Returns {kernel: (launches,
-    run)}: nn1, ransac_score and slab_mean_knn as the cold flagship run
-    launched them, knn_mean as the small arm did."""
+    time and the copy bytes), the small arm, then the pose scene. On the
+    card ``merge_360`` takes its device arm (the flagship runs must); each
+    run prints the arm and, where the gate refused it, why. Then the
+    host-list arm (``_merge_host_list``: ``prep_view``,
+    ``register_prep_pairs``, ``finalize_chain``, what the streamed pipeline
+    and ``merge-360 --artifacts`` run) on the same flagship and pose clouds,
+    under the same gates, the flagship profiled; printed beside the device
+    arm: per-view rotation and translation differences, the chamfer
+    distance between the merged clouds, each arm's split, launches and
+    copy bytes. Returns ({kernel: (launches, run)}: nn1, ransac_score and
+    slab_mean_knn as the cold flagship run launched them, knn_mean as the
+    small arm did; {"device": the cold flagship run, "host": the host-list
+    flagship run}: their logs' fitness, launches, transforms, points)."""
     import torch
 
     from structured_light_for_3d_model_replication_tpu_torch.config import Config
+    from structured_light_for_3d_model_replication_tpu_torch.io import ply
+    from structured_light_for_3d_model_replication_tpu_torch.models import (
+        reconstruction as recon,
+    )
     from structured_light_for_3d_model_replication_tpu_torch.ops import kernels
     from structured_light_for_3d_model_replication_tpu_torch.pipeline import stages
+    from structured_light_for_3d_model_replication_tpu_torch.utils import (
+        synthetic as syn,
+    )
 
-    launches = {}
-    for arm, views, final_voxel in (("flagship", ply_dir, None),
-                                    ("flagship_warm", ply_dir, None),
-                                    ("flagship_profiled", ply_dir, None),
-                                    ("small", ply_dir, SMALL_FINAL_VOXEL),
-                                    ("pose", pose_dir, None)):
+    launches, runs = {}, {}
+    arms = [("flagship", ply_dir, None), ("flagship_warm", ply_dir, None),
+            ("flagship_profiled", ply_dir, None), ("small", ply_dir, SMALL_FINAL_VOXEL),
+            ("pose", pose_dir, None), ("flagship_host", ply_dir, None),
+            ("pose_host", pose_dir, None)]
+    for arm, views, final_voxel in arms:
         cfg = Config()
         if final_voxel is not None:
             cfg.merge.final_voxel = final_voxel
         tm: dict = {}
+        logs: list[str] = []
+        host = arm.endswith("_host")
+        clouds = read_clouds(views) if host else None
         kernels.reset_launch_counts()
         torch.cuda.synchronize()
-        prof = _device_profile() if arm == "flagship_profiled" else None
+        prof = _device_profile() if arm in ("flagship_profiled", "flagship_host") else None
         t0 = time.perf_counter()
         if prof is not None:
             prof.__enter__()
-        points, colors, transforms = stages.merge_views(
-            views, os.path.join(root, f"merged_{arm}.ply"), cfg=cfg, device=dev,
-            timings=tm, log=lambda m: None)
+        if host:
+            points, colors, transforms = recon._merge_host_list(clouds, cfg.merge, logs.append,
+                                                                tm, dev)
+            tm["arm"] = "host-list"
+        else:
+            points, colors, transforms = stages.merge_views(
+                views, os.path.join(root, f"merged_{arm}.ply"), cfg=cfg, device=dev,
+                timings=tm, log=logs.append)
         torch.cuda.synchronize()
         if prof is not None:
             prof.__exit__(None, None, None)
@@ -1981,34 +2142,52 @@ def merge_phase(dev, ply_dir: str, poses, pose_dir: str, root: str,
         counts = kernels.launch_counts()
         if prof is not None:
             tm["device"] = _device_busy(prof)
+            tm["copy_bytes"] = _memcpy_bytes(prof, root)
         check(points.ndim == 2 and points.shape[1] == 3 and len(points) > 0
               and bool(np.isfinite(points).all()) and len(colors) == len(points),
               f"{arm}: bad merged cloud {points.shape}")
         check(len(transforms) == MERGE_VIEWS, f"{arm}: {len(transforms)} transforms")
-        if arm == "pose":
+        if arm.startswith("pose"):
             acc = dict(pose_accuracy(transforms, poses), points=int(len(points)))
             gates = POSE_JAX
         else:
             acc = merge_accuracy(transforms, points, poses)
             gates = FLAGSHIP_JAX
-        print(json.dumps({"merge": arm, "wall_s": wall, "timings_s": tm,
-                          "launches": counts, "accuracy": acc, "card": card}), flush=True)
+        print(json.dumps({"merge": arm, "arm": tm.get("arm"), "refused": tm.get("refused"),
+                          "wall_s": wall, "timings_s": tm, "launches": counts,
+                          "fits": _fits(logs), "accuracy": acc, "card": card}), flush=True)
         for key, ref in gates.items():
             check(acc[key] <= GATE * ref,
                   f"{arm} merge {key} {acc[key]} > {GATE} x the JAX package's {ref}")
         if arm.startswith("flagship"):
+            check(tm.get("arm") == ("host-list" if host else "device"),
+                  f"{arm}: merge_360 ran its {tm.get('arm')} arm ({tm.get('refused')})")
             for k in ("nn1", "ransac_score", "slab_mean_knn"):
                 check(counts[k] > 0, f"{arm} merge never launched {k}: {counts}")
+        if arm in ("flagship", "flagship_host"):
+            runs["host" if host else "device"] = {
+                "logs": logs, "counts": counts, "transforms": transforms, "points": points,
+                "timings": tm, "wall_s": wall}
+        if arm == "flagship_host":
+            ply.write_ply(os.path.join(root, "merged_flagship_host.ply"), points, colors)
         if arm == "flagship":
             for k in ("nn1", "ransac_score", "slab_mean_knn"):
-                launches[k] = (counts[k], "merge-360, flagship (cold)")
+                launches[k] = (counts[k], "merge-360, flagship (cold, device arm)")
         if arm == "small":
             check(len(points) <= 32768, f"small arm kept {len(points)} > 32768 points")
             check(counts["knn_mean"] > 0 and counts["slab_mean_knn"] == 0,
                   f"small arm launches {counts}")
             launches["knn_mean"] = (counts["knn_mean"],
                                     f"merge-360, small arm (final voxel {final_voxel})")
-    return launches
+    d, h = runs["device"], runs["host"]
+    rot, trans = syn.pose_errors(d["transforms"], h["transforms"])
+    print(json.dumps({"merge": "device arm vs host-list arm (flagship)",
+                      "rot_diff_deg": rot.tolist(), "trans_diff_mm": trans.tolist(),
+                      "chamfer_mm": recon.chamfer_distance(d["points"], h["points"], device=dev),
+                      "points": [int(len(d["points"])), int(len(h["points"]))],
+                      "wall_s": [d["wall_s"], h["wall_s"]],
+                      "launches": [d["counts"], h["counts"]], "card": card}), flush=True)
+    return launches, runs
 
 
 def radius_phase(dev, data: str, calib: str, card: str) -> list[dict]:
@@ -2538,6 +2717,254 @@ def mesh_arm(dev, root: str, card: str) -> None:
               f"mesh arm: STL {key} {acc[key]} > {GATE} x the JAX package's {ref}")
 
 
+def posegraph_phase(dev, ply_dir: str, pose_dir: str, poses, root: str, card: str) -> None:
+    """Phase 11(a): ``merge_views`` with ``merge.method='posegraph'``
+    (``merge_360_posegraph``: every view prepped at one bucket, 23 odometry
+    edges and the loop closure in one batched register, the pose graph
+    solved on the card) over the pose scene and the 24 flagship views.
+    Gates at 1.5x the JAX package's errors on the same views
+    (``POSEGRAPH_JAX``, tools/torch_merge_reference.py --method posegraph):
+    the poses on the pose scene (``pose_accuracy_chord``), the merged
+    points' distance to the true
+    spheres on the flagship; the loop closure kept or rejected as the JAX
+    package decided; nn1 and ransac_score launched."""
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.config import Config
+    from structured_light_for_3d_model_replication_tpu_torch.ops import kernels
+    from structured_light_for_3d_model_replication_tpu_torch.pipeline import stages
+
+    for scene, views in (("pose", pose_dir), ("flagship", ply_dir)):
+        cfg = Config()
+        cfg.merge.method = "posegraph"
+        logs: list[str] = []
+        tm: dict = {}
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        points, _, transforms = stages.merge_views(
+            views, os.path.join(root, f"posegraph_{scene}.ply"), cfg=cfg, device=dev,
+            timings=tm, log=logs.append)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        acc = (pose_accuracy_chord(transforms, poses) if scene == "pose"
+               else merge_accuracy(transforms, points, poses))
+        acc["loop_closure"] = bool(tm.get("loop_closure"))
+        print(json.dumps({"posegraph": scene, "wall_s": wall, "timings_s": tm,
+                          "launches": counts, "fits": _fits(logs),
+                          "residual": [m for m in logs if "residual rmse" in m],
+                          "accuracy": acc, "card": card}), flush=True)
+        ref = POSEGRAPH_JAX[scene]
+        check(acc["loop_closure"] == ref["loop_closure"],
+              f"posegraph {scene}: loop closure kept={acc['loop_closure']}, the JAX "
+              f"package's {ref['loop_closure']}")
+        for key, r in ref.items():
+            if key != "loop_closure":
+                check(acc[key] <= GATE * r, f"posegraph {scene}: {key} {acc[key]} > {GATE} x "
+                                            f"the JAX package's {r}")
+        check(len(transforms) == MERGE_VIEWS and counts["nn1"] > 0
+              and counts["ransac_score"] > 0, f"posegraph {scene}: launched {counts}")
+
+
+def standalone_phase(dev, ply_dir: str, pose_dir: str, poses, card: str) -> None:
+    """Phase 11(c): the standalone ``ransac_global_registration`` and
+    ``icp_point_to_plane`` on pose views 1 -> 0 after ``prep_view`` (voxel
+    3 mm, max distance 4.5 mm, 4096 trials, 30 ICP steps), and
+    ``icp_point_to_plane`` of the flagship cloud at the true poses
+    (``flagship_cloud``: more than 131,072 rows) against its noisy copy moved
+    by ``BIG_ICP_MOTION`` (``big_icp_inputs``). Gates: ransac_score and nn1
+    launched (counted), and each recovered transform within 1.5x the JAX
+    package's error on the same inputs on the CPU (``STANDALONE_JAX``,
+    tools/torch_merge_reference.py --standalone)."""
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.models import (
+        reconstruction as recon,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.ops import kernels
+    from structured_light_for_3d_model_replication_tpu_torch.ops import normals as nrmlib
+    from structured_light_for_3d_model_replication_tpu_torch.ops import registration as reg
+    from structured_light_for_3d_model_replication_tpu_torch.utils import (
+        synthetic as syn,
+    )
+
+    voxel = 3.0
+    clouds = read_clouds(pose_dir)
+    truth = true_pair_transforms(poses)[0]
+    src, dst = (recon.prep_view(clouds[i][0], voxel, device=dev) for i in (1, 0))
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g = reg.ransac_global_registration(src.points, src.features, src.valid, dst.points,
+                                       dst.features, dst.valid, max_dist=voxel * 1.5,
+                                       device=dev)
+    torch.cuda.synchronize()
+    t_ransac = time.perf_counter() - t0
+    icp = reg.icp_point_to_plane(src.points, src.valid, dst.points, dst.valid, dst.normals,
+                                 init_transform=g.transform, max_dist=voxel * 1.5,
+                                 device=dev)
+    torch.cuda.synchronize()
+    t_icp = time.perf_counter() - t0 - t_ransac
+    counts = kernels.launch_counts()
+    lumpy = {"ransac": transform_error(g.transform.cpu().numpy(), truth),
+             "icp": transform_error(icp.transform.cpu().numpy(), truth)}
+    print(json.dumps({"standalone": "lumpy pair 1 -> 0", "ransac_s": t_ransac,
+                      "icp_s": t_icp, "fitness": [float(g.fitness), float(icp.fitness)],
+                      "launches": counts, "errors": lumpy, "card": card}), flush=True)
+    check(counts["ransac_score"] >= 1 and counts["nn1"] >= 2,
+          f"standalone: launched {counts}")
+    views = [p for p, _ in read_clouds(ply_dir)]
+    cloud, valid, _, _ = flagship_cloud(dev, views, syn.turntable_transforms(poses))
+    s_pts, d_pts, T = big_icp_inputs(cloud[valid].cpu().numpy())
+    check(len(d_pts) > 131072, f"standalone: the large ICP's dst has {len(d_pts)} rows")
+    d_t = torch.from_numpy(d_pts).to(dev)
+    ones = torch.ones(len(d_pts), dtype=torch.bool, device=dev)
+    nr = nrmlib.estimate_normals(d_t, ones, k=30)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    big = reg.icp_point_to_plane(s_pts, None, d_t, None, nr, max_dist=voxel * 1.5,
+                                 device=dev)
+    torch.cuda.synchronize()
+    t_big = time.perf_counter() - t0
+    big_counts = kernels.launch_counts()
+    big_err = transform_error(big.transform.cpu().numpy(), T)
+    print(json.dumps({"standalone": "large ICP", "rows": int(len(d_pts)), "icp_s": t_big,
+                      "fitness": float(big.fitness), "launches": big_counts,
+                      "errors": big_err, "card": card}), flush=True)
+    check(big_counts["nn1"] >= 1, f"standalone large ICP: launched {big_counts}")
+    for name, err in (("lumpy ransac", lumpy["ransac"]), ("lumpy icp", lumpy["icp"]),
+                      ("large icp", big_err)):
+        ref = STANDALONE_JAX[name]
+        for key in ("rot_deg", "trans_mm"):
+            check(err[key] <= GATE * ref[key], f"standalone {name}: {key} {err[key]} > "
+                                               f"{GATE} x the JAX package's {ref[key]}")
+
+
+def bf16_phase(dev, ply_dir: str, root: str, f32: dict, card: str) -> None:
+    """Phase 11(e): phase 5's flagship merge with
+    ``parallel.force_bf16_features=true`` (the feature products as one bf16
+    GEMM with f32 output). Printed beside phase 5's cold f32 run: the mean
+    global and ICP fitness. Gates: no failure, the same arm, the same
+    kernels launched, and ransac_score once a pair as in the f32 run (nn1
+    follows the ICP steps, which the correspondences move; printed)."""
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.config import Config
+    from structured_light_for_3d_model_replication_tpu_torch.ops import kernels
+    from structured_light_for_3d_model_replication_tpu_torch.pipeline import stages
+
+    cfg = Config()
+    cfg.parallel.force_bf16_features = True
+    logs: list[str] = []
+    tm: dict = {}
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    points, _, transforms = stages.merge_views(
+        ply_dir, os.path.join(root, "merged_bf16.ply"), cfg=cfg, device=dev, timings=tm,
+        log=logs.append)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    print(json.dumps({"bf16": "flagship", "wall_s": wall, "f32_wall_s": f32["wall_s"],
+                      "fits": _fits(logs), "f32_fits": _fits(f32["logs"]),
+                      "timings_s": tm, "launches": counts, "f32_launches": f32["counts"],
+                      "points": int(len(points)), "card": card}), flush=True)
+    check(len(transforms) == MERGE_VIEWS and len(points) > 0
+          and bool(np.isfinite(points).all()), "bf16: bad merge")
+    check(tm.get("arm") == f32["timings"].get("arm"),
+          f"bf16: arm {tm.get('arm')}, the f32 run's {f32['timings'].get('arm')}")
+    check({k for k, n in counts.items() if n} == {k for k, n in f32["counts"].items() if n}
+          and counts["ransac_score"] == f32["counts"]["ransac_score"],
+          f"bf16: launched {counts}, the f32 run {f32['counts']}")
+
+
+def surface_phase(dev, root: str, card: str) -> None:
+    """Phase 11(b): ``mesh_cloud`` with ``mesh.mode='surface'`` (ball
+    pivoting) on ``mesh_cloud()``'s ~188k points of the three spheres'
+    union. Gates: the face count within 1 % of the JAX package's and the
+    STL's distance to the true spheres within 1.5x its (``SURFACE_JAX``,
+    tools/torch_pipeline_reference.py --mesh --mesh-mode surface)."""
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.config import Config
+    from structured_light_for_3d_model_replication_tpu_torch.io import ply
+    from structured_light_for_3d_model_replication_tpu_torch.pipeline import stages
+
+    cloud, scene = mesh_cloud()
+    src, out = os.path.join(root, "surface_cloud.ply"), os.path.join(root, "surface.stl")
+    ply.write_ply(src, cloud)
+    cfg = Config()
+    cfg.mesh.mode = "surface"
+    tm: dict = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stages.mesh_cloud(src, out, cfg=cfg, device=dev, log=lambda m: None, timings=tm)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    acc = stl_accuracy(out, scene, cloud)
+    print(json.dumps({"surface": "sphere union", "points": int(len(cloud)), "wall_s": wall,
+                      "walls_s": tm, "stl": acc, "card": card}), flush=True)
+    ref = SURFACE_JAX
+    check(abs(acc["faces"] - ref["faces"]) <= 0.01 * ref["faces"],
+          f"surface: {acc['faces']} faces, the JAX package's {ref['faces']}")
+    for key in ("surf_median_mm", "surf_p99_mm"):
+        check(acc[key] <= GATE * ref[key],
+              f"surface: STL {key} {acc[key]} > {GATE} x the JAX package's {ref[key]}")
+
+
+def legacy_pipeline_phase(dev, data: str, calib: str, scene, root: str, cold: dict,
+                          card: str) -> None:
+    """Phase 11(d): ``run_pipeline`` with ``merge.method='posegraph'`` and
+    ``mesh.mode='surface'`` over phase 7's 24 views, phase 7's view cache
+    copied in (only the merge and the mesh recompute). Gates: the notice
+    that merge.stream is ignored, merge_mode 'posegraph', every view cached
+    and no failure. The merged cloud's distance to the true surfaces is
+    printed beside phase 7's (this scene's chain cannot be merged right by
+    either package: PERF.md section 5)."""
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.config import load_config
+    from structured_light_for_3d_model_replication_tpu_torch.io import ply
+    from structured_light_for_3d_model_replication_tpu_torch.pipeline import stages
+    from structured_light_for_3d_model_replication_tpu_torch.utils import (
+        synthetic as syn,
+    )
+
+    cfg = load_config(None, {**PIPE_OVERRIDES, "merge.method": "posegraph",
+                             "mesh.mode": "surface"})
+    out = os.path.join(root, "pipeline_posegraph")
+    entries = os.listdir(os.path.join(cold["out"], ".slscan-cache"))
+    _seed_cache(cold["out"], out, [e for e in entries if e.startswith("view-")])
+    logs: list[str] = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    report = stages.run_pipeline(calib, data, out, cfg=cfg, device=dev, log=logs.append)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+
+    def surf(path):
+        d = syn.surface_distance(ply.read_ply(path)["points"], scene)
+        return [float(np.median(d)), float(np.percentile(d, 99))]
+
+    print(json.dumps({"pipeline": "posegraph + surface", "wall_s": wall,
+                      "walls_s": report.walls_s, "merge_mode": report.merge_mode,
+                      "merged_points": report.merged_points,
+                      "merged_surf_mm": surf(report.merged_ply),
+                      "cold_merged_surf_mm": surf(cold["report"].merged_ply),
+                      "stl_faces": report.mesh_faces, "card": card}), flush=True)
+    check(any("merge.stream is ignored" in m for m in logs),
+          "pipeline posegraph: no notice that merge.stream is ignored")
+    check(report.merge_mode == "posegraph" and report.merge_status == "computed"
+          and report.views_cached == PIPE_VIEWS and report.failures == []
+          and not report.degraded,
+          f"pipeline posegraph: {report.merge_mode} {report.merge_status}, "
+          f"{report.views_cached} views cached, failures "
+          f"{[f.as_dict() for f in report.failures]}")
+
+
 def main() -> int:
     import torch
 
@@ -2572,8 +2999,12 @@ def main() -> int:
               f"{time.perf_counter() - t0:.1f}s", flush=True)
         pose_dir, _ = write_pose_views(root)
         lines += merge_kernel_phase(dev, ply_dir, poses, card)
-        launches.update(merge_phase(dev, ply_dir, poses, pose_dir, root, card))
-        artifacts_phase(dev, ply_dir, root, launches, card)
+        merge_launches, merge_runs = merge_phase(dev, ply_dir, poses, pose_dir, root, card)
+        launches.update(merge_launches)
+        artifacts_phase(dev, ply_dir, root, merge_runs["host"], card)
+        posegraph_phase(dev, ply_dir, pose_dir, poses, root, card)
+        standalone_phase(dev, ply_dir, pose_dir, poses, card)
+        bf16_phase(dev, ply_dir, root, merge_runs["device"], card)
     with tempfile.TemporaryDirectory(prefix="slscan_pipeline_") as root:
         t0 = time.perf_counter()
         data, calib, scene = render_pipeline_views(root)
@@ -2587,6 +3018,8 @@ def main() -> int:
         fused_phase(dev, data, calib, root, cold, card)
         report_phase(os.path.join(root, "pipeline_fused"), card)
         native_write_phase(cold["out"], card)
+        surface_phase(dev, root, card)
+        legacy_pipeline_phase(dev, data, calib, scene, root, cold, card)
     for line in lines:
         line["launches"], line["launches_run"] = launches[line["name"]]
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f}s "

@@ -8,11 +8,12 @@
       <in.ply | folder> <out.ply | folder> [--steps background,cluster,...] \\
       [--artifacts DIR] [--device cuda|cpu]
   python -m structured_light_for_3d_model_replication_tpu_torch merge-360 \\
-      <folder of view PLYs> <out.ply> [--method sequential] \\
+      <folder of view PLYs> <out.ply> [--method sequential|posegraph] \\
       [--save-transforms T.json] [--artifacts DIR] \\
       [--set merge.ransac_trials=2048] [--device cuda|cpu]
   python -m structured_light_for_3d_model_replication_tpu_torch mesh \\
-      <cloud.ply> <out.stl | out.ply> [--save-normals N.ply] [--device cuda|cpu]
+      <cloud.ply> <out.stl | out.ply> [--save-normals N.ply] \\
+      [--set mesh.mode=surface] [--device cuda|cpu]
   python -m structured_light_for_3d_model_replication_tpu_torch pipeline \\
       <scan root> --calib calib.mat --out <dir> [--steps ...] \\
       [--compute-batch N] [--packed-ingest] [--no-cache] [--no-stream] \\
@@ -119,7 +120,8 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("input_folder")
     p.add_argument("output")
     p.add_argument("--method", choices=["sequential", "posegraph"], default=None,
-                   help="override merge.method ('posegraph' is not ported)")
+                   help="override merge.method ('posegraph': the odometry chain plus a "
+                        "first<->last loop closure, solved as a pose graph)")
     p.add_argument("--save-transforms", default=None,
                    help="write per-view 4x4 transforms as JSON")
     p.add_argument("--artifacts", default=None,

@@ -9,8 +9,9 @@ both packages:
     ``mesh``, ``faults``, ``deadlines`` and ``observability`` are whole
     copies (with their env overrides); an unknown key there is an error, as
     in the JAX package;
-  - ``parallel`` carries ``backend``, ``compute_batch``, ``io_workers``
-    and ``prefetch_depth``; ``pipeline`` carries every key. The other keys of
+  - ``parallel`` carries ``backend``, ``force_bf16_features``,
+    ``compute_batch``, ``io_workers`` and ``prefetch_depth``; ``pipeline``
+    carries every key. The other keys of
     ``parallel``, and the sections the port does not model
     (``checkerboard``, ``acquire``, ``coordinator``, ``serving``,
     ``scan_root``), configure features the port does not have yet: they
@@ -65,8 +66,8 @@ class TriangulateConfig:
     # 'table' = gather stored plane equations; 'quadratic' = closed-form
     # per-pixel plane evaluation (the fused decode+triangulate kernel)
     plane_eval: str = "table"
-    # export-path triangulation through a host twin; not ported yet —
-    # reconstruct raises when it is set
+    # export-path triangulation through the NumPy twin: the maps decoded on
+    # the device, the points bit-equal to the NumPy reference path
     bitexact: bool = False
 
 
@@ -88,9 +89,10 @@ class CleanConfig:
 
 @dataclass
 class MergeConfig:
-    """360-degree merge. ``method='posegraph'`` loads but is not ported: the
-    merge raises NotImplementedError for it. ``stream``, ``pair_batch`` and
-    ``incremental`` are schedule knobs (never stage-cache key material);
+    """360-degree merge. ``method='sequential'`` chain-aligns view i onto
+    view i-1; ``'posegraph'`` adds a first<->last loop closure and a global
+    pose-graph solve (``merge_360_posegraph``). ``stream``, ``pair_batch``
+    and ``incremental`` are schedule knobs (never stage-cache key material);
     ``incremental`` belongs to the JAX package's coordinated pods and the
     port never reads it."""
 
@@ -114,8 +116,9 @@ class MergeConfig:
 
 @dataclass
 class MeshConfig:
-    """Meshing. ``mode='surface'`` (ball pivoting) loads but is not ported:
-    meshing raises NotImplementedError for it."""
+    """Meshing. ``mode='watertight'`` solves screened Poisson;
+    ``mode='surface'`` triangulates the points themselves (the ball-pivoting
+    analog of ``ops/surface_recon.py``)."""
 
     mode: str = "watertight"     # 'watertight' (Poisson) | 'surface' (ball-pivot analog)
     # Poisson grid = 2^depth cells an axis: <= 9 solves dense; 10 and above
@@ -141,12 +144,17 @@ class MeshConfig:
 
 @dataclass
 class ParallelConfig:
-    """Host-side execution knobs of the reconstruct lanes."""
+    """Execution knobs: the backend, the merge's feature precision and the
+    reconstruct lanes."""
 
     # 'jax': the port's device path (the name is the JAX package's, so one
     # JSON config serves both packages); 'numpy': the host reference path,
     # decode and triangulate through the NumPy twins (no scanner, no batch)
     backend: str = "jax"
+    # bf16 FPFH feature-distance products with f32 output (tensor cores on
+    # the card); geometry stays f32. Off by default: the JAX package
+    # measured global fitness 0.818 -> 0.608 with it on a TPU
+    force_bf16_features: bool = False
     # host I/O threads for frame decode and the reconstruct lanes' prefetch
     # pool; <=1 (with compute_batch <= 1) runs the serial lane. Env
     # override: SL3D_IO_WORKERS.
@@ -289,8 +297,7 @@ class Config:
 # package's defaults: a section name maps to its dropped keys; a name
 # mapping to a plain value is a dropped top-level key.
 _DROPPED: dict[str, Any] = {
-    "parallel": {"data_axis": 0, "model_axis": 1,
-                 "force_bf16_features": False, "merge_mesh": False,
+    "parallel": {"data_axis": 0, "model_axis": 1, "merge_mesh": False,
                  "shard_views": True},
     "checkerboard": {"rows": 7, "cols": 7, "square_size_mm": 35.0},
     "acquire": {

@@ -1,7 +1,9 @@
-"""Point cloud -> printable mesh (the JAX package's ``models/meshing.py``,
-watertight mode): normals, screened Poisson (``ops/poisson.py`` dense up to
-depth 9, ``ops/poisson_bricks.py`` above), Surface Nets extraction, the
-low-density trim, then the optional host post-ops of ``ops/meshproc.py``.
+"""Point cloud -> printable mesh (the JAX package's ``models/meshing.py``):
+normals, then either the watertight mode — screened Poisson
+(``ops/poisson.py`` dense up to depth 9, ``ops/poisson_bricks.py`` above),
+Surface Nets extraction and the low-density trim — or the surface mode,
+the ball-pivoting analog of ``ops/surface_recon.py``; then the optional
+host post-ops of ``ops/meshproc.py``.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ from structured_light_for_3d_model_replication_tpu_torch.ops import normals as n
 from structured_light_for_3d_model_replication_tpu_torch.ops import poisson
 from structured_light_for_3d_model_replication_tpu_torch.ops import poisson_bricks
 from structured_light_for_3d_model_replication_tpu_torch.ops import surface_nets
+from structured_light_for_3d_model_replication_tpu_torch.ops import surface_recon
 from structured_light_for_3d_model_replication_tpu_torch.utils.device import (
     resolve_device,
 )
@@ -28,16 +31,14 @@ def reconstruct_mesh(points, valid=None, normals=None, cfg: MeshConfig | None = 
     """Cloud -> mesh on ``device`` (None -> cuda). Returns host (vertices
     [V, 3] f32, faces [F, 3] i32). Normals, when estimated here, are
     oriented outward (radial), so chi < iso inside and faces wind outward.
-    ``timings`` gets the stage walls (poisson_base_s, bricks_s,
-    extract_s, trim_s; host wall, synchronized by the host transfers that
-    end each stage)."""
+    ``mode='surface'`` triangulates the points themselves
+    (``surface_recon.ball_pivot_surface`` with ``surface_k`` and
+    ``surface_alpha_factor``). ``timings`` gets the stage walls
+    (poisson_base_s, bricks_s, extract_s, trim_s, or surface_s; host wall,
+    synchronized by the host transfers that end each stage)."""
     cfg = cfg or MeshConfig()
     tm = timings if timings is not None else {}
-    if cfg.mode == "surface":
-        raise NotImplementedError(
-            "mesh.mode='surface' (ball pivoting) is not ported (ROADMAP A5, legacy "
-            "mesh modes); use 'watertight'")
-    if cfg.mode != "watertight":
+    if cfg.mode not in ("watertight", "surface"):
         raise ValueError(f"mesh.mode must be 'watertight' or 'surface', got {cfg.mode!r}")
     dev = resolve_device(device)
     pts = torch.as_tensor(np.asarray(points, np.float32), device=dev)
@@ -52,6 +53,21 @@ def reconstruct_mesh(points, valid=None, normals=None, cfg: MeshConfig | None = 
     else:
         nr = torch.as_tensor(np.asarray(normals, np.float32), device=dev)
 
+    if cfg.mode == "surface":
+        # interpolates the points, keeps sharp detail, leaves holes where the
+        # sampling is sparse
+        t0 = time.perf_counter()
+        verts, faces = surface_recon.ball_pivot_surface(
+            pts, v, nr, k=cfg.surface_k, alpha_factor=cfg.surface_alpha_factor)
+        tm["surface_s"] = time.perf_counter() - t0
+        log(f"[mesh] ball-pivot surface: {len(verts):,} verts, {len(faces):,} faces")
+    else:
+        verts, faces = _watertight(pts, nr, v, cfg, log, dev, tm)
+    return _post_ops(verts, faces, cfg, log)
+
+
+def _watertight(pts, nr, v, cfg: MeshConfig, log, dev, tm: dict):
+    """Poisson, extraction and the density trim -> host (verts, faces)."""
     res = _poisson_dispatch(pts, nr, v, cfg.depth, log, density_cap=cfg.density_cap,
                             timings=tm)
     t0 = time.perf_counter()
@@ -78,7 +94,11 @@ def reconstruct_mesh(points, valid=None, normals=None, cfg: MeshConfig | None = 
         tm["trim_s"] = time.perf_counter() - t0
         log(f"[mesh] density trim q={cfg.density_trim_quantile}: "
             f"{len(verts):,} verts remain")
+    return verts, faces
 
+
+def _post_ops(verts, faces, cfg: MeshConfig, log):
+    """The optional host post-ops: hole filling, smoothing, decimation."""
     if cfg.close_holes_max_edges > 0:
         verts, faces, n = meshproc.fill_holes(verts, faces, cfg.close_holes_max_edges)
         log(f"[mesh] closed {n} holes (<= {cfg.close_holes_max_edges} edges)")

@@ -1,19 +1,36 @@
-"""360-degree multi-view merge (the JAX package's ``models/reconstruction.py``,
-host-list path).
+"""360-degree multi-view merge (the JAX package's ``models/reconstruction.py``).
 
 Clouds sorted by turntable angle chain-align view i onto view i-1: per
-view, voxel downsample + normals + FPFH (``prep_view``); per pair, RANSAC
-global init and point-to-plane ICP (``register_prep_pairs``); then the
-chained transforms move every view into view 0's frame, and the merged
-cloud goes through the final voxel and the statistical outlier pass
-(``finalize_chain``).
+view, voxel downsample + normals + FPFH; per pair, RANSAC global init and
+point-to-plane ICP; then the chained transforms move every view into view
+0's frame, and the merged cloud goes through the final voxel and the
+statistical outlier pass. ``merge_360`` has two arms, as in the JAX
+package:
+
+  host-list    per-view preps (``prep_view``), pairs at their own buckets
+               (``register_prep_pairs``), the moved views gathered on the
+               host (``finalize_chain``): the arm the streamed pipeline
+               shares byte for byte, and the one the barrier pipeline runs;
+  device       one stacked prep of every view at one shared bucket
+               (``_preprocess_views``, or ``_preprocess_views_device`` for
+               a ``DeviceClouds`` stack), every chain pair in one
+               ``_register_chain_batched`` call with position keys, the
+               transforms applied to the padded stack on the device
+               (``_accumulate_views``) and the stack handed to the
+               postprocess with its valid mask. It runs on the card where
+               ``_device_accumulate_ok`` holds; its output is not
+               byte-identical to the host-list arm's.
+
+``merge_360_posegraph`` registers the odometry edges and a first<->last
+loop closure in one ``_register_chain_batched`` call and solves the pose
+graph (``ops/posegraph.py``).
 
 Shapes follow the JAX package so the two index spaces agree: a view's raw
 points pad to a multiple of 8192, its voxel survivors to a multiple of 2048
-(its bucket), and a pair runs at the larger of its two buckets. RANSAC
-draws are indices into that space, so the reference's draws can be fed to
-the port unchanged (``samples``), and a pair's draws depend only on
-(seed, pair id).
+(its bucket), and a pair runs at the larger of its two buckets (the shared
+bucket in the device arm). RANSAC draws are indices into that space, so the
+reference's draws can be fed to the port unchanged (``samples``), and a
+pair's draws depend only on (seed, pair id).
 """
 from __future__ import annotations
 
@@ -32,8 +49,9 @@ from structured_light_for_3d_model_replication_tpu_torch.utils.device import (
     resolve_device,
 )
 
-__all__ = ["merge_360", "prep_view", "prep_view_device", "prep_from_reference",
-           "register_prep_pairs",
+__all__ = ["merge_360", "merge_360_posegraph", "DeviceClouds", "compact_views_device",
+           "stack_views_device", "prep_view", "prep_view_device", "prep_from_reference",
+           "device_clouds_from_reference", "register_prep_pairs",
            "finalize_chain", "transform_views_batched", "chamfer_distance",
            "FEAT_K", "NORMALS_K", "FEAT_RADIUS_SCALE"]
 
@@ -50,6 +68,95 @@ class _Prep:
     valid: torch.Tensor     # [B] bool, a prefix
     normals: torch.Tensor   # [B, 3] f32
     features: torch.Tensor  # [B, 33] f32
+
+
+@dataclass
+class DeviceClouds:
+    """Per-view clouds on the device, one shared padded slot count S:
+    ``points`` [V, S, 3] f32, ``valid`` [V, S] bool (each view's points a
+    slot prefix), ``colors`` [V, S, 3] u8, and the per-view counts on the
+    host (``counts``, so the merge's gate needs no device sync). The
+    handoff into ``merge_360``'s device arm without a per-view host pack
+    and re-upload."""
+    points: torch.Tensor
+    valid: torch.Tensor
+    colors: torch.Tensor
+    counts: np.ndarray | None = None
+
+    def to_host_list(self):
+        """The host (points, colors) list every other entry point takes."""
+        p = self.points.detach().to("cpu", torch.float32).numpy()
+        v = self.valid.cpu().numpy()
+        c = self.colors.cpu().numpy()
+        return [(p[i][v[i]], c[i][v[i]]) for i in range(p.shape[0])]
+
+
+def _device_of(x, device) -> torch.device:
+    """A tensor input stays on its device unless ``device`` is given."""
+    if device is None and isinstance(x, torch.Tensor):
+        return x.device
+    return resolve_device(device)
+
+
+def compact_views_device(points, valid, colors, device=None) -> DeviceClouds:
+    """A decoded view stack ([V, H*W] slots) -> DeviceClouds: each view's
+    valid slots first, in slot order, on one shared 2048-multiple bucket
+    (clamped to the slots). One gray channel becomes three. The only host
+    traffic is the [V] counts."""
+    dev = _device_of(points, device)
+    pts = torch.as_tensor(points if isinstance(points, torch.Tensor)
+                          else np.asarray(points), dtype=torch.float32).to(dev)
+    v = torch.as_tensor(valid if isinstance(valid, torch.Tensor)
+                        else np.asarray(valid), dtype=torch.bool).to(dev)
+    c = torch.as_tensor(colors if isinstance(colors, torch.Tensor)
+                        else np.asarray(colors), dtype=torch.uint8).to(dev)
+    if c.shape[-1] == 1:
+        c = c.expand(-1, -1, 3)
+    order, cnts_dev = _compact_order_counts(v)
+    cnts = cnts_dev.cpu().numpy().astype(int)
+    o = order[:, :_bucket_pad(int(cnts.max()), pts.shape[1])]
+    return DeviceClouds(torch.gather(pts, 1, o[..., None].expand(-1, -1, 3)),
+                        torch.gather(v, 1, o),
+                        torch.gather(c, 1, o[..., None].expand(-1, -1, 3)), cnts)
+
+
+def stack_views_device(clouds, device=None) -> DeviceClouds:
+    """Compact per-view clouds [(points [Ni, 3], colors [Ni, 3]), ...] ->
+    one DeviceClouds stack on the shared bucket: host arrays packed once
+    and uploaded once, device tensors padded where they are."""
+    counts = np.asarray([len(p) for p, _ in clouds], int)
+    bucket = _bucket_pad(int(counts.max()) if len(counts) else 1)
+    dev = _device_of(clouds[0][0] if clouds else None, device)
+    if all(isinstance(p, np.ndarray) for p, _ in clouds):
+        pts_h = np.zeros((len(clouds), bucket, 3), np.float32)
+        cols_h = np.zeros((len(clouds), bucket, 3), np.uint8)
+        for i, (p, c) in enumerate(clouds):
+            pts_h[i, :len(p)] = np.asarray(p, np.float32)
+            cols_h[i, :len(p)] = np.asarray(c, np.uint8)
+        pts, cols = torch.from_numpy(pts_h).to(dev), torch.from_numpy(cols_h).to(dev)
+    else:
+        def pad(a, dtype):
+            a = torch.as_tensor(a, dtype=dtype).to(dev)
+            return torch.cat([a, a.new_zeros((bucket - a.shape[0], 3))])
+
+        pts = torch.stack([pad(p, torch.float32) for p, _ in clouds])
+        cols = torch.stack([pad(c, torch.uint8) for _, c in clouds])
+    valid = (torch.as_tensor(counts, device=dev)[:, None]
+             > torch.arange(bucket, device=dev)[None, :])
+    return DeviceClouds(pts, valid, cols, counts)
+
+
+def device_clouds_from_reference(dc, device=None) -> DeviceClouds:
+    """A JAX-package ``DeviceClouds`` (or anything with the same fields,
+    as arrays) -> the port's, on ``device`` (None -> cuda)."""
+    dev = resolve_device(device)
+
+    def t(a, dtype):
+        return torch.as_tensor(np.array(a), dtype=dtype, device=dev)
+
+    counts = None if dc.counts is None else np.asarray(dc.counts, int)
+    return DeviceClouds(t(dc.points, torch.float32), t(dc.valid, torch.bool),
+                        t(dc.colors, torch.uint8), counts)
 
 
 def prep_from_reference(prep, device=None) -> _Prep:
@@ -164,20 +271,20 @@ def _prep_to_bucket(prep: _Prep, bucket: int):
 
 
 def register_prep_pairs(pairs, pair_ids, cfg: MergeConfig, voxel: float,
-                        samples=None):
+                        samples=None, feat_bf16: bool | None = None):
     """Register (prep_src, prep_dst) pairs: grouped by pair bucket (the
     larger of the two views' buckets), ``cfg.pair_batch`` pairs a launch
     group (a ragged tail padded on the power-of-two ladder with copies of
     its last pair). ``pair_ids`` are each pair's global chain position, the
     seed of its draws; ``samples`` an optional {pair index: [trials, 3]} of
-    given draws. Returns host (T [P, 4, 4], gfit, ifit, irmse) in input
-    order."""
+    given draws; ``feat_bf16`` as in ``registration.register_pairs``.
+    Returns host (T [P, 4, 4], gfit, ifit, irmse) in input order."""
     n_pairs = len(pairs)
     batch = max(1, int(cfg.pair_batch))
     T = np.zeros((n_pairs, 4, 4), np.float32)
     gf, fi, ir = (np.zeros(n_pairs, np.float32) for _ in range(3))
     kw = dict(max_dist=voxel * 1.5, icp_max_dist=voxel * float(cfg.icp_dist_ratio),
-              trials=cfg.ransac_trials, icp_iters=cfg.icp_iters)
+              trials=cfg.ransac_trials, icp_iters=cfg.icp_iters, feat_bf16=feat_bf16)
     by_bucket: dict[int, list[int]] = {}
     for i, (s, d) in enumerate(pairs):
         by_bucket.setdefault(max(s.points.shape[0], d.points.shape[0]), []).append(i)
@@ -201,6 +308,170 @@ def register_prep_pairs(pairs, pair_ids, cfg: MergeConfig, voxel: float,
     return T, gf, fi, ir
 
 
+# ---------------------------------------------------------------------------
+# The device-accumulate arm: one stacked prep, one batched chain register
+# ---------------------------------------------------------------------------
+
+def _sample_every(p, c, every):
+    """Uniform pre-registration subsampling (``sample_before``)."""
+    if every and every > 1:
+        return p[::every], c[::every]
+    return p, c
+
+
+def _voxel_stack(pts: torch.Tensor, valid: torch.Tensor, voxel: float):
+    """Voxel downsample each view of [V, S, 3] / [V, S] -> (p_stack [V, B,
+    3], v_stack [V, B]) on one shared 2048-multiple bucket B (survivors a
+    slot prefix, the rest zeros), after one sync for the [V] counts."""
+    zeros = torch.zeros((pts.shape[1], 3), dtype=torch.uint8, device=pts.device)
+    outs = [pc.voxel_downsample(pts[i], zeros, valid[i], voxel) for i in range(pts.shape[0])]
+    cnts = torch.stack([v.sum() for _, _, v in outs]).cpu().numpy().astype(int)
+    n_pad = _bucket_pad(int(cnts.max()), pts.shape[1])
+    p_stack = torch.stack([p[:n_pad] for p, _, _ in outs])
+    v_stack = (torch.as_tensor(cnts, device=pts.device)[:, None]
+               > torch.arange(n_pad, device=pts.device)[None, :])
+    return p_stack, v_stack
+
+
+def _voxel_pack_views(clouds, voxel: float, sample_before: int, keep_raw: bool = False,
+                      device=None):
+    """The voxel half of ``_preprocess_views``: every view's raw points
+    padded to one multiple of 8192 (pad rows at 1e9, invalid), packed on
+    the host and uploaded once, then ``_voxel_stack``. Returns (p_stack,
+    v_stack, raw): raw = the uploaded (points [V, n_raw, 3], valid [V,
+    n_raw]) with ``keep_raw``, else None."""
+    dev = resolve_device(device)
+    sampled = [_sample_every(np.asarray(p, np.float32), np.asarray(c, np.uint8),
+                             sample_before) for p, c in clouds]
+    n_raw = -(-max(len(p) for p, _ in sampled) // 8192) * 8192
+    pts = np.full((len(sampled), n_raw, 3), 1e9, np.float32)
+    valid = np.zeros((len(sampled), n_raw), bool)
+    for k, (p, _) in enumerate(sampled):
+        pts[k, :len(p)] = p
+        valid[k, :len(p)] = True
+    pts_d, valid_d = torch.from_numpy(pts).to(dev), torch.from_numpy(valid).to(dev)
+    p_stack, v_stack = _voxel_stack(pts_d, valid_d, voxel)
+    return p_stack, v_stack, ((pts_d, valid_d) if keep_raw else None)
+
+
+def _features_stack(p_stack: torch.Tensor, v_stack: torch.Tensor, voxel: float):
+    radius = float(np.float32(FEAT_RADIUS_SCALE * voxel))
+    preps = []
+    for i in range(p_stack.shape[0]):
+        p = p_stack[i].contiguous()
+        nr, feat = _prep_features(p, v_stack[i], radius)
+        preps.append(_Prep(p, v_stack[i], nr, feat))
+    return preps
+
+
+def _preprocess_views(clouds, voxel: float, sample_before: int, keep_raw: bool = False,
+                      device=None):
+    """Prep every view at ONE shared bucket: the voxel stack
+    (``_voxel_pack_views``), then normals and FPFH a view. Returns preps,
+    or (preps, raw) with ``keep_raw`` (the uploaded raw stacks, which the
+    device arm moves and postprocesses without a host round trip)."""
+    reg.exact_f32_products()
+    p_stack, v_stack, raw = _voxel_pack_views(clouds, voxel, sample_before, keep_raw,
+                                              device)
+    preps = _features_stack(p_stack, v_stack, voxel)
+    return (preps, raw) if keep_raw else preps
+
+
+def _preprocess_views_device(dc: DeviceClouds, voxel: float):
+    """``_preprocess_views`` of a DeviceClouds stack: no host pack, no
+    upload. Returns (preps, (dc.points, dc.valid)); the preps' valid points
+    equal the host list's bit for bit (invalid slots sort last in the voxel
+    pass and add nothing)."""
+    reg.exact_f32_products()
+    p_stack, v_stack = _voxel_stack(dc.points, dc.valid, voxel)
+    return _features_stack(p_stack, v_stack, voxel), (dc.points, dc.valid)
+
+
+def _register_chain_batched(preps, cfg: MergeConfig, voxel: float, loop_closure: bool,
+                            feat_bf16: bool | None = None, samples=None):
+    """Every chain pair (i-1 <- i), and with ``loop_closure`` (0 <- n-1) as
+    the last row, in ONE ``registration.register_pairs`` call on the preps'
+    shared bucket: pair ids are positions in that batch (0..P-1), the
+    JAX package's position keys. ``samples`` [P, trials, 3]: given draws.
+    Returns host (T [P, 4, 4], gfit [P], ifit [P], irmse [P])."""
+    srcs = preps[1:] + ([preps[-1]] if loop_closure else [])
+    dsts = preps[:-1] + ([preps[0]] if loop_closure else [])
+    out = reg.register_pairs(
+        torch.stack([p.points for p in srcs]), torch.stack([p.valid for p in srcs]),
+        torch.stack([p.features for p in srcs]), torch.stack([p.points for p in dsts]),
+        torch.stack([p.valid for p in dsts]), torch.stack([p.features for p in dsts]),
+        torch.stack([p.normals for p in dsts]),
+        max_dist=voxel * 1.5, icp_max_dist=voxel * float(cfg.icp_dist_ratio),
+        trials=cfg.ransac_trials, icp_iters=cfg.icp_iters, samples=samples,
+        feat_bf16=feat_bf16)
+    return tuple(o.detach().cpu().numpy().astype(np.float32) for o in out)
+
+
+def _full_postprocess(cfg: MergeConfig) -> bool:
+    """The config runs the whole final voxel -> outlier chain with no
+    subsample in between (the shape the device arm's postprocess takes)."""
+    return (bool(cfg.final_voxel and cfg.final_voxel > 0) and cfg.outlier_nb > 0
+            and not (cfg.sample_after and cfg.sample_after > 1))
+
+
+def _device_accumulate_ok(cfg: MergeConfig, step_callback, n_views: int, slots: int,
+                          n_actual: int, device: torch.device,
+                          why: list | None = None) -> bool:
+    """The ONE gate of the device arm (the JAX package's): an accelerator
+    (``device.type == 'cuda'``), no per-step host clouds (a step callback),
+    no ``sample_before``, the full postprocess chain, the raw stack and
+    its moved copy under 1 GiB, and slot occupancy >= 1/2 (one huge view
+    must not pad every view's slots). Appends the first refusal's reason
+    to ``why``."""
+    checks = (
+        (device.type == "cuda", f"device {device.type}, not an accelerator"),
+        (step_callback is None, "a step callback wants the per-step host clouds"),
+        (not cfg.sample_before or cfg.sample_before <= 1,
+         f"merge.sample_before={cfg.sample_before}"),
+        (_full_postprocess(cfg), "the postprocess is not the full voxel -> outlier chain"),
+        (n_views * slots * 12 <= (1 << 30),
+         f"{n_views} x {slots} slots exceed the 1 GiB stack bound"),
+        (n_actual >= 0.5 * n_views * slots,
+         f"occupancy {n_actual}/{n_views * slots} under 1/2"))
+    for ok, reason in checks:
+        if not ok:
+            if why is not None:
+                why.append(reason)
+            return False
+    return True
+
+
+def _apply_transforms(P: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
+    """P [V, S, 3] moved by T [V, 4, 4]: ((r0 x + r1 y) + r2 z) + t per row,
+    in that order on every device."""
+    R, t = T[:, None, :3, :3], T[:, None, :3, 3]
+    return ((R[..., 0] * P[..., 0:1] + R[..., 1] * P[..., 1:2]) + R[..., 2] * P[..., 2:3]) + t
+
+
+def _accumulate_views(raw_p: torch.Tensor, transforms) -> torch.Tensor:
+    """The device arm's accumulate: every view of the raw stack [V, S, 3]
+    moved by its chained transform in one batch, on the stack's device, in
+    ``transform_views_batched``'s row order."""
+    T = torch.from_numpy(np.stack([np.asarray(t, np.float32) for t in transforms]))
+    return _apply_transforms(raw_p, T.to(raw_p.device))
+
+
+def _chain(T_pairs, gfit_all, ifit_all, irmse_all, log):
+    """Host f32 chain of the pair transforms (view i into view 0's frame),
+    logging each pair's fitness as the JAX package does."""
+    transforms = [np.eye(4, dtype=np.float32)]
+    for i in range(1, len(T_pairs) + 1):
+        gfit = float(gfit_all[i - 1])
+        if gfit < 0.05:
+            log(f"[merge_360] WARNING view {i}: global fitness {gfit:.3f} < 0.05 "
+                f"— alignment may fail")
+        log(f"[merge_360] view {i}: global fit {gfit:.3f} | ICP fit "
+            f"{float(ifit_all[i - 1]):.3f} rmse {float(irmse_all[i - 1]):.3f}")
+        transforms.append((transforms[-1] @ np.asarray(T_pairs[i - 1], np.float32))
+                          .astype(np.float32))
+    return transforms
+
+
 def transform_views_batched(points_list, transforms, device=None):
     """Apply per-view transforms as one padded [V, S, 3] batch on
     ``device``: x' = ((r0 x + r1 y) + r2 z) + t per row, in that order on
@@ -213,12 +484,8 @@ def transform_views_batched(points_list, transforms, device=None):
     P = np.zeros((n, slots, 3), np.float32)
     for i, p in enumerate(points_list):
         P[i, :len(p)] = np.asarray(p, np.float32)
-    P = torch.from_numpy(P).to(dev)
-    T = torch.from_numpy(np.stack([np.asarray(t, np.float32) for t in transforms])).to(dev)
-    R, t = T[:, None, :3, :3], T[:, None, :3, 3]
-    out = ((R[..., 0] * P[..., 0:1] + R[..., 1] * P[..., 1:2])
-           + R[..., 2] * P[..., 2:3]) + t
-    out = out.cpu().numpy()
+    T = torch.from_numpy(np.stack([np.asarray(t, np.float32) for t in transforms]))
+    out = _apply_transforms(torch.from_numpy(P).to(dev), T.to(dev)).cpu().numpy()
     return [out[i, :len(points_list[i])] for i in range(n)]
 
 
@@ -234,18 +501,8 @@ def finalize_chain(clouds, T_pairs, gfit_all, ifit_all, irmse_all,
     cfg = cfg or MergeConfig()
     tm = timings if timings is not None else {}
     n = len(clouds)
-    transforms = [np.eye(4, dtype=np.float32)]
     t0 = time.perf_counter()
-    t_accum = transforms[0].copy()
-    for i in range(1, n):
-        gfit = float(gfit_all[i - 1])
-        if gfit < 0.05:
-            log(f"[merge_360] WARNING view {i}: global fitness {gfit:.3f} < 0.05 "
-                f"— alignment may fail")
-        log(f"[merge_360] view {i}: global fit {gfit:.3f} | ICP fit "
-            f"{float(ifit_all[i - 1]):.3f} rmse {float(irmse_all[i - 1]):.3f}")
-        t_accum = (t_accum @ np.asarray(T_pairs[i - 1], np.float32)).astype(np.float32)
-        transforms.append(t_accum.copy())
+    transforms = _chain(T_pairs[:n - 1], gfit_all, ifit_all, irmse_all, log)
     moved = transform_views_batched([clouds[i][0] for i in range(1, n)],
                                     transforms[1:], device=device)
     if step_callback is not None:
@@ -265,15 +522,20 @@ def finalize_chain(clouds, T_pairs, gfit_all, ifit_all, irmse_all,
 
 
 def _postprocess_merged(points, colors, cfg: MergeConfig, tm: dict | None = None,
-                        device=None):
+                        device=None, valid=None):
     """Final voxel -> uniform sample -> statistical outlier, the cloud
     staying on the device between the stages: after the voxel pass the
-    survivors are a slot prefix, cut at the next multiple of 8192."""
+    survivors are a slot prefix, cut at the next multiple of 8192.
+    ``points`` / ``colors`` are host arrays, or device tensors with their
+    ``valid`` mask (the device arm's padded stack); returns host arrays."""
     tm = tm if tm is not None else {}
     dev = resolve_device(device)
-    pts = torch.as_tensor(np.asarray(points, np.float32), device=dev)
-    cols = torch.as_tensor(np.asarray(colors, np.uint8), device=dev)
-    valid = torch.ones(pts.shape[0], dtype=torch.bool, device=dev)
+    pts = (points if isinstance(points, torch.Tensor)
+           else torch.as_tensor(np.asarray(points, np.float32), device=dev))
+    cols = (colors if isinstance(colors, torch.Tensor)
+            else torch.as_tensor(np.asarray(colors, np.uint8), device=dev))
+    if valid is None:
+        valid = torch.ones(pts.shape[0], dtype=torch.bool, device=dev)
     if cfg.final_voxel and cfg.final_voxel > 0:
         t0 = time.perf_counter()
         p, c, v = pc.voxel_downsample(pts, cols, valid, float(cfg.final_voxel))
@@ -292,36 +554,174 @@ def _postprocess_merged(points, colors, cfg: MergeConfig, tm: dict | None = None
     return pts[valid].cpu().numpy(), cols[valid].cpu().numpy()
 
 
-def merge_360(clouds, cfg: MergeConfig | None = None, log=print,
-              timings: dict | None = None, device=None, step_callback=None):
-    """Merge ordered per-view clouds [(points [N, 3] f32, colors [N, 3] u8),
-    ...] into one 360-degree cloud on ``device`` (None -> cuda). Returns
-    (points, colors, transforms); transforms[i] maps view i into view 0's
-    frame. ``timings`` is filled with preprocess_s / register_s /
-    accumulate_s / postprocess_s (host wall, synchronized by the host
-    transfers that end each stage). ``step_callback``: as in
-    ``finalize_chain``."""
-    cfg = cfg or MergeConfig()
-    if cfg.method != "sequential":
-        raise NotImplementedError(
-            f"merge.method={cfg.method!r} is not ported (ROADMAP A5, legacy merge "
-            f"modes: merge_360_posegraph); use 'sequential'")
-    dev = resolve_device(device)
+def _merge_host_list(clouds, cfg: MergeConfig, log, tm: dict, dev: torch.device,
+                     step_callback=None, feat_bf16: bool | None = None):
+    """The host-list arm: per-view ``prep_view``, ``register_prep_pairs``
+    with chain-position ids, ``finalize_chain`` — the computation the
+    streamed pipeline runs in another schedule, byte for byte."""
     voxel = float(cfg.voxel_size)
-    tm = timings if timings is not None else {}
     n = len(clouds)
-    if n == 1:
-        points, colors = _postprocess_merged(clouds[0][0], clouds[0][1], cfg, tm, dev)
-        return points, colors, [np.eye(4, dtype=np.float32)]
     t0 = time.perf_counter()
     preps = [prep_view(p, voxel, cfg.sample_before, dev) for p, _ in clouds]
     tm["preprocess_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     T_all, gfit, ifit, irmse = register_prep_pairs(
-        [(preps[i], preps[i - 1]) for i in range(1, n)], list(range(n - 1)), cfg, voxel)
+        [(preps[i], preps[i - 1]) for i in range(1, n)], list(range(n - 1)), cfg, voxel,
+        feat_bf16=feat_bf16)
     tm["register_s"] = time.perf_counter() - t0
     return finalize_chain(clouds, T_all, gfit, ifit, irmse, cfg, log=log,
                           timings=tm, device=dev, step_callback=step_callback)
+
+
+def merge_360(clouds, cfg: MergeConfig | None = None, log=print,
+              timings: dict | None = None, device=None, step_callback=None,
+              feat_bf16: bool | None = None):
+    """Merge ordered per-view clouds [(points [N, 3] f32, colors [N, 3] u8),
+    ...], or a ``DeviceClouds`` stack, into one 360-degree cloud on
+    ``device`` (None -> cuda; a DeviceClouds stack stays on its own
+    device). Returns host (points, colors, transforms); transforms[i] maps
+    view i into view 0's frame.
+
+    The arm (module docstring) is the JAX package's choice: the device arm
+    where ``_device_accumulate_ok`` holds (on the card, no step callback,
+    the full postprocess, occupancy >= 1/2), else the host-list arm (a
+    DeviceClouds stack through ``to_host_list``). ``timings`` is filled
+    with preprocess_s / register_s / accumulate_s / postprocess_s (host
+    wall, synchronized by the host transfers that end each stage), ``arm``
+    ('device' or 'host-list') and, where the gate refused, ``refused``.
+    ``step_callback``: as in ``finalize_chain`` (it closes the gate).
+    ``feat_bf16``: as in ``registration.register_pairs``."""
+    cfg = cfg or MergeConfig()
+    voxel = float(cfg.voxel_size)
+    tm = timings if timings is not None else {}
+    why: list[str] = []
+    dc = clouds if isinstance(clouds, DeviceClouds) else None
+    if dc is not None:
+        dev = dc.points.device if device is None else resolve_device(device)
+        v_cnt, slots = dc.points.shape[0], dc.points.shape[1]
+        cnts = (dc.counts if dc.counts is not None
+                else dc.valid.sum(1).cpu().numpy().astype(int))
+        if not (v_cnt > 1 and _device_accumulate_ok(cfg, step_callback, v_cnt, slots,
+                                                   int(np.sum(cnts)), dev, why)):
+            clouds, dc = dc.to_host_list(), None
+    else:
+        dev = resolve_device(device)
+    n = dc.points.shape[0] if dc is not None else len(clouds)
+    if n == 1:
+        tm["arm"] = "host-list"
+        points, colors = _postprocess_merged(clouds[0][0], clouds[0][1], cfg, tm, dev)
+        return points, colors, [np.eye(4, dtype=np.float32)]
+    if dc is None and not why:
+        n_raw_est = -(-max(len(p) for p, _ in clouds) // 8192) * 8192
+        _device_accumulate_ok(cfg, step_callback, n, n_raw_est,
+                              sum(len(p) for p, _ in clouds), dev, why)
+    if why:
+        tm["arm"], tm["refused"] = "host-list", why[0]
+        return _merge_host_list(clouds, cfg, log, tm, dev, step_callback, feat_bf16)
+    tm["arm"] = "device"
+    t0 = time.perf_counter()
+    if dc is not None:
+        preps, (raw_p, raw_v) = _preprocess_views_device(dc, voxel)
+    else:
+        preps, (raw_p, raw_v) = _preprocess_views(clouds, voxel, cfg.sample_before,
+                                                  keep_raw=True, device=dev)
+    tm["preprocess_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    T_all, gfit, ifit, irmse = _register_chain_batched(preps, cfg, voxel, False,
+                                                       feat_bf16=feat_bf16)
+    tm["register_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    transforms = _chain(T_all, gfit, ifit, irmse, log)
+    points = _accumulate_views(raw_p, transforms).reshape(-1, 3)
+    if dc is not None:
+        colors = dc.colors.reshape(-1, 3)
+    else:
+        cols = np.zeros((n, raw_p.shape[1], 3), np.uint8)
+        for i, (_, c) in enumerate(clouds):
+            cols[i, :len(c)] = np.asarray(c, np.uint8)
+        colors = torch.from_numpy(cols).to(dev).reshape(-1, 3)
+    tm["accumulate_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    points, colors = _postprocess_merged(points, colors, cfg, tm, dev,
+                                         valid=raw_v.reshape(-1))
+    tm["postprocess_s"] = time.perf_counter() - t0
+    return points, colors, transforms
+
+
+def merge_360_posegraph(clouds, cfg: MergeConfig | None = None, log=print,
+                        pg_iters: int = 20, step_callback=None, device=None,
+                        feat_bf16: bool | None = None, timings: dict | None = None):
+    """Multiway pose-graph merge (the JAX package's): every view prepped at
+    one shared bucket (``_preprocess_views``); the n - 1 odometry edges
+    (i-1 <- i) and the loop closure (0 <- n-1) registered in one
+    ``_register_chain_batched`` call; the closure kept only at ICP fitness
+    >= 0.05; edges weighted by ICP fitness; ``optimize_pose_graph`` over
+    ``pg_iters`` steps from the odometry chain. The poses move EVERY view
+    (view 0's need not stay the identity), ``step_callback(i, points,
+    colors, total)`` gets each moved view, then the final voxel / outlier
+    pass. Fewer than 3 views: ``merge_360``. Returns host (points, colors,
+    transforms), transforms[i] world-from-view-i (world = view 0's
+    frame before the solve)."""
+    from structured_light_for_3d_model_replication_tpu_torch.ops import posegraph as pglib
+
+    cfg = cfg or MergeConfig()
+    tm = timings if timings is not None else {}
+    n = len(clouds)
+    if n < 3:
+        return merge_360(clouds, cfg, log=log, timings=tm, device=device,
+                         step_callback=step_callback, feat_bf16=feat_bf16)
+    dev = resolve_device(device)
+    voxel = float(cfg.voxel_size)
+    t0 = time.perf_counter()
+    preps = _preprocess_views(clouds, voxel, cfg.sample_before, device=dev)
+    tm["preprocess_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    T_all, gfit, ifit, irmse = _register_chain_batched(preps, cfg, voxel, True,
+                                                       feat_bf16=feat_bf16)
+    tm["register_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ei, ej, edge_T, edge_w = [], [], [], []
+    init = [np.eye(4, dtype=np.float32)]
+    for i in range(1, n):
+        log(f"[posegraph] edge {i - 1}<-{i}: global fit {float(gfit[i - 1]):.3f} | ICP fit "
+            f"{float(ifit[i - 1]):.3f} rmse {float(irmse[i - 1]):.3f}")
+        ei.append(i - 1)
+        ej.append(i)
+        edge_T.append(T_all[i - 1])
+        edge_w.append(max(float(ifit[i - 1]), 1e-3))
+        init.append((init[-1] @ T_all[i - 1]).astype(np.float32))
+    lc_fit = float(ifit[n - 1])
+    log(f"[posegraph] loop closure 0<-{n - 1}: global fit {float(gfit[n - 1]):.3f} | "
+        f"ICP fit {lc_fit:.3f} rmse {float(irmse[n - 1]):.3f}")
+    tm["loop_closure"] = lc_fit >= 0.05
+    if tm["loop_closure"]:
+        ei.append(0)
+        ej.append(n - 1)
+        edge_T.append(T_all[n - 1])
+        edge_w.append(max(lc_fit, 1e-3))
+    else:
+        log("[posegraph] WARNING: loop closure rejected (fitness < 0.05); "
+            "result equals the odometry chain")
+    res = pglib.optimize_pose_graph(np.stack(init), ei, ej, np.stack(edge_T), edge_w,
+                                    iters=pg_iters, device=dev)
+    log(f"[posegraph] residual rmse {float(res.initial_rmse):.4f} -> "
+        f"{float(res.residual_rmse[-1]):.4f} over {pg_iters} iters")
+    transforms = list(res.poses.cpu().numpy().astype(np.float32))
+    tm["solve_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    moved = transform_views_batched([p for p, _ in clouds], transforms, device=dev)
+    cols = [np.asarray(c, np.uint8) for _, c in clouds]
+    if step_callback is not None:
+        total = 0
+        for i in range(n):
+            total += len(moved[i])
+            step_callback(i, moved[i], cols[i], total)
+    tm["accumulate_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    points, colors = _postprocess_merged(np.concatenate(moved), np.concatenate(cols),
+                                         cfg, tm, dev)
+    tm["postprocess_s"] = time.perf_counter() - t0
+    return points, colors, transforms
 
 
 def chamfer_distance(a, b, device=None) -> float:

@@ -1,8 +1,11 @@
 """Rigid registration: FPFH features, batched-hypothesis RANSAC, point-to-plane
-ICP (the JAX package's ``ops/registration.py``, merge part).
+ICP (the JAX package's ``ops/registration.py``; its hash-grid ICP arm, a
+host-only engine there, and its sharded pair batch are not ported).
 
   - Correspondences: a dense feature-distance product, chunked over source
-    rows, with Open3D's mutual filter.
+    rows, with Open3D's mutual filter; ``feat_bf16``
+    (``parallel.force_bf16_features``) takes the product on bf16 inputs with
+    f32 output.
   - RANSAC: T three-point hypotheses solved by batched Kabsch and scored at
     once by the ``ransac_score`` kernel; the best is refined by iterated
     weighted Kabsch. The draws come from a ``torch.Generator`` seeded by
@@ -11,6 +14,9 @@ ICP (the JAX package's ``ops/registration.py``, merge part).
   - ICP: point-to-plane Gauss-Newton with the JAX package's direction-aware
     convergence stop, run for a whole group of pairs at once: one ``nn1``
     launch per step serves every pair still iterating.
+  - ``icp_point_to_plane`` and ``ransac_global_registration`` are the
+    standalone one-pair entry points; on the card they launch ``nn1`` (and
+    ``ransac_score``) at every size.
 
 Transforms are 4x4 float32 acting on column vectors. Every f32 product runs
 in full f32 (``exact_f32_products``): TF32 keeps ~3 digits, the JAX package
@@ -18,14 +24,26 @@ pins Precision.HIGHEST on the same products.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
 from structured_light_for_3d_model_replication_tpu_torch.ops import kernels
 from structured_light_for_3d_model_replication_tpu_torch.ops import knn as knnlib
+from structured_light_for_3d_model_replication_tpu_torch.utils.device import (
+    resolve_device,
+)
 
-__all__ = ["exact_f32_products", "transform_points", "compose", "kabsch",
-           "fpfh_features", "pair_generator", "register_pairs"]
+__all__ = ["RegistrationResult", "exact_f32_products", "transform_points", "compose",
+           "kabsch", "fpfh_features", "pair_generator", "icp_point_to_plane",
+           "ransac_global_registration", "register_pairs"]
+
+
+class RegistrationResult(NamedTuple):
+    transform: torch.Tensor  # [4, 4]
+    fitness: torch.Tensor    # inlier fraction of the valid source points
+    rmse: torch.Tensor       # inlier RMSE
 
 
 def exact_f32_products() -> None:
@@ -167,6 +185,40 @@ def _icp_core(src, src_valid, dst_pts, dst_valid, dst_normals, T0, max_dist,
     return T, fit, rmse
 
 
+def _as(x, dtype, dev) -> torch.Tensor:
+    return torch.as_tensor(x if isinstance(x, torch.Tensor) else np.asarray(x),
+                           dtype=dtype).to(dev)
+
+
+def _valid_or_all(valid, n: int, dev) -> torch.Tensor:
+    if valid is None:
+        return torch.ones(n, dtype=torch.bool, device=dev)
+    return _as(valid, torch.bool, dev)
+
+
+def icp_point_to_plane(src_pts, src_valid, dst_pts, dst_valid, dst_normals,
+                       init_transform=None, max_dist: float = 4.5, iters: int = 30,
+                       device=None) -> RegistrationResult:
+    """Point-to-plane ICP of src onto dst on ``device`` (None -> cuda): up
+    to ``iters`` Gauss-Newton steps, stopped by the merge's convergence
+    criteria (``_icp_core``, the JAX package's accelerator arms). The 1-NN
+    of every step is the ``nn1`` kernel at any dst size on the card (the
+    JAX package's 131,072-row gate guards Mosaic's VMEM, which the card
+    does not have), its plain version on the CPU. ``*_valid`` None means
+    every row."""
+    dev = resolve_device(device)
+    exact_f32_products()
+    src = _as(src_pts, torch.float32, dev)
+    dst = _as(dst_pts, torch.float32, dev)
+    T0 = (torch.eye(4, dtype=torch.float32, device=dev) if init_transform is None
+          else _as(init_transform, torch.float32, dev))
+    T, fit, rmse = _icp_core(src[None], _valid_or_all(src_valid, src.shape[0], dev)[None],
+                             dst[None], _valid_or_all(dst_valid, dst.shape[0], dev)[None],
+                             _as(dst_normals, torch.float32, dev)[None], T0[None],
+                             max_dist, iters)
+    return RegistrationResult(T[0], fit[0], rmse[0])
+
+
 # ---------------------------------------------------------------------------
 # FPFH features
 # ---------------------------------------------------------------------------
@@ -219,21 +271,37 @@ def fpfh_features(points, normals, valid, radius: float, k: int = 64,
 # Global registration: feature matching + batched RANSAC
 # ---------------------------------------------------------------------------
 
-def _feature_correspondences(sf, df, sv, dv, mutual: bool, block: int = 2048):
+def _bf16_products(a: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
+    """a @ bt of bf16 inputs with f32 output: on the card one bf16 GEMM on
+    the tensor cores (f32 accumulation, f32 result); on the CPU the inputs
+    widened and multiplied in f32. Products of bf16 values are exact in
+    f32, so the two differ only in the order of the sums."""
+    if a.is_cuda:
+        return torch.mm(a, bt, out_dtype=torch.float32)
+    return a.to(torch.float32) @ bt.to(torch.float32)
+
+
+def _feature_correspondences(sf, df, sv, dv, mutual: bool, block: int = 2048,
+                             feat_bf16: bool = False):
     """Nearest-feature correspondences src -> dst over dense feature-distance
     blocks of ``block`` source rows. With ``mutual`` a correspondence
     survives only if its dst point's nearest valid src feature points back,
-    unless that leaves fewer than 10 (then the one-directional set)."""
+    unless that leaves fewer than 10 (then the one-directional set).
+    ``feat_bf16``: the cross product on bf16-rounded features with f32
+    output (``_bf16_products``); the norms stay f32, as in the JAX
+    package, and near-tied correspondences may differ from the f32 ones."""
     ns = sf.shape[0]
     dev = sf.device
     inf = torch.tensor(float("inf"), device=dev)
     df2 = (df * df).sum(-1)
+    dft = df.to(torch.bfloat16).T if feat_bf16 else df.T
     corr_j = torch.empty(ns, dtype=torch.int64, device=dev)
     bmin = torch.full((df.shape[0],), float("inf"), device=dev)
     barg = torch.zeros(df.shape[0], dtype=torch.int64, device=dev)
     for s in range(0, ns, block):
         f, v = sf[s:s + block], sv[s:s + block]
-        d2 = (f * f).sum(-1, keepdim=True) + df2[None, :] - 2.0 * (f @ df.T)
+        cross = _bf16_products(f.to(torch.bfloat16), dft) if feat_bf16 else f @ dft
+        d2 = (f * f).sum(-1, keepdim=True) + df2[None, :] - 2.0 * cross
         d2 = torch.where(dv[None, :], d2, inf)
         corr_j[s:s + block] = torch.argmin(d2, dim=1)
         cmin, carg = torch.where(v[:, None], d2, inf).min(dim=0)
@@ -353,6 +421,35 @@ def _ransac_core(src, src_valid, dst, dst_valid, corr_j, corr_ok, max_dist,
     return T_ref, fitness, rmse
 
 
+def ransac_global_registration(src_pts, src_feat, src_valid, dst_pts, dst_feat, dst_valid,
+                               max_dist: float, trials: int = 4096, edge_sim: float = 0.9,
+                               seed: int = 0, mutual: bool = True, refine_iters: int = 3,
+                               feat_bf16: bool | None = None, samples=None,
+                               device=None) -> RegistrationResult:
+    """Feature-matched RANSAC alignment of one pair on ``device`` (None ->
+    cuda): FPFH nearest-feature correspondences with the mutual filter,
+    ``trials`` three-point hypotheses scored at once (the ``ransac_score``
+    kernel on the card), the edge-length and distance checkers, the
+    iterated inlier refine, and Open3D's fitness over every valid source
+    point (``nn1``). The draws come from ``pair_generator(seed, 0)``;
+    ``samples`` [trials, 3] gives them instead. ``feat_bf16`` True takes
+    the bf16 feature product; None or False keeps f32."""
+    dev = resolve_device(device)
+    exact_f32_products()
+    src = _as(src_pts, torch.float32, dev)
+    dst = _as(dst_pts, torch.float32, dev)
+    sv = _valid_or_all(src_valid, src.shape[0], dev)
+    dv = _valid_or_all(dst_valid, dst.shape[0], dev)
+    corr_j, corr_ok = _feature_correspondences(
+        _as(src_feat, torch.float32, dev), _as(dst_feat, torch.float32, dev), sv, dv,
+        mutual, feat_bf16=bool(feat_bf16))
+    T, fit, rmse = _ransac_core(
+        src, sv, dst, dv, corr_j, corr_ok, max_dist, edge_sim, trials=trials,
+        refine_iters=refine_iters, samples=samples,
+        generator=None if samples is not None else pair_generator(seed, 0))
+    return RegistrationResult(T, fit, rmse)
+
+
 # ---------------------------------------------------------------------------
 # A group of pairs: RANSAC per pair, ICP for all at once
 # ---------------------------------------------------------------------------
@@ -361,13 +458,15 @@ def register_pairs(src_pts, src_valid, src_feat, dst_pts, dst_valid, dst_feat,
                    dst_normals, max_dist: float, icp_max_dist: float,
                    trials: int = 4096, icp_iters: int = 30,
                    edge_sim: float = 0.9, seed: int = 0, mutual: bool = True,
-                   refine_iters: int = 3, pair_ids=None, samples=None):
+                   refine_iters: int = 3, pair_ids=None, samples=None,
+                   feat_bf16: bool | None = None):
     """Register P independent (src, dst) pairs: FPFH correspondences +
     RANSAC global init per pair, then point-to-plane ICP for the group.
     Arrays share one padded shape: src_pts [P, N, 3], src_valid [P, N],
     src_feat [P, N, 33], dst_* likewise, dst_normals [P, M, 3]. ``pair_ids``
     [P] seed each pair's draws (default 0..P-1); ``samples`` optional
-    [P, trials, 3] draws to use instead. Returns (T [P, 4, 4], global
+    [P, trials, 3] draws to use instead; ``feat_bf16`` True takes the bf16
+    feature product (None or False: f32). Returns (T [P, 4, 4], global
     fitness [P], icp fitness [P], icp rmse [P]) as tensors."""
     exact_f32_products()
     p = src_pts.shape[0]
@@ -375,7 +474,8 @@ def register_pairs(src_pts, src_valid, src_feat, dst_pts, dst_valid, dst_feat,
     T0, gfit = [], []
     for i in range(p):
         corr_j, corr_ok = _feature_correspondences(src_feat[i], dst_feat[i],
-                                                   src_valid[i], dst_valid[i], mutual)
+                                                   src_valid[i], dst_valid[i], mutual,
+                                                   feat_bf16=bool(feat_bf16))
         smp = None if samples is None else samples[i]
         T_i, gf_i, _ = _ransac_core(
             src_pts[i], src_valid[i], dst_pts[i], dst_valid[i], corr_j, corr_ok,

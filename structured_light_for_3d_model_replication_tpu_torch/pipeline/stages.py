@@ -18,17 +18,20 @@ clouds -> the masked clean chain -> 360-degree merge -> Poisson mesh ->
     ``stalls.json``, and ``pipeline.run_budget_s`` aborts the whole run.
   - ``merge.stream`` (default) registers pair (i, i+1) on a worker thread
     while later views are still being cleaned (``_StreamRegistrar``); the
-    barrier arm runs ``merge_360`` after the last view. Both arms give the
-    same bytes.
+    barrier arm runs ``merge_360``'s host-list arm after the last view. Both
+    arms give the same bytes, which is why the merge cache key strips
+    ``merge.stream`` (the JAX package's barrier arm hands an accelerator
+    ``merge_360`` a DeviceClouds stack, whose device arm gives other bytes).
+    ``merge.method='posegraph'`` has no streamed arm: the barrier
+    ``merge_360_posegraph`` runs after the last view, with a notice.
   - the views are reconstructed and cleaned on ``reconstruct``'s lanes:
     the clean chain runs in the lane's drain thread, beside the next view's
     load and launch; ``pipeline.fused_clean`` keeps the span from decode
     output to cleaned cloud on the device (``ops/fused_view.py``) and hands
     the cleaned device buffers to the register lane.
 
-Not ported: the coordinator, ``parallel.merge_mesh``, ``merge.method=
-'posegraph'`` (``merge_360`` raises), the incremental assembly prefold and
-``merge_360``'s device-accumulate arm.
+Not ported: the coordinator, ``parallel.merge_mesh`` and the incremental
+assembly prefold.
 
 ``clean_cloud`` / ``clean_batch`` (``sl3d clean``), ``merge_views``
 (``sl3d merge-360``) and ``mesh_cloud`` (``sl3d mesh``) are the file-level
@@ -1286,7 +1289,11 @@ def merge_views(input_folder: str, output_ply: str, cfg: Config | None = None,
     ``device`` (None -> cuda). A view that cannot be read is dropped with a
     warning as long as max(2, pipeline.min_views) readable views remain.
     ``step_callback(i, points, colors, total)`` is ``merge_360``'s (e.g.
-    ``StageRecorder.merge_step``). Returns (points, colors, transforms)."""
+    ``StageRecorder.merge_step``). ``merge.method='posegraph'`` runs
+    ``merge_360_posegraph``; ``parallel.force_bf16_features`` forces the
+    bf16 feature product. ``merge_360`` takes its device arm on the card
+    unless its gate refuses (a step callback does). Returns (points, colors,
+    transforms)."""
     cfg = cfg or Config()
     dev = resolve_device(device)
     out_abs = os.path.abspath(output_ply)
@@ -1326,10 +1333,11 @@ def merge_views(input_folder: str, output_ply: str, cfg: Config | None = None,
         if c is None:
             c = np.zeros_like(d["points"], dtype=np.uint8)
         clouds.append((np.asarray(d["points"], np.float32), np.asarray(c, np.uint8)))
+    merge = recon.merge_360_posegraph if cfg.merge.method == "posegraph" else recon.merge_360
     with prof.trace():
-        points, colors, transforms = recon.merge_360(clouds, cfg.merge, log=log,
-                                                     timings=timings, device=dev,
-                                                     step_callback=step_callback)
+        points, colors, transforms = merge(clouds, cfg.merge, log=log, timings=timings,
+                                           device=dev, step_callback=step_callback,
+                                           feat_bf16=cfg.parallel.force_bf16_features)
     ply.write_ply(output_ply, points, colors)
     log(f"[merge] wrote {output_ply} ({len(points):,} points)")
     return points, colors, transforms
@@ -1543,7 +1551,7 @@ class PipelineReport:
     degraded: bool = False          # merged with fewer views or a fallback pair
     manifest_path: str | None = None
     merge_status: str = ""          # 'computed' | 'cache-hit'
-    merge_mode: str = ""            # 'streamed' | 'barrier' | another merge.method
+    merge_mode: str = ""            # 'streamed' | 'barrier' | 'posegraph'
     mesh_status: str = ""           # 'computed' | 'cache-hit'
     merged_points: int = 0
     mesh_verts: int = 0
@@ -1631,12 +1639,15 @@ def _engine_json(cfg: Config, dev: torch.device) -> str:
 
 
 def _merge_numeric_json(cfg: Config) -> str:
-    """The merge config subtree minus its schedule knobs — the key material
-    shared by the merge entry and every per-pair entry."""
+    """The merge config subtree minus its schedule knobs, and
+    ``parallel.force_bf16_features`` (it changes the correspondences), as
+    the JAX package keys them — the key material shared by the merge entry
+    and every per-pair entry."""
     d = dataclasses.asdict(cfg.merge)
     for k in _MERGE_SCHEDULE_KNOBS:
         d.pop(k, None)
-    return json.dumps({"merge": d}, sort_keys=True)
+    return json.dumps({"merge": d}, sort_keys=True) + json.dumps(
+        {"force_bf16": cfg.parallel.force_bf16_features})
 
 
 class _StreamRegistrar:
@@ -1876,7 +1887,9 @@ class _StreamRegistrar:
         t0 = time.perf_counter()
         try:
             T, gf, fi, ir = faults.retry_call(
-                lambda: recon.register_prep_pairs(pairs, ids, self.cfg.merge, self.voxel),
+                lambda: recon.register_prep_pairs(
+                    pairs, ids, self.cfg.merge, self.voxel,
+                    feat_bf16=self.cfg.parallel.force_bf16_features),
                 self.policy, on_retry=on_retry)
         except faults.InjectedCrash:
             raise
@@ -2017,10 +2030,12 @@ def _run_pipeline_impl(calib_path, target, out_dir, cfg: Config, steps, merged_n
         else:
             missing.append((i, src))
     report.views_cached = len(collected)
-    if cfg.merge.method != "sequential":
-        # no streamed arm: the barrier merge_360 raises for the unported
-        # method, as it did before the streamed arm existed
-        report.merge_mode = cfg.merge.method
+    if cfg.merge.method == "posegraph":
+        if cfg.merge.stream:
+            log("[pipeline] NOTICE: merge.method='posegraph' has no streaming arm — "
+                "merge.stream is ignored and the barrier pose-graph merge runs after "
+                "reconstruction")
+        report.merge_mode = "posegraph"
     else:
         report.merge_mode = "streamed" if cfg.merge.stream else "barrier"
     stream: _StreamRegistrar | None = None
@@ -2236,9 +2251,18 @@ def _merge_stage(order, collected, cfg, cache, stream, arm_stream, stats, t_stre
                 log(f"[pipeline] WARNING: {len(stream.failures)} pair registration(s) "
                     f"fell back to identity; the merged model is DEGRADED at those seams")
         else:
-            points, colors, transforms = recon.merge_360(clouds, cfg.merge, log=log,
-                                                         timings=tm, device=dev)
-    report.walls_s.update({f"merge_{k}": v for k, v in tm.items()})
+            # the barrier arms run the host-list computation (the posegraph
+            # merge has only one arm): byte-identical to the streamed arm, as
+            # the merge key (no merge.stream in it) promises
+            fb16 = cfg.parallel.force_bf16_features
+            if report.merge_mode == "posegraph":
+                points, colors, transforms = recon.merge_360_posegraph(
+                    clouds, cfg.merge, log=log, timings=tm, device=dev, feat_bf16=fb16)
+            else:
+                points, colors, transforms = recon._merge_host_list(
+                    clouds, cfg.merge, log, tm, dev, feat_bf16=fb16)
+    report.walls_s.update({f"merge_{k}": v for k, v in tm.items()
+                           if isinstance(v, float)})
     points = np.asarray(points, np.float32)
     colors = np.asarray(colors, np.uint8)
     if cacheable:

@@ -79,3 +79,22 @@ def test_a_dropped_key_away_from_its_default_is_logged_once(tmp_path, capsys):
     with pytest.raises(AttributeError):
         config.load_config(None, {"deadlines.register": "1"})
     assert dataclasses.fields(config.FaultsConfig)[0].name == "spec"
+
+
+def test_force_bf16_features_is_carried_and_round_trips(tmp_path, capsys):
+    """parallel.force_bf16_features loads into the port (no longer dropped,
+    so never logged), from a JAX-package file and an override, and the
+    ``config`` JSON gives it back where the JAX package's has it."""
+    jcfg = jconfig.Config()
+    jcfg.parallel.force_bf16_features = True
+    jcfg.save(str(tmp_path / "jax.json"))
+    cfg = config.load_config(str(tmp_path / "jax.json"))
+    assert cfg.parallel.force_bf16_features is True
+    assert config.load_config(None, {"parallel.force_bf16_features": "true"}) \
+        .parallel.force_bf16_features is True
+    assert config.Config().parallel.force_bf16_features is False
+    assert "force_bf16_features" not in config._DROPPED["parallel"]
+    assert capsys.readouterr().err == ""
+    parallel = config.jax_dict(cfg)["parallel"]
+    assert parallel == jcfg.to_dict()["parallel"]
+    assert list(parallel) == list(jcfg.to_dict()["parallel"])

@@ -181,10 +181,21 @@ def test_merge_views_floor_device_and_method(clouds, tmp_path, monkeypatch):
             path.write_bytes(b"ply\nbroken")
     with pytest.raises(ValueError, match="min_views"):
         stages.merge_views(str(tmp_path), str(tmp_path / "m.ply"), device="cpu", **QUIET)
+    # merge.method='posegraph' runs merge_360_posegraph, and
+    # parallel.force_bf16_features forces the bf16 feature product
+    good = tmp_path / "good"
+    good.mkdir()
+    for (p, c), ang in zip(clouds[:3], ANGLES):
+        ply.write_ply(str(good / f"v_{ang}deg.ply"), p, c)
     cfg = config.Config()
     cfg.merge.method = "posegraph"
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        rec.merge_360(clouds, cfg.merge, device="cpu", **QUIET)
+    cfg.parallel.force_bf16_features = True
+    seen = []
+    monkeypatch.setattr(rec, "merge_360_posegraph", lambda clouds_, mcfg, **kw: (
+        seen.append((len(clouds_), mcfg.method, kw["feat_bf16"])), clouds_[0][0],
+        clouds_[0][1], [np.eye(4)] * len(clouds_))[1:])
+    stages.merge_views(str(good), str(tmp_path / "pg.ply"), cfg=cfg, device="cpu", **QUIET)
+    assert seen == [(3, "posegraph", True)]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         stages.merge_views(str(tmp_path), str(tmp_path / "m.ply"), **QUIET)

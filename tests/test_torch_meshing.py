@@ -147,9 +147,11 @@ def test_reconstruct_mesh_end_to_end_matches_the_jax_package():
     cell = 80.0 * 1.16 / 64
     assert _chamfer(vt, vj) < 0.5 * cell
     assert meshproc.mesh_volume(vt, ft) > 0   # outward winding
+    # the surface mode (tests/test_torch_surface.py holds it against the JAX
+    # package): its vertices are input points
     tcfg.mode = "surface"
-    with pytest.raises(NotImplementedError, match="A5"):
-        meshing.reconstruct_mesh(pts, cfg=tcfg, device="cpu", **QUIET)
+    vs, fs = meshing.reconstruct_mesh(pts, cfg=tcfg, device="cpu", **QUIET)
+    assert len(fs) > 1000 and {tuple(r) for r in vs} <= {tuple(r) for r in pts}
 
 
 def test_stl_and_mesh_ply_bytes_equal_the_jax_writers(tmp_path):

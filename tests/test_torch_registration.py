@@ -16,7 +16,20 @@ the CPU with its brute 1-NN arm, as its own tests run it). Tolerances:
   within 1e-4, fitness equal;
 - ICP from the same start: the same number of steps, transform within 1e-4;
 - voxel downsample: survivor order and colors equal, means within 1e-5
-  relative (the port sums in float64, the JAX package in float32).
+  relative (the port sums in float64, the JAX package in float32);
+- ``icp_point_to_plane`` on tests/test_registration.py:37's scene (a lumpy
+  cloud and a copy 4 degrees and ~2.6 mm off): transform within 1e-4,
+  fitness within 1e-6, rmse within rel 1e-4 or 1e-5 mm (the copy is exact,
+  so the rmse sits at float32 rounding, ~3e-6 mm), against the JAX
+  package's accelerator arm (``_icp_jit_brute``: dense 1-NN, the
+  direction-aware stop the port runs on every device); the JAX test's own
+  bar; and a launch of the nn1 wrapper (its plain version on the CPU);
+- ``ransac_global_registration`` with the reference's draws injected on
+  tests/test_registration.py:54's scene (30 degrees, ~13 mm): transform
+  within 1e-4, fitness within 1e-6;
+- ``feat_bf16=True`` (tests/test_registration.py:73): the correspondences
+  equal the JAX package's bf16 ones but for <= 0.5 % near ties, and the
+  JAX test's alignment bar holds.
 """
 import jax
 import jax.numpy as jnp
@@ -187,3 +200,86 @@ def test_voxel_downsample_matches_jax(spread):
     assert 100 < m < 5000 and v[:m].all() and not v[m:].any()
     np.testing.assert_allclose(p[:m], jp[:m], rtol=1e-5, atol=1e-5)
     np.testing.assert_array_equal(c[:m], jc[:m])
+
+
+def _lumpy_pair(seed, n, ang, t):
+    """A lumpy cloud and the copy that ``T = [R(ang) | t]`` maps onto it."""
+    rng = np.random.default_rng(seed)
+    dst = _lumpy(rng, n)
+    R = np.asarray(jsyn.rotate_y(ang), np.float32)
+    src = (dst @ R + (-R.T @ np.asarray(t, np.float32))).astype(np.float32)
+    return src, dst
+
+
+def test_icp_point_to_plane_matches_jax(monkeypatch):
+    src, dst = _lumpy_pair(2, 4000, 4.0, (1.5, -0.8, 2.0))
+    v = jnp.ones(len(dst), bool)
+    nr = jnrm.estimate_normals(jnp.asarray(dst), v, 20)
+    nr = np.array(jnrm.orient_normals(jnp.asarray(dst), nr, v))
+    T_j, fit_j, rmse_j = jreg._icp_jit_brute(jnp.asarray(src), v, jnp.asarray(dst), v,
+                                             jnp.asarray(nr), jnp.eye(4), jnp.float32(8.0), 30)
+    calls = []
+    real = reg.kernels.nn1
+    monkeypatch.setattr(reg.kernels, "nn1", lambda *a: (calls.append(1), real(*a))[1])
+    res = reg.icp_point_to_plane(src, None, dst, None, nr, max_dist=8.0, iters=30,
+                                 device="cpu")
+    assert isinstance(res, reg.RegistrationResult) and calls
+    np.testing.assert_allclose(res.transform.numpy(), np.asarray(T_j), atol=1e-4)
+    np.testing.assert_allclose(float(res.fitness), float(fit_j), atol=1e-6)
+    np.testing.assert_allclose(float(res.rmse), float(rmse_j), rtol=1e-4, atol=1e-5)
+    T = res.transform.numpy()
+    err = np.linalg.norm(src @ T[:3, :3].T + T[:3, 3] - dst, axis=1)
+    assert float(res.fitness) > 0.95 and np.median(err) < 0.35
+
+
+@pytest.fixture(scope="module")
+def ransac_scene():
+    """tests/test_registration.py:54's pair with the JAX package's normals
+    and FPFH (radius 12, k = 48)."""
+    src, dst = _lumpy_pair(4, 3000, 30.0, (12.0, 2.0, -6.0))
+    v = jnp.ones(len(dst), bool)
+    feats = [np.array(jreg.fpfh_features(jnp.asarray(p), jnrm.estimate_normals(
+        jnp.asarray(p), v, 20), v, radius=12.0, k=48)) for p in (src, dst)]
+    return src, dst, feats[0], feats[1]
+
+
+def _jax_global_draws(fs, fd, feat_bf16, trials):
+    v = jnp.ones(len(fs), bool)
+    cj, ok = jreg._feature_correspondences(jnp.asarray(fs), jnp.asarray(fd), v, v, True,
+                                           feat_bf16=feat_bf16)
+    p = ok.astype(jnp.float32) / jnp.maximum(ok.sum(), 1)
+    return np.asarray(cj), np.asarray(ok), np.asarray(
+        jax.random.choice(jax.random.PRNGKey(0), len(fs), (trials, 3), p=p))
+
+
+@pytest.mark.parametrize("feat_bf16", [False, True])
+def test_ransac_global_registration_with_the_reference_draws(ransac_scene, feat_bf16):
+    src, dst, fs, fd = ransac_scene
+    ref = jreg.ransac_global_registration(src, fs, None, dst, fd, None, max_dist=5.0,
+                                          trials=2048, feat_bf16=feat_bf16)
+    cj, okj, draws = _jax_global_draws(fs, fd, feat_bf16, 2048)
+    v = torch.ones(len(src), dtype=torch.bool)
+    ct, okt = reg._feature_correspondences(_t(fs), _t(fd), v, v, True, feat_bf16=feat_bf16)
+    assert (ct.numpy() != cj).mean() <= 0.005 and (okt.numpy() != okj).mean() <= 0.005
+    res = reg.ransac_global_registration(src, fs, None, dst, fd, None, max_dist=5.0,
+                                         trials=2048, samples=draws, feat_bf16=feat_bf16,
+                                         device="cpu")
+    np.testing.assert_allclose(res.transform.numpy(), np.asarray(ref.transform), atol=1e-4)
+    np.testing.assert_allclose(float(res.fitness), float(ref.fitness), atol=1e-6)
+    # the JAX tests' alignment bar, also with the port's own draws
+    for r in (res, reg.ransac_global_registration(src, fs, None, dst, fd, None, max_dist=5.0,
+                                                  trials=2048, feat_bf16=feat_bf16,
+                                                  device="cpu")):
+        T = r.transform.numpy()
+        err = np.linalg.norm(src @ T[:3, :3].T + T[:3, 3] - dst, axis=1)
+        assert float(r.fitness) > 0.5 and np.median(err) < 5.0
+
+
+def test_bf16_products_round_the_inputs_only():
+    rng = np.random.default_rng(6)
+    a = torch.from_numpy(rng.random((50, 33), dtype=np.float32)).to(torch.bfloat16)
+    b = torch.from_numpy(rng.random((33, 40), dtype=np.float32)).to(torch.bfloat16)
+    got = reg._bf16_products(a, b)
+    assert got.dtype == torch.float32
+    exact = a.double().numpy() @ b.double().numpy()
+    np.testing.assert_allclose(got.numpy(), exact, rtol=1e-6)

@@ -44,7 +44,9 @@ for three more RANSAC seeds (pair ids offset by 1000 a seed). Some minutes.
 spheres' union, a closed surface with a known distance) with the JAX
 package's ``mesh_cloud`` at depth 10 (``density_cap=false``: the brick
 solve) and prints the STL's distance to the true spheres, to the input
-cloud and its edges: ``chip_smoke.MESH_JAX``.
+cloud and its edges: ``chip_smoke.MESH_JAX``. ``--mesh --mesh-mode
+surface`` meshes the same cloud with ``mesh.mode='surface'`` (ball
+pivoting) instead: ``chip_smoke.SURFACE_JAX``.
 """
 from __future__ import annotations
 
@@ -277,7 +279,7 @@ def registration(view_dir: str) -> None:
             print(json.dumps(line), flush=True)
 
 
-def run_mesh_jax(root: str, port: bool) -> None:
+def run_mesh_jax(root: str, port: bool, mode: str = "watertight") -> None:
     from structured_light_for_3d_model_replication_tpu.config import load_config
     from structured_light_for_3d_model_replication_tpu.pipeline import stages
     from structured_light_for_3d_model_replication_tpu_torch.io import ply
@@ -285,8 +287,9 @@ def run_mesh_jax(root: str, port: bool) -> None:
     cloud, scene = chip_smoke.mesh_cloud()
     src = os.path.join(root, "cloud.ply")
     ply.write_ply(src, cloud)
+    over = {"mesh.density_cap": False, "mesh.mode": mode}
     runs = [("jax_cpu", lambda out: stages.mesh_cloud(
-        src, out, cfg=load_config(None, {"mesh.density_cap": False}), log=_quiet))]
+        src, out, cfg=load_config(None, over), log=_quiet))]
     if port:
         from structured_light_for_3d_model_replication_tpu_torch.config import (
             load_config as port_config,
@@ -296,13 +299,13 @@ def run_mesh_jax(root: str, port: bool) -> None:
         )
 
         runs.append(("port_cpu", lambda out: port_stages.mesh_cloud(
-            src, out, cfg=port_config(None, {"mesh.density_cap": False}),
+            src, out, cfg=port_config(None, over),
             log=_quiet, device="cpu")))
     for name, fn in runs:
         out = os.path.join(root, f"{name}.stl")
         t0 = time.perf_counter()
         fn(out)
-        print(json.dumps({"mesh": name, "wall_s": time.perf_counter() - t0,
+        print(json.dumps({"mesh": name, "mode": mode, "wall_s": time.perf_counter() - t0,
                           "points": int(len(cloud)),
                           "stl": chip_smoke.stl_accuracy(out, scene, cloud)}), flush=True)
 
@@ -317,10 +320,12 @@ def main() -> int:
                     help="only the registration report on a kept run's cleaned views")
     ap.add_argument("--mesh", action="store_true",
                     help="the meshing reference (chip_smoke.MESH_JAX) instead")
+    ap.add_argument("--mesh-mode", choices=["watertight", "surface"], default="watertight",
+                    help="with --mesh: the mesh mode (surface: chip_smoke.SURFACE_JAX)")
     args = ap.parse_args()
     if args.mesh:
         with tempfile.TemporaryDirectory(prefix="slscan_mref_") as tmp:
-            run_mesh_jax(args.out or tmp, args.port)
+            run_mesh_jax(args.out or tmp, args.port, args.mesh_mode)
         return 0
     if args.registration:
         registration(args.registration)
