@@ -187,7 +187,33 @@ Imports nothing of JAX. Phases, each of which exits non-zero on failure:
    ``mesh.mode=surface`` over phase 7's 24 views with its view cache
    copied in: the notice that merge.stream is ignored, merge_mode
    posegraph, no failure, the merged cloud's distance to the truth printed
-   beside phase 7's.
+   beside phase 7's;
+12. the capture path: (a)-(c) right after phase 3. (a) CALIB_POSES
+   chessboard poses (``synthetic.calibration_poses``: 6 x 9 inner corners,
+   10 mm squares, 400-600 mm away, tilted up to 20 degrees) lit by phase
+   2's 46-frame stack through its rig, captured by the port's
+   ``CaptureSequencer.capture_calibration`` (a virtual projector; the camera
+   writes the render of the frame shown, ``on_pose`` moves the board), then
+   the port's ``calibrate <dir> --output calib.mat`` and ``inspect-calib``:
+   every pose detected, and each error against the true rig (both
+   intrinsics, the angle of R, T, the stereo RMS) within 1.5x the JAX
+   package's on the same renders or a floor (0.05 px, 0.01 deg, 0.05 mm),
+   printed beside it (``CALIB_JAX``, tools/torch_calib_reference.py). (b)
+   ``reconstruct`` of phase 3's 8 .slbp views with the recovered calib.mat
+   in the table and quadratic lanes: the lane's kernel once a batch and
+   nothing else, every view's distance to the true surfaces (median, p99)
+   within 1.5x the JAX package's, printed beside a true-calibration run.
+   (c) ``undistort_stack`` of one 46x1080x1920 stack (k1 -0.28): equal to
+   the CPU's result but for at most 1e-4 of the pixels, each off by one;
+   zero distortion returns the stack; the time printed. (d) after phase
+   11(d), ``auto_scan_360`` of phase 7's 24 views over the HTTP rendezvous
+   (the port's CaptureServer, a fake-phone thread uploading the PNG of
+   phase 7's raw render of the frame shown, a simulated turntable,
+   pack_frames): 24 ``view_folder_name`` folders each holding a
+   frames.slbp byte-equal to phase 7's, 24 progress events; then
+   ``run_pipeline`` over them: merged.ply and model.stl byte-identical to
+   phase 7's cold run, its kernel launches as phase 7's; the capture wall,
+   the median round trip a frame and the pipeline wall printed.
 
 Then one ``{"kernels": [...]}`` JSON line (times from phases 2, 4 and 6,
 bounds from this run's shapes, and each kernel's launches from one run of
@@ -369,6 +395,41 @@ STANDALONE_JAX = {
     "large icp": {"rot_deg": 0.0013489626678874114, "trans_mm": 0.008671122000002075}}
 SURFACE_JAX = {"faces": 511057, "surf_median_mm": 0.03402390588220783,
                "surf_p99_mm": 0.12912492856332847}
+
+# Phase 12, the capture path. (a) CALIB_POSES chessboard poses
+# (``synthetic.calibration_poses``: 6 x 9 inner corners, 10 mm squares,
+# 400-600 mm from the camera, tilted up to 20 degrees) rendered through phase
+# 2's rig lit by its 46-frame stack, captured by the port's sequencer and
+# solved by its ``calibrate`` command. A 35 mm board (7 x 10 squares, 245 x
+# 350 mm) does not fit the band the camera and the projector share on this
+# rig (0.47 z - 80 mm tall: 85 mm at 350 mm, 203 mm at 600 mm), so the
+# squares are 10 mm and the nearest board 400 mm away.
+CALIB_POSES = 10
+CALIB_BOARD = (6, 9, 10.0)            # inner corners (rows, cols), square mm
+CALIB_DEPTHS = (400.0, 600.0)
+CALIB_SET = ["--set", "checkerboard.rows=6", "--set", "checkerboard.cols=9",
+             "--set", "checkerboard.square_size_mm=10"]
+# Each error of the recovered calibration against the true rig is gated at
+# GATE x the JAX package's on the same renders, or at this floor, the larger.
+CALIB_FLOOR = {"px": 0.05, "deg": 0.01, "mm": 0.05}
+# (c) the undistort stack's lens
+UNDISTORT_DIST = (-0.28, 0.12, 1e-3, -5e-4, -0.02)
+# (d) auto-scan over the HTTP rendezvous: phase 7's 24 views, a simulated
+# turntable turning in this many seconds
+CAPTURE_TURN_S = 0.05
+# The JAX package on the CPU on the same renders (tools/torch_calib_reference.py):
+# its calibrate command's errors against the true rig, and its reconstruct
+# of phase 2's view 0 with that calibration (the points' distance to the
+# true surfaces, mm), in each plane_eval lane and with the true calibration.
+CALIB_JAX = {
+    "calib": {"cam_fx_px": 0.799363334282134, "cam_fy_px": 0.785528799997337,
+              "cam_cx_px": 2.244808369263069, "cam_cy_px": 0.7057144901959873,
+              "proj_fx_px": 15.013744106946433, "proj_fy_px": 15.830017679457342,
+              "proj_cx_px": 37.26694369223253, "proj_cy_px": 34.087673598010724,
+              "R_deg": 1.302878556941357, "T_mm": 0.4863608246536598, "rms_px": 0.4477},
+    "recon": {"table": [2.704376220703125, 9.27215576171875, 1061700],
+              "quadratic": [2.704345703125, 9.272156372070313, 1061700],
+              "true": [0.15185546875, 0.44482421875, 1061700]}}
 
 
 def fail(msg: str) -> None:
@@ -1328,10 +1389,12 @@ def render_merge_views(root: str):
     return data, calib, poses
 
 
-def render_pipeline_views(root: str):
+def render_pipeline_views(root: str, raw: list | None = None):
     """The scan-to-print scene (``synthetic.pipeline_scene``): 24 turntable
-    views at 768x576 stored as .slbp containers under root/scans, with
-    root/calib.npz. Returns (data dir, calib path, scene)."""
+    views at 768x576 stored as .slbp containers under root/scans (the
+    white frame as their texture, as a capture packs it), with
+    root/calib.npz; each view's raw frames appended to ``raw`` when given.
+    Returns (data dir, calib path, scene)."""
     from structured_light_for_3d_model_replication_tpu_torch.io import images as imio
     from structured_light_for_3d_model_replication_tpu_torch.io import matfile
     from structured_light_for_3d_model_replication_tpu_torch.utils import (
@@ -1345,7 +1408,9 @@ def render_pipeline_views(root: str):
         frames, _ = syn.render_scene(rig, scene.transformed(R, t))
         imio.save_packed_stack(
             os.path.join(data, f"view_{round(i * 360 / PIPE_VIEWS):03d}deg"),
-            imio.pack_stack(frames))
+            imio.pack_stack(frames, texture=np.repeat(frames[0][:, :, None], 3, axis=2)))
+        if raw is not None:
+            raw.append(frames)
     calib = os.path.join(root, "calib.npz")
     matfile.save_calibration(calib, rig.calibration())
     return data, calib, scene
@@ -2965,6 +3030,388 @@ def legacy_pipeline_phase(dev, data: str, calib: str, scene, root: str, cold: di
           f"{[f.as_dict() for f in report.failures]}")
 
 
+def render_calibration(rig):
+    """Phase 12(a)'s boards and their 46-frame renders through ``rig``
+    (four threads). Returns (boards, renders)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from structured_light_for_3d_model_replication_tpu_torch.utils import (
+        synthetic as syn,
+    )
+
+    boards = syn.calibration_poses(rig, *CALIB_BOARD, n=CALIB_POSES,
+                                   near=CALIB_DEPTHS[0], far=CALIB_DEPTHS[1])
+    with ThreadPoolExecutor(4) as pool:
+        renders = list(pool.map(lambda b: syn.render_chessboard(rig, b), boards))
+    return boards, renders
+
+
+def calib_errors(calib: dict, rms: float, rig) -> dict:
+    """A calibration against the true rig: each intrinsic's difference (px),
+    the angle of R_hat R^T (degrees), |T_hat - T| (mm) and the stereo RMS
+    (px)."""
+    out = {}
+    for name, K, truth in (("cam", calib["cam_K"], rig.cam_K),
+                           ("proj", calib["proj_K"], rig.proj_K)):
+        K = np.asarray(K, np.float64)
+        for key, (i, j) in (("fx", (0, 0)), ("fy", (1, 1)), ("cx", (0, 2)), ("cy", (1, 2))):
+            out[f"{name}_{key}_px"] = float(abs(K[i, j] - truth[i, j]))
+    R = np.asarray(calib["R"], np.float64)
+    c = (np.trace(R @ rig.R.T) - 1.0) / 2.0
+    out["R_deg"] = float(np.degrees(np.arccos(np.clip(c, -1.0, 1.0))))
+    out["T_mm"] = float(np.linalg.norm(np.asarray(calib["T"], np.float64).reshape(3)
+                                       - rig.T))
+    out["rms_px"] = float(rms)
+    return out
+
+
+def calib_limit(key: str, theirs: float) -> float:
+    """GATE x the JAX package's error, or the floor of the error's unit."""
+    return max(GATE * theirs, CALIB_FLOOR[key.rsplit("_", 1)[1]])
+
+
+def run_cli(main, argv: list[str]) -> tuple[int, str]:
+    """A CLI's ``main(argv)`` with its standard output captured."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    return rc, buf.getvalue()
+
+
+def pose_rows(calibrate_out: str) -> list[str]:
+    """The per-pose rows of the calibrate command's table (one a detected
+    pose)."""
+    return [ln for ln in calibrate_out.splitlines()
+            if ln.startswith("pose") and ln.split()[0] != "pose"]
+
+
+def stereo_rms(calibrate_out: str) -> float:
+    """The stereo RMS the calibrate command printed."""
+    line = next(ln for ln in calibrate_out.splitlines()
+                if ln.startswith("[calib] stereo RMS"))
+    return float(line.split()[3])
+
+
+def surface_errors(ply_path: str) -> list[float]:
+    """A reconstructed view's points against phase 2's true surfaces:
+    [median, p99] distance (mm) and the point count."""
+    from structured_light_for_3d_model_replication_tpu_torch.io import ply
+    from structured_light_for_3d_model_replication_tpu_torch.utils import (
+        synthetic as syn,
+    )
+
+    pts = ply.read_ply(ply_path)["points"]
+    d = syn.surface_distance(pts, syn.sphere_on_background())
+    return [float(np.median(d)), float(np.percentile(d, 99)), int(len(pts))]
+
+
+def calibration_phase(dev, rig, frames_np, stacks, card: str) -> None:
+    """Phase 12(a)-(c), right after phase 3 (the phase-2 render in memory).
+    (a) the port's sequencer captures CALIB_POSES boards lit by the
+    46-frame stack (a virtual projector; the camera writes the render of
+    the frame shown as PNG), then ``calibrate <dir> --output calib.mat`` and
+    ``inspect-calib calib.mat``. Gates: every pose detected; each error
+    against the true rig within GATE x the JAX package's (``CALIB_JAX``) or
+    its floor. (b) ``reconstruct`` of phase 3's 8 .slbp views with the
+    recovered calib.mat in the table and quadratic lanes: the lane's kernel
+    once a batch and nothing else, and every view's points within GATE x
+    the JAX package's distance to the true surfaces (median, p99); printed
+    beside a table-lane run with the true calibration. (c)
+    ``undistort_stack`` of one 46x1080x1920 stack: the card's result equal
+    to the CPU's but for at most 1e-4 of the pixels, each off by one, the
+    identity under zero distortion, and its time (CUDA events, warm
+    median)."""
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch import cli
+    from structured_light_for_3d_model_replication_tpu_torch.acquire.projector import (
+        VirtualProjector,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.acquire.sequencer import (
+        CaptureSequencer,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.calib import undistort as ud
+    from structured_light_for_3d_model_replication_tpu_torch.config import Config
+    from structured_light_for_3d_model_replication_tpu_torch.io import images as imio
+    from structured_light_for_3d_model_replication_tpu_torch.io import matfile
+    from structured_light_for_3d_model_replication_tpu_torch.ops import kernels
+    from structured_light_for_3d_model_replication_tpu_torch.pipeline import stages
+
+    with tempfile.TemporaryDirectory(prefix="slscan_calib_") as root:
+        # (a) capture and calibrate
+        t0 = time.perf_counter()
+        _, renders = render_calibration(rig)
+        t_render = time.perf_counter() - t0
+        proj = VirtualProjector(*PROJ)
+        pose = {}
+
+        def on_pose(i: int) -> None:
+            pose.update(frames=renders[i], start=len(proj.shown))
+
+        def capture(path: str) -> None:
+            imio.save_image(path, pose["frames"][len(proj.shown) - 1 - pose["start"]])
+
+        seq = CaptureSequencer(proj, capture, proj_size=PROJ, log=lambda m: None)
+        pose_root = os.path.join(root, "poses")
+        t0 = time.perf_counter()
+        dirs = seq.capture_calibration(pose_root, CALIB_POSES, on_pose=on_pose)
+        t_capture = time.perf_counter() - t0
+        n_frames = renders[0].shape[0]
+        check(len(dirs) == CALIB_POSES and all(
+            len(os.listdir(d)) == n_frames for d in dirs),
+            f"calibration capture: {[len(os.listdir(d)) for d in dirs]} frames a pose")
+        del renders, pose["frames"]
+        calib_mat = os.path.join(root, "calib.mat")
+        t0 = time.perf_counter()
+        rc, text = run_cli(cli.main, ["calibrate", pose_root, "--output", calib_mat,
+                                      *CALIB_SET])
+        t_solve = time.perf_counter() - t0
+        check(rc == 0, f"calibrate exited {rc}")
+        rows = pose_rows(text)
+        print("\n".join(text.splitlines()[:CALIB_POSES + 2]), flush=True)
+        check(len(rows) == CALIB_POSES,
+              f"calibrate: {len(rows)} of {CALIB_POSES} poses detected")
+        rc, summary = run_cli(cli.main, ["inspect-calib", calib_mat])
+        check(rc == 0 and summary.startswith("=== Calibration summary ==="),
+              f"inspect-calib exited {rc}: {summary!r}")
+        print(summary, end="", flush=True)
+        errs = calib_errors(matfile.load_calibration(calib_mat), stereo_rms(text), rig)
+        print(json.dumps({"calibration": "port vs JAX on the same renders",
+                          "errors": errs, "jax_errors": CALIB_JAX["calib"],
+                          "render_s": t_render, "capture_s": t_capture,
+                          "calibrate_s": t_solve, "card": card}), flush=True)
+        for key, v in errs.items():
+            lim = calib_limit(key, CALIB_JAX["calib"][key])
+            check(v <= lim, f"calibration: {key} {v} > {lim} (GATE x the JAX "
+                            f"package's {CALIB_JAX['calib'][key]}, or the floor)")
+
+        # (b) reconstruct with the recovered calibration
+        data = os.path.join(root, "scans")
+        for i in range(RECON_VIEWS):
+            imio.save_packed_stack(os.path.join(data, f"view_{i * 45:03d}deg"),
+                                   stacks[i % len(stacks)])
+        true_calib = os.path.join(root, "true.npz")
+        matfile.save_calibration(true_calib, rig.calibration())
+        n_batches = -(-RECON_VIEWS // RECON_BATCH)
+        arms = [("table", "decode_maps", calib_mat), ("quadratic", "scan_fused", calib_mat),
+                ("true", "decode_maps", true_calib)]
+        errors = {}
+        for arm, kernel, calib_path in arms:
+            cfg = Config()
+            cfg.decode.n_cols, cfg.decode.n_rows = PROJ
+            cfg.parallel.compute_batch = RECON_BATCH
+            cfg.triangulate.plane_eval = "quadratic" if arm == "quadratic" else "table"
+            out_dir = os.path.join(root, f"out_{arm}")
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            report = stages.reconstruct(calib_path, data, mode="batch", output=out_dir,
+                                        cfg=cfg, device=dev, log=lambda m: None)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = kernels.launch_counts()
+            check(counts[kernel] == n_batches and sum(counts.values()) == n_batches,
+                  f"recovered-calibration {arm} arm launched {counts}, not {kernel} once "
+                  f"for each of {n_batches} batches")
+            check(len(report.outputs) == RECON_VIEWS,
+                  f"recovered-calibration {arm} arm wrote {len(report.outputs)} views")
+            errors[arm] = [surface_errors(p) for p in sorted(report.outputs)]
+            print(json.dumps({"reconstruct": f"{arm} lane", "calib": os.path.basename(
+                calib_path), "launches": counts, "wall_s": wall,
+                "surface_mm [median, p99, points] a view": errors[arm],
+                "jax_view0": CALIB_JAX["recon"][arm], "card": card}), flush=True)
+        for arm in ("table", "quadratic"):
+            ref = CALIB_JAX["recon"][arm]
+            for i, (med, p99, n) in enumerate(errors[arm]):
+                check(n > 0.05 * CAM[0] * CAM[1], f"{arm}: view {i} holds {n} points")
+                check(med <= GATE * ref[0] and p99 <= GATE * ref[1],
+                      f"recovered-calibration {arm}: view {i} median {med} / p99 {p99} mm "
+                      f"from the true surfaces > {GATE} x the JAX package's {ref[:2]}")
+
+    # (c) undistort one stack on the card and on the CPU
+    stack = frames_np[0]
+    on_card = torch.from_numpy(stack).to(dev)
+    got = ud.undistort_stack(on_card, rig.cam_K, UNDISTORT_DIST, device=dev).cpu().numpy()
+    ref = ud.undistort_stack(stack, rig.cam_K, UNDISTORT_DIST, device="cpu").numpy()
+    diff = np.abs(got.astype(np.int16) - ref)
+    off = float((diff > 0).mean())
+    same = ud.undistort_stack(on_card, rig.cam_K, np.zeros(5), device=dev)
+    ident = bool(torch.equal(same, on_card))
+    ms = time_ms(lambda: ud.undistort_stack(on_card, rig.cam_K, UNDISTORT_DIST,
+                                            device=dev), reps=5)
+    changed = float((got != stack).mean())
+    print(json.dumps({"undistort": list(stack.shape), "dist": UNDISTORT_DIST,
+                      "ms": ms, "pixels_off_by_one_vs_cpu": off,
+                      "max_abs_diff_vs_cpu": int(diff.max()),
+                      "pixels_changed_by_the_lens": changed,
+                      "zero_distortion_identity": ident, "card": card}), flush=True)
+    check(diff.max() <= 1 and off <= 1e-4,
+          f"undistort: card vs CPU max diff {int(diff.max())}, {off} of pixels differ")
+    check(ident, "undistort: zero distortion changed the stack")
+    check(changed > 0.1, f"undistort: the lens changed only {changed} of the pixels")
+
+
+def capture_phase(dev, data: str, calib: str, raw: list, root: str, cold: dict,
+                  card: str) -> None:
+    """Phase 12(d): ``auto_scan_360`` of phase 7's 24 views over the real
+    HTTP rendezvous: the port's CaptureServer, a virtual projector, the
+    sequencer (no settle, pack_frames) and a simulated turntable
+    (CAPTURE_TURN_S a turn); a fake-phone thread long-polls /poll_command
+    and uploads, for each fresh command, the PNG (cv2) of phase 7's raw
+    render of the frame shown at the turntable's view. Then
+    ``run_pipeline`` over the captured root in a fresh directory with phase
+    7's config. Gates: 24 folders named by ``view_folder_name``, each
+    holding only a frames.slbp byte-equal to phase 7's; 24 progress events,
+    the last with remaining_s 0; merged.ply and model.stl byte-identical to
+    phase 7's cold run; decode_maps once a batch, radius_count 2 a view,
+    nn1, ransac_score and slab_mean_knn at least once."""
+    import threading
+    import urllib.request
+
+    import cv2
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.acquire.autoscan import (
+        auto_scan_360,
+        view_folder_name,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.acquire.projector import (
+        VirtualProjector,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.acquire.sequencer import (
+        CaptureSequencer,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.acquire.server import (
+        CaptureServer,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.acquire.turntable import (
+        SimulatedTurntable,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.acquire.viewer import (
+        StageRecorder,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.config import load_config
+    from structured_light_for_3d_model_replication_tpu_torch.ops import kernels
+    from structured_light_for_3d_model_replication_tpu_torch.pipeline import stages
+
+    step = 360.0 / PIPE_VIEWS
+    n_frames = raw[0].shape[0]
+    srv = CaptureServer("127.0.0.1", 0).start()
+    base = f"http://127.0.0.1:{srv.port}"
+    proj = VirtualProjector(*PIPE_PROJ)
+    table = SimulatedTurntable(CAPTURE_TURN_S)
+    stop = threading.Event()
+    phone_errors: list[BaseException] = []
+
+    def phone() -> None:
+        last = None
+        try:
+            while not stop.is_set():
+                try:
+                    with urllib.request.urlopen(base + "/poll_command", timeout=10) as r:
+                        cmd = json.loads(r.read())
+                except OSError:
+                    continue
+                if cmd["action"] != "capture" or cmd["id"] == last:
+                    continue
+                last = cmd["id"]
+                view = int(round(table.angle / step)) % PIPE_VIEWS
+                frame = raw[view][(len(proj.shown) - 1) % n_frames]
+                ok, png = cv2.imencode(".png", frame)
+                check(ok, "fake phone: PNG encode failed")
+                req = urllib.request.Request(
+                    f"{base}/upload?id={cmd['id']}", data=png.tobytes(),
+                    headers={"Content-Type": "image/png"}, method="POST")
+                with urllib.request.urlopen(req, timeout=10) as r:
+                    json.loads(r.read())
+        except BaseException as e:   # re-raised by the phase below
+            phone_errors.append(e)
+
+    round_trips: list[float] = []
+
+    def capture(path: str) -> None:
+        t0 = time.perf_counter()
+        srv.trigger_capture(path, timeout=20.0)
+        round_trips.append(time.perf_counter() - t0)
+
+    seq = CaptureSequencer(proj, capture, proj_size=PIPE_PROJ, scan_settle_ms=0,
+                           pack_frames=True, log=lambda m: None)
+    captured = os.path.join(root, "captured")
+    art = os.path.join(root, "capture_artifacts")
+    thread = threading.Thread(target=phone, name="fake-phone", daemon=True)
+    thread.start()
+    t0 = time.perf_counter()
+    try:
+        res = auto_scan_360(seq, table, captured, turns=PIPE_VIEWS, step_deg=step,
+                            rotate_timeout=5.0,
+                            progress=StageRecorder(art).autoscan_progress,
+                            log=lambda m: None)
+    finally:
+        stop.set()
+        srv.stop()
+        thread.join(timeout=30)
+    capture_wall = time.perf_counter() - t0
+    check(not thread.is_alive(), "fake phone: the thread did not end")
+    if phone_errors:
+        raise phone_errors[0]
+    names = [view_folder_name("scan", i * step) for i in range(PIPE_VIEWS)]
+    check([os.path.basename(d) for d in res.view_dirs] == names
+          and not res.failures and not res.rotation_warnings,
+          f"auto-scan: views {[os.path.basename(d) for d in res.view_dirs]}, failures "
+          f"{[f.as_dict() for f in res.failures]}, warnings {res.rotation_warnings}")
+    for i, name in enumerate(names):
+        got = os.path.join(captured, name)
+        check(os.listdir(got) == ["frames.slbp"], f"auto-scan: {name} holds "
+                                                  f"{os.listdir(got)}")
+        with open(os.path.join(got, "frames.slbp"), "rb") as a, open(os.path.join(
+                data, f"view_{round(i * step):03d}deg", "frames.slbp"), "rb") as b:
+            check(a.read() == b.read(), f"auto-scan: {name}/frames.slbp differs from "
+                                        f"phase 7's")
+    with open(os.path.join(art, "progress.json")) as f:
+        events = json.load(f)
+    check(len(events) == PIPE_VIEWS and all(e["stage"] == "autoscan" for e in events)
+          and events[-1]["remaining_s"] == 0.0,
+          f"auto-scan: {len(events)} progress events, the last {events[-1:]}")
+
+    cfg = load_config(None, PIPE_OVERRIDES)
+    out = os.path.join(root, "pipeline_captured")
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    report = stages.run_pipeline(calib, captured, out, cfg=cfg, device=dev,
+                                 log=lambda m: None)
+    torch.cuda.synchronize()
+    pipe_wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    print(json.dumps({"auto-scan": f"{PIPE_VIEWS} views over HTTP",
+                      "captures": len(round_trips), "capture_wall_s": capture_wall,
+                      "median_round_trip_s": float(np.median(round_trips)),
+                      "p99_round_trip_s": float(np.percentile(round_trips, 99)),
+                      "pipeline_wall_s": pipe_wall,
+                      "phase7_cold_wall_s": cold["wall_s"], "launches": counts,
+                      "phase7_launches": cold["counts"], "card": card}), flush=True)
+    check(len(round_trips) == PIPE_VIEWS * n_frames,
+          f"auto-scan: {len(round_trips)} captures, not {PIPE_VIEWS * n_frames}")
+    check(report.failures == [] and not report.degraded,
+          f"captured pipeline: failures {[f.as_dict() for f in report.failures]}")
+    for name in ("merged.ply", "model.stl"):
+        with open(os.path.join(out, name), "rb") as a, \
+                open(os.path.join(cold["out"], name), "rb") as b:
+            check(a.read() == b.read(), f"captured pipeline: {name} differs from phase "
+                                        f"7's cold run")
+    n_batches = -(-PIPE_VIEWS // cfg.parallel.compute_batch)
+    check(counts["decode_maps"] == n_batches,
+          f"captured pipeline: decode_maps launched {counts['decode_maps']} times, not "
+          f"once for each of {n_batches} batches")
+    check(counts["radius_count"] == 2 * PIPE_VIEWS,
+          f"captured pipeline: radius_count launched {counts['radius_count']} times")
+    for k in ("nn1", "ransac_score", "slab_mean_knn"):
+        check(counts[k] > 0, f"captured pipeline never launched {k}: {counts}")
+
+
 def main() -> int:
     import torch
 
@@ -2987,6 +3434,7 @@ def main() -> int:
     print(f"render: {frames_np.shape} in {time.perf_counter() - t0:.1f}s", flush=True)
     lines, stacks = kernel_phase(dev, rig, frames_np, gt)
     launches = reconstruct_phase(dev, rig, stacks, card)
+    calibration_phase(dev, rig, frames_np, stacks, card)
     del stacks
     executor_phase(dev, rig, frames_np, card)
     bitexact_phase(dev, rig, frames_np, card)
@@ -3007,7 +3455,8 @@ def main() -> int:
         bf16_phase(dev, ply_dir, root, merge_runs["device"], card)
     with tempfile.TemporaryDirectory(prefix="slscan_pipeline_") as root:
         t0 = time.perf_counter()
-        data, calib, scene = render_pipeline_views(root)
+        raw: list = []
+        data, calib, scene = render_pipeline_views(root, raw)
         print(f"pipeline views: {PIPE_VIEWS} rendered in {time.perf_counter() - t0:.1f}s",
               flush=True)
         lines += radius_phase(dev, data, calib, card)
@@ -3020,6 +3469,8 @@ def main() -> int:
         native_write_phase(cold["out"], card)
         surface_phase(dev, root, card)
         legacy_pipeline_phase(dev, data, calib, scene, root, cold, card)
+        capture_phase(dev, data, calib, raw, root, cold, card)
+        del raw
     for line in lines:
         line["launches"], line["launches_run"] = launches[line["name"]]
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f}s "

@@ -27,6 +27,18 @@
   python -m structured_light_for_3d_model_replication_tpu_torch patterns <dir>
   python -m structured_light_for_3d_model_replication_tpu_torch synth <root> \\
       [--views 4] [--cam 320x240] [--proj 256x128]
+  python -m structured_light_for_3d_model_replication_tpu_torch calibrate \\
+      <pose folders> [--output calib.mat] [--analyze-only] [--poses a,b,c] \\
+      [--review ARTIFACT_DIR] [--set checkerboard.rows=6]
+  python -m structured_light_for_3d_model_replication_tpu_torch inspect-calib \\
+      calib.mat [--plot rig.png]
+  python -m structured_light_for_3d_model_replication_tpu_torch scan <dir>
+  python -m structured_light_for_3d_model_replication_tpu_torch auto-scan \\
+      <root> [--base-name scan] [--artifacts DIR] [--set acquire.simulate=true]
+  python -m structured_light_for_3d_model_replication_tpu_torch capture-serve \\
+      [--save-dir captures] [--viewer] [--artifact-dir artifacts]
+  python -m structured_light_for_3d_model_replication_tpu_torch viewer <dir> \\
+      [--port 5051]
 
 The flags and exit codes are the JAX CLI's, plus ``--device`` on the
 commands that compute (default cuda; without CUDA the command fails
@@ -34,8 +46,13 @@ unless ``--device cpu`` is given). ``config`` prints the resolved
 configuration as the JAX package's JSON (its keys, the dropped ones
 included); ``report`` reads a traced ``pipeline`` run (``--trace``);
 ``--artifacts`` records each clean step's or merge step's cloud and a
-``progress.json`` (``acquire/viewer.StageRecorder``). Every command that
-computes arms the fault-injection plan of the ``faults`` config section, which the
+``progress.json`` (``acquire/viewer.StageRecorder``). ``calibrate`` solves
+the stereo rig on the host with OpenCV and prints the JAX CLI's tables;
+``scan`` / ``auto-scan`` drive the capture rig of the ``acquire`` section
+(``acquire.simulate=true``: a virtual projector and a simulated turntable,
+frames still come from the phone through the capture server);
+``capture-serve`` and ``viewer`` serve until interrupted (ctrl-C, exit 0).
+Every command past ``config`` and ``report`` arms the fault-injection plan of the ``faults`` config section, which the
 ``SL3D_FAULTS`` / ``SL3D_FAULTS_SEED`` environment variables override.
 """
 from __future__ import annotations
@@ -219,6 +236,57 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--cam", default="320x240", help="camera WxH")
     p.add_argument("--proj", default="256x128", help="projector WxH")
     _config_args(p)
+    p = sub.add_parser("calibrate",
+                       help="analyze calibration poses and solve the stereo rig")
+    p.add_argument("base_dir", help="folder of per-pose capture folders")
+    p.add_argument("--output", default=None,
+                   help="calibration output file (default: <base_dir>/calib.mat)")
+    p.add_argument("--analyze-only", action="store_true",
+                   help="only print per-pose reprojection errors")
+    p.add_argument("--poses", default=None,
+                   help="comma list of pose folder names to use (default: auto "
+                        "pruning by error ceilings)")
+    p.add_argument("--max-cam-err", type=float, default=1.0)
+    p.add_argument("--max-proj-err", type=float, default=2.0)
+    p.add_argument("--review", default=None, metavar="ARTIFACT_DIR",
+                   help="publish per-pose errors to this viewer artifact dir and "
+                        "WAIT for the operator's in-viewer pose selection before "
+                        "the final solve")
+    p.add_argument("--review-timeout", type=float, default=600.0,
+                   help="seconds to wait for the in-viewer selection before "
+                        "falling back to auto pruning")
+    _config_args(p)
+    p = sub.add_parser("inspect-calib",
+                       help="human-readable calibration summary (quality bands)")
+    p.add_argument("calib", help="calibration file (.mat/.npz)")
+    p.add_argument("--plot", default=None, metavar="PNG",
+                   help="also render the 3-D rig geometry plot to this PNG "
+                        "(needs matplotlib)")
+    _config_args(p)
+    p = sub.add_parser("capture-serve", help="run the phone-capture HTTP server")
+    p.add_argument("--save-dir", default="captures",
+                   help="where manual /upload images land")
+    p.add_argument("--viewer", action="store_true",
+                   help="also serve the artifact web viewer (next port up)")
+    p.add_argument("--artifact-dir", default="artifacts",
+                   help="directory the --viewer browses")
+    _config_args(p)
+    p = sub.add_parser("viewer",
+                       help="web viewer for per-stage artifacts (PLY/STL/PNG) and "
+                            "the calibration pose review")
+    p.add_argument("artifact_dir")
+    p.add_argument("--port", type=int, default=5051)
+    _config_args(p)
+    p = sub.add_parser("scan", help="capture one structured-light sequence")
+    p.add_argument("save_dir")
+    _config_args(p)
+    p = sub.add_parser("auto-scan", help="full 360-degree turntable sweep")
+    p.add_argument("output_root")
+    p.add_argument("--base-name", default="scan")
+    p.add_argument("--artifacts", default=None,
+                   help="record live sweep progress (elapsed/remaining) into this "
+                        "directory for the web viewer")
+    _config_args(p)
     return parser
 
 
@@ -350,6 +418,183 @@ def _synth(args) -> int:
     return 0
 
 
+def _calibrate(args, cfg) -> int:
+    """``calibrate``: per-pose errors, pose selection (``--poses``, the
+    viewer's ``--review``, else automatic pruning) and the stereo solve."""
+    from structured_light_for_3d_model_replication_tpu_torch.calib import chessboard as cb
+    from structured_light_for_3d_model_replication_tpu_torch.calib import inspect as ci
+    from structured_light_for_3d_model_replication_tpu_torch.calib import pipeline as cp
+
+    board = cb.BoardSpec(rows=cfg.checkerboard.rows, cols=cfg.checkerboard.cols,
+                         square_size=cfg.checkerboard.square_size_mm)
+    proj_size = (cfg.projector.width, cfg.projector.height)
+    errors, observations, img_shape = cp.analyze_calibration(
+        args.base_dir, board=board, proj_size=proj_size)
+    print(f"{'pose':<20} {'cam px':>8} {'proj px':>8}  quality")
+    for pose, (ec, ep) in sorted(errors.items()):
+        print(f"{pose:<20} {ec:>8.3f} {ep:>8.3f}  {ci.quality_band(ec)}")
+    if args.analyze_only:
+        return 0
+    if args.poses:
+        selected = [p.strip() for p in args.poses.split(",") if p.strip()]
+    elif args.review:
+        from structured_light_for_3d_model_replication_tpu_torch.acquire import (
+            viewer as viewerlib,
+        )
+
+        viewerlib.publish_pose_review(args.review, errors)
+        print(f"pose review published to {args.review} — select poses in "
+              f"the viewer (sl3d viewer {args.review}); waiting up to "
+              f"{args.review_timeout:.0f}s...")
+        selected = viewerlib.await_pose_selection(args.review, args.review_timeout)
+        if selected is not None:
+            selected = [s for s in selected if s in errors]
+        if not selected:  # timeout, empty selection, or no matching names
+            print("no usable selection received — falling back to auto pruning")
+            selected = cp.select_poses(errors, args.max_cam_err, args.max_proj_err)
+    else:
+        selected = cp.select_poses(errors, args.max_cam_err, args.max_proj_err)
+    print(f"using {len(selected)}/{len(errors)} poses: {', '.join(sorted(selected))}")
+    output = args.output or os.path.join(args.base_dir, "calib.mat")
+    cp.calibrate_and_save(args.base_dir, output, selected_poses=selected,
+                          board=board, proj_size=proj_size,
+                          observations=observations, img_shape=img_shape)
+    return 0
+
+
+def _inspect_calib(args) -> int:
+    from structured_light_for_3d_model_replication_tpu_torch.calib import inspect as ci
+    from structured_light_for_3d_model_replication_tpu_torch.io import matfile
+
+    calib = matfile.load_calibration(args.calib)
+    print(ci.format_summary(ci.summarize_calibration(calib)))
+    if args.plot:
+        from structured_light_for_3d_model_replication_tpu_torch.calib import visualize
+
+        info = visualize.plot_rig(calib, args.plot)
+        print(f"rig plot -> {info['plot']}")
+    return 0
+
+
+def _serve_until_interrupted(*servers) -> int:
+    import time
+
+    try:
+        while True:
+            time.sleep(1)
+    except KeyboardInterrupt:
+        for srv in servers:
+            if srv is not None:
+                srv.stop()
+    return 0
+
+
+def _capture_serve(args, cfg) -> int:
+    from structured_light_for_3d_model_replication_tpu_torch.acquire.server import (
+        CaptureServer,
+    )
+
+    a = cfg.acquire
+    os.makedirs(args.save_dir, exist_ok=True)
+    srv = CaptureServer(a.http_host, a.http_port, poll_hold=a.long_poll_hold_s,
+                        disconnect_after=a.disconnect_after_s,
+                        upload_dir=args.save_dir).start()
+    print(f"capture server on http://{a.http_host}:{srv.port} "
+          f"(open this on the phone; ctrl-C to stop)", flush=True)
+    view = None
+    if args.viewer:
+        from structured_light_for_3d_model_replication_tpu_torch.acquire.viewer import (
+            ViewerServer,
+        )
+
+        os.makedirs(args.artifact_dir, exist_ok=True)
+        view = ViewerServer(args.artifact_dir, a.http_host, srv.port + 1).start()
+        print(f"artifact viewer on http://{a.http_host}:{view.port}", flush=True)
+    return _serve_until_interrupted(srv, view)
+
+
+def _viewer(args, cfg) -> int:
+    from structured_light_for_3d_model_replication_tpu_torch.acquire.viewer import (
+        ViewerServer,
+    )
+
+    host = cfg.acquire.http_host
+    view = ViewerServer(args.artifact_dir, host, args.port).start()
+    print(f"artifact viewer on http://{host}:{view.port} "
+          f"(serving {args.artifact_dir}; ctrl-C to stop)", flush=True)
+    return _serve_until_interrupted(view)
+
+
+def _build_capture_rig(cfg):
+    """Capture server + projector + sequencer + turntable from the
+    ``acquire`` and ``projector`` sections."""
+    from structured_light_for_3d_model_replication_tpu_torch.acquire.projector import (
+        open_projector,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.acquire.sequencer import (
+        CaptureSequencer,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.acquire.server import (
+        CaptureServer,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.acquire.turntable import (
+        open_turntable,
+    )
+
+    a = cfg.acquire
+    server = CaptureServer(a.http_host, a.http_port, poll_hold=a.long_poll_hold_s,
+                           disconnect_after=a.disconnect_after_s).start()
+    projector = open_projector("virtual" if a.simulate else "auto",
+                               screen_offset_x=cfg.projector.screen_offset_x)
+    sequencer = CaptureSequencer(
+        projector,
+        lambda path: server.trigger_capture(path, timeout=a.capture_timeout_s),
+        proj_size=(cfg.projector.width, cfg.projector.height),
+        brightness=cfg.projector.brightness,
+        downsample=cfg.projector.downsample,
+        scan_settle_ms=a.settle_ms_scan, calib_settle_ms=a.settle_ms_calib,
+        pack_frames=a.pack_frames, pack_keep_raw=a.pack_keep_raw,
+    )
+    turntable = open_turntable("sim" if a.simulate else "auto",
+                               port=a.serial_port or None)
+    return server, projector, sequencer, turntable
+
+
+def _close_rig(server, projector, turntable) -> None:
+    projector.close()
+    server.stop()
+    if hasattr(turntable, "close"):
+        turntable.close()
+
+
+def _scan(args, cfg) -> int:
+    server, projector, sequencer, turntable = _build_capture_rig(cfg)
+    try:
+        sequencer.capture_scan(args.save_dir)
+    finally:
+        _close_rig(server, projector, turntable)
+    return 0
+
+
+def _auto_scan(args, cfg) -> int:
+    from structured_light_for_3d_model_replication_tpu_torch.acquire.autoscan import (
+        auto_scan_360,
+    )
+
+    progress = StageRecorder(args.artifacts).autoscan_progress if args.artifacts else None
+    server, projector, sequencer, turntable = _build_capture_rig(cfg)
+    a = cfg.acquire
+    try:
+        result = auto_scan_360(
+            sequencer, turntable, args.output_root, turns=a.turns,
+            step_deg=a.degrees_per_turn, base_name=args.base_name,
+            rotate_timeout=a.rotate_timeout_s, capture_retries=a.capture_retries,
+            rotate_retries=a.rotate_retries, progress=progress)
+    finally:
+        _close_rig(server, projector, turntable)
+    return 0 if result.view_dirs else 1
+
+
 def main(argv: list[str] | None = None) -> int:
     parser = _parser()
     args = parser.parse_args(argv)
@@ -377,6 +622,18 @@ def main(argv: list[str] | None = None) -> int:
     if args.command == "patterns":
         stages.write_patterns(args.out_dir, cfg=cfg)
         return 0
+    if args.command == "calibrate":
+        return _calibrate(args, cfg)
+    if args.command == "inspect-calib":
+        return _inspect_calib(args)
+    if args.command == "capture-serve":
+        return _capture_serve(args, cfg)
+    if args.command == "viewer":
+        return _viewer(args, cfg)
+    if args.command == "scan":
+        return _scan(args, cfg)
+    if args.command == "auto-scan":
+        return _auto_scan(args, cfg)
     if args.command == "clean":
         steps = _steps(args.steps)
         if os.path.isdir(args.input):

@@ -1,20 +1,18 @@
 """Typed configuration for the scan-to-print path.
 
 The port's own copy of the JAX package's config dataclasses, cut to what
-``reconstruct``, ``clean``, ``merge-360``, ``mesh`` and ``pipeline`` read.
-Field names and defaults are the same, so one JSON config file loads in
-both packages:
+the port's commands read. Field names and defaults are the same, so one
+JSON config file loads in both packages:
 
-  - ``projector``, ``decode``, ``triangulate``, ``clean``, ``merge``,
-    ``mesh``, ``faults``, ``deadlines`` and ``observability`` are whole
-    copies (with their env overrides); an unknown key there is an error, as
-    in the JAX package;
+  - ``projector``, ``checkerboard``, ``decode``, ``triangulate``,
+    ``clean``, ``merge``, ``mesh``, ``acquire``, ``faults``, ``deadlines``
+    and ``observability`` are whole copies (with their env overrides); an
+    unknown key there is an error, as in the JAX package;
   - ``parallel`` carries ``backend``, ``force_bf16_features``,
     ``compute_batch``, ``io_workers`` and ``prefetch_depth``; ``pipeline``
     carries every key. The other keys of
     ``parallel``, and the sections the port does not model
-    (``checkerboard``, ``acquire``, ``coordinator``, ``serving``,
-    ``scan_root``), configure features the port does not have yet: they
+    (``coordinator``, ``serving``, ``scan_root``), configure features the port does not have yet: they
     load without effect, and the loader logs each one set away from the
     JAX package's default, once a process (``_DROPPED``).
 """
@@ -27,10 +25,10 @@ import sys
 from dataclasses import dataclass, field
 from typing import Any
 
-__all__ = ["ProjectorConfig", "DecodeConfig", "TriangulateConfig",
+__all__ = ["ProjectorConfig", "CheckerboardConfig", "DecodeConfig", "TriangulateConfig",
            "CleanConfig", "MergeConfig", "MeshConfig", "ParallelConfig",
            "PipelineConfig", "ObservabilityConfig", "DeadlinesConfig",
-           "FaultsConfig", "Config", "load_config", "jax_dict"]
+           "FaultsConfig", "AcquireConfig", "Config", "load_config", "jax_dict"]
 
 
 @dataclass
@@ -42,6 +40,15 @@ class ProjectorConfig:
     screen_offset_x: int = 1920  # projector is the second monitor
     brightness: int = 200        # white level of projected patterns
     downsample: int = 1          # pattern downsample factor
+
+
+@dataclass
+class CheckerboardConfig:
+    """Calibration target: inner corners and square size."""
+
+    rows: int = 7
+    cols: int = 7
+    square_size_mm: float = 35.0
 
 
 @dataclass
@@ -140,6 +147,39 @@ class MeshConfig:
     close_holes_max_edges: int = 0  # fill boundary loops up to this size (0=off)
     surface_alpha_factor: float = 2.5  # mode='surface': ball radius / avg NN dist
     surface_k: int = 12               # mode='surface': neighbor fan size
+
+
+@dataclass
+class AcquireConfig:
+    """Capture rig: the phone rendezvous server, settle times, the
+    turntable and the retry budgets of the acquisition path."""
+
+    http_host: str = "0.0.0.0"
+    http_port: int = 5000
+    long_poll_hold_s: float = 2.0
+    capture_timeout_s: float = 20.0
+    disconnect_after_s: float = 5.0
+    settle_ms_scan: int = 200
+    settle_ms_calib: int = 250
+    serial_port: str = ""        # empty = the first serial port found
+    serial_baud: int = 115200
+    rotate_timeout_s: float = 30.0
+    turns: int = 12
+    degrees_per_turn: float = 30.0
+    simulate: bool = False       # no hardware: virtual projector, simulated turntable
+    # transient-failure retry budgets: http_retries re-runs a failed phone
+    # HTTP request; rotate_retries re-issues a rotation after a missed DONE
+    # or a serial error, re-opening the port between attempts;
+    # capture_retries re-runs a whole per-view capture sequence before
+    # auto-scan records the view as failed and goes on with the sweep
+    http_retries: int = 2
+    http_backoff_s: float = 0.2
+    rotate_retries: int = 1
+    capture_retries: int = 1
+    # pack each captured view to the bit-plane container (frames.slbp) as
+    # soon as its sequence lands; pack_keep_raw keeps the PNGs beside it
+    pack_frames: bool = False
+    pack_keep_raw: bool = False
 
 
 @dataclass
@@ -274,11 +314,13 @@ class Config:
     """Root configuration of the scan-to-print path."""
 
     projector: ProjectorConfig = field(default_factory=ProjectorConfig)
+    checkerboard: CheckerboardConfig = field(default_factory=CheckerboardConfig)
     decode: DecodeConfig = field(default_factory=DecodeConfig)
     triangulate: TriangulateConfig = field(default_factory=TriangulateConfig)
     clean: CleanConfig = field(default_factory=CleanConfig)
     merge: MergeConfig = field(default_factory=MergeConfig)
     mesh: MeshConfig = field(default_factory=MeshConfig)
+    acquire: AcquireConfig = field(default_factory=AcquireConfig)
     parallel: ParallelConfig = field(default_factory=ParallelConfig)
     pipeline: PipelineConfig = field(default_factory=PipelineConfig)
     faults: FaultsConfig = field(default_factory=FaultsConfig)
@@ -299,15 +341,6 @@ class Config:
 _DROPPED: dict[str, Any] = {
     "parallel": {"data_axis": 0, "model_axis": 1, "merge_mesh": False,
                  "shard_views": True},
-    "checkerboard": {"rows": 7, "cols": 7, "square_size_mm": 35.0},
-    "acquire": {
-        "http_host": "0.0.0.0", "http_port": 5000, "long_poll_hold_s": 2.0,
-        "capture_timeout_s": 20.0, "disconnect_after_s": 5.0, "settle_ms_scan": 200,
-        "settle_ms_calib": 250, "serial_port": "", "serial_baud": 115200,
-        "rotate_timeout_s": 30.0, "turns": 12, "degrees_per_turn": 30.0,
-        "simulate": False, "http_retries": 2, "http_backoff_s": 0.2,
-        "rotate_retries": 1, "capture_retries": 1, "pack_frames": False,
-        "pack_keep_raw": False},
     "coordinator": {
         "workers": 0, "lease_s": 45.0, "heartbeat_s": 2.0, "max_steals": 3,
         "port": 0, "connect_timeout_s": 20.0, "listen": "", "connect": "",

@@ -30,7 +30,7 @@ __all__ = ["list_frame_files", "load_stack", "save_stack", "save_image", "load_g
            "load_color",
            "PackedStack", "pack_stack", "unpack_stack", "save_packed_stack",
            "load_packed_stack", "probe_packed", "packed_file", "count_frames",
-           "PACKED_NAME"]
+           "pack_scan_folder", "PACKED_NAME"]
 
 _EXTS = (".bmp", ".png", ".jpg", ".jpeg", ".ppm", ".pgm")
 PACKED_EXT = ".slbp"
@@ -337,3 +337,25 @@ def load_packed_stack(source) -> PackedStack:
         texture = section((h, w, 3)) if hdr.get("texture") else None
     return PackedStack(planes=planes, white=white, black=black,
                        n_frames=int(hdr["n_frames"]), texture=texture)
+
+
+def pack_scan_folder(folder: str, keep_raw: bool = False) -> str:
+    """Pack a captured raw-frame folder in place -> the .slbp path.
+
+    The capture path's ``acquire.pack_frames`` calls it once a view's
+    frames have landed: the white frame's color read becomes the
+    container's texture, and unless ``keep_raw`` the per-frame images are
+    removed, so ``list_frame_files`` resolves to the container alone. The
+    bytes equal the JAX package's for the same folder."""
+    files = list_frame_files(folder)
+    if len(files) == 1 and files[0].endswith(PACKED_EXT):
+        return files[0]  # already packed
+    frames, texture = load_stack(folder)
+    path = save_packed_stack(folder, pack_stack(frames, texture=texture))
+    if not keep_raw:
+        for p in files:
+            try:
+                os.remove(p)
+            except OSError:
+                pass
+    return path

@@ -24,10 +24,16 @@ supplies the two halves of making that chain resilient:
    ``register.pair``     streamed-merge pair registration (item is
                          ``"<dst>-><src>"`` view indices; an exhausted or
                          permanent hit falls back to the identity transform)
+   ``serial.rotate``     every turntable rotation (acquire/turntable.py;
+                         item is the port name, ``sim`` or ``loopback``)
+   ``http.capture``      each Android camera-host capture attempt
+                         (acquire/android.py; item is the host URL)
    ====================  ====================================================
 
-   The grammar also accepts the JAX package's other site names (acquire,
-   coordinator, serving); the port has no such stage, so they never fire.
+   ``frame.pack`` also fires in the capture sequencer's pack-on-capture
+   step (acquire/sequencer.py; item is the view folder). The grammar also
+   accepts the JAX package's other site names (coordinator, serving); the
+   port has no such stage, so they never fire.
 
 2. **Retry/quarantine toolkit** — the exception classifier
    (:func:`is_transient`), the bounded exponential-backoff

@@ -24,7 +24,8 @@ __all__ = ["Rig", "Sphere", "Plane", "Scene", "default_rig", "render_scene",
            "rotate_y", "sphere_on_background", "turntable_poses",
            "three_spheres", "lumpy_views", "turntable_transforms", "pose_errors",
            "sphere_surface_distance", "surface_distance", "sphere_union_cloud",
-           "pipeline_scene"]
+           "pipeline_scene", "Chessboard", "calibration_poses",
+           "render_chessboard"]
 
 
 @dataclass
@@ -327,3 +328,148 @@ def pipeline_scene(cam_size=(768, 576), proj_size=(512, 256), n_views: int = 24,
                   + [Plane(np.array([0.0, -1.0, 0.0]), 80.0)])
     poses = turntable_poses(n_views, step_deg, np.array([0.0, 0.0, 400.0]))
     return default_rig(cam_size=cam_size, proj_size=proj_size), scene, poses
+
+
+# ---------------------------------------------------------------------------
+# Calibration renders: a chessboard lit by the pattern stack
+# ---------------------------------------------------------------------------
+
+def _rot(axis: int, deg: float) -> np.ndarray:
+    a = np.deg2rad(deg)
+    c, s = np.cos(a), np.sin(a)
+    i, j = [k for k in range(3) if k != axis]
+    R = np.eye(3)
+    R[i, i], R[i, j], R[j, i], R[j, j] = c, -s, s, c
+    return R
+
+
+@dataclass
+class Chessboard:
+    """A flat calibration board posed in the camera frame: ``rows`` x
+    ``cols`` inner corners ``square`` mm apart (``calib.chessboard``'s
+    layout: corner (r, c) at board coordinates (r * square, c * square, 0)),
+    the checker of (rows + 1) x (cols + 1) squares, and a white margin of
+    ``margin`` squares around it. x_cam = R @ x_board + t."""
+
+    rows: int
+    cols: int
+    square: float
+    R: np.ndarray
+    t: np.ndarray
+    margin: float = 1.0
+    white: float = 0.85
+    black: float = 0.1
+
+    def outline(self) -> np.ndarray:
+        """[4, 3] camera-frame corners of the board with its margin."""
+        lo, s = -1.0 - self.margin, self.square
+        hx, hy = self.rows + self.margin, self.cols + self.margin
+        q = np.array([[lo, lo, 0], [hx, lo, 0], [hx, hy, 0], [lo, hy, 0]]) * s
+        return q @ self.R.T + self.t
+
+    def corners(self) -> np.ndarray:
+        """[rows * cols, 3] camera-frame inner corners, ``board_object_points``
+        order."""
+        r, c = np.mgrid[0:self.rows, 0:self.cols]
+        q = np.stack([r.T.ravel(), c.T.ravel(), np.zeros(r.size)], axis=1) * self.square
+        return q @ self.R.T + self.t
+
+
+def _project(K: np.ndarray, pts: np.ndarray) -> np.ndarray:
+    return (pts[:, :2] / pts[:, 2:3]) * np.diag(K)[:2] + K[:2, 2]
+
+
+def calibration_poses(rig: Rig, rows: int = 6, cols: int = 9, square: float = 10.0,
+                      n: int = 10, near: float = 400.0, far: float = 600.0
+                      ) -> list[Chessboard]:
+    """``n`` (<= 10) boards from ``near`` to ``far`` mm from the camera,
+    tilted up to 20 degrees about both image axes and turned up to 10
+    degrees in plane, each wholly inside the camera image and the
+    projector's light (checked: a board that leaves either raises). The
+    board's ``rows`` axis runs down the image, its ``cols`` axis across;
+    each board sits in the middle of the band the camera and the projector
+    share at its depth."""
+    # share of the depth range, tilt about x, tilt about y, in-plane turn,
+    # offset across (mm)
+    table = [(0.0, 0, 0, 0, 0), (0.1, 18, -10, 5, -20), (0.2, -15, 15, -8, 25),
+             (0.3, 10, 20, 3, -30), (0.4, -20, -15, 10, 10), (0.5, 5, -20, -5, 40),
+             (0.6, -10, 10, 8, -45), (0.75, 20, 5, -10, 20), (0.9, -5, -18, 6, -15),
+             (1.0, 15, 18, -3, 35)]
+    if n > len(table):
+        raise ValueError(f"calibration_poses: at most {len(table)} poses")
+    base = np.array([[0.0, 1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, -1.0]])
+    mid = np.array([(rows - 1) / 2 * square, (cols - 1) / 2 * square, 0.0])
+    cw, ch = rig.cam_size
+    pw, ph = rig.proj_size
+    boards = []
+    for share, tx, ty, tz, dx in table[:n]:
+        z = near + share * (far - near)
+        R = _rot(0, tx) @ _rot(1, ty) @ base @ _rot(2, tz)
+        # the middle of the band both the camera and the projector see at z
+        y_cam = (ch / 2) / rig.cam_K[1, 1] * z
+        y_proj = (ph / 2) / rig.proj_K[1, 1] * z
+        y_mid = (max(-y_cam, -rig.T[1] - y_proj) + min(y_cam, -rig.T[1] + y_proj)) / 2
+        center = np.array([dx - 40.0, y_mid, float(z)])
+        board = Chessboard(rows, cols, square, R, center - R @ mid)
+        out = board.outline()
+        cam = _project(rig.cam_K, out)
+        prj = _project(rig.proj_K, out @ rig.R.T + rig.T)
+        inside = ((cam >= 0).all() and (cam[:, 0] < cw).all() and (cam[:, 1] < ch).all()
+                  and (prj >= 0).all() and (prj[:, 0] < pw).all()
+                  and (prj[:, 1] < ph).all())
+        if not inside:
+            raise ValueError(f"calibration_poses: the board at {z} mm leaves the "
+                             f"camera image or the projector's light")
+        boards.append(board)
+    return boards
+
+
+def render_chessboard(rig: Rig, board: Chessboard, brightness: int = 200,
+                      ambient: float = 6.0) -> np.ndarray:
+    """The full Gray-code capture sequence of ``board`` through ``rig``:
+    uint8 [F, H, W] (numpy). The board's albedo is box-filtered over each
+    pixel's footprint (an anti-aliased checker, so sub-pixel corner
+    refinement sees real edges); the projector pattern is sampled at each
+    pixel centre's board point, as ``render_scene`` does. Off the board the
+    camera sees the ambient level."""
+    cw, ch = rig.cam_size
+    pw, ph = rig.proj_size
+    u, v = np.meshgrid(np.arange(cw, dtype=np.float64), np.arange(ch, dtype=np.float64))
+    dirs = np.stack([(u - rig.cam_K[0, 2]) / rig.cam_K[0, 0],
+                     (v - rig.cam_K[1, 2]) / rig.cam_K[1, 1], np.ones_like(u)], axis=-1)
+    n = board.R[:, 2]
+    depth = (board.t @ n) / (dirs @ n)                # ray z where it meets the plane
+    pts = dirs * depth[..., None]
+    q = (pts - board.t) @ board.R / board.square      # board coordinates in squares
+    qx, qy = q[..., 0], q[..., 1]
+    # footprint of one pixel in squares (box filter widths)
+    wx = np.abs(np.gradient(qx, axis=1)) + np.abs(np.gradient(qx, axis=0)) + 1e-3
+    wy = np.abs(np.gradient(qy, axis=1)) + np.abs(np.gradient(qy, axis=0)) + 1e-3
+
+    def square_wave(p, w):   # box-filtered +-1 square wave of period 2
+        return 2.0 * (np.abs(np.mod((p - 0.5 * w) * 0.5, 1.0) - 0.5)
+                      - np.abs(np.mod((p + 0.5 * w) * 0.5, 1.0) - 0.5)) / w
+
+    checker = 0.5 - 0.5 * square_wave(qx, wx) * square_wave(qy, wy)   # 1 = white
+
+    def inside(p, w, lo, hi):   # share of the footprint within [lo, hi]
+        return np.clip((np.minimum(p + w / 2, hi) - np.maximum(p - w / 2, lo)) / w, 0, 1)
+
+    cover = inside(qx, wx, -1.0, board.rows) * inside(qy, wy, -1.0, board.cols)
+    m = board.margin
+    on = inside(qx, wx, -1.0 - m, board.rows + m) * inside(qy, wy, -1.0 - m, board.cols + m)
+    albedo = on * (board.white * (1 - cover)
+                   + cover * (board.black + (board.white - board.black) * checker))
+    albedo = np.where(depth > 0, albedo, 0.0).reshape(-1)
+
+    pp = pts.reshape(-1, 3) @ rig.R.T + rig.T
+    zz = np.where(pp[:, 2] > 1e-6, pp[:, 2], 1.0)
+    ui = np.round(rig.proj_K[0, 0] * pp[:, 0] / zz + rig.proj_K[0, 2]).astype(np.int64)
+    vi = np.round(rig.proj_K[1, 1] * pp[:, 1] / zz + rig.proj_K[1, 2]).astype(np.int64)
+    lit = (pp[:, 2] > 1e-6) & (ui >= 0) & (ui < pw) & (vi >= 0) & (vi < ph)
+    patterns = generate_pattern_stack(pw, ph, brightness)
+    gain = (albedo * lit).astype(np.float32)
+    seen = patterns[:, np.clip(vi, 0, ph - 1), np.clip(ui, 0, pw - 1)].astype(np.float32)
+    img = seen * gain[None, :] + np.float32(ambient)
+    return np.ascontiguousarray(
+        np.clip(img, 0, 255).astype(np.uint8).reshape(-1, ch, cw))

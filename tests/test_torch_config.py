@@ -29,7 +29,7 @@ def test_copied_sections_have_the_jax_defaults(env, monkeypatch):
         monkeypatch.setenv(k, v)
     port, jax = config.Config().to_dict(), jconfig.Config().to_dict()
     for section in ("faults", "deadlines", "observability", "projector", "decode",
-                    "triangulate", "clean", "merge", "mesh"):
+                    "triangulate", "clean", "merge", "mesh", "checkerboard", "acquire"):
         assert port[section] == jax[section], section
     for section in ("pipeline", "parallel"):
         assert port[section] == {k: jax[section][k] for k in port[section]}
@@ -98,3 +98,33 @@ def test_force_bf16_features_is_carried_and_round_trips(tmp_path, capsys):
     parallel = config.jax_dict(cfg)["parallel"]
     assert parallel == jcfg.to_dict()["parallel"]
     assert list(parallel) == list(jcfg.to_dict()["parallel"])
+
+
+def test_checkerboard_and_acquire_are_carried_in_the_jax_order(tmp_path, capsys):
+    """The calibration target and the capture rig load into the port (no
+    longer dropped, so never logged), from a JAX-package file and from
+    overrides, and the ``config`` JSON equals the JAX package's, key order
+    included."""
+    jcfg = jconfig.Config()
+    jcfg.checkerboard.rows, jcfg.checkerboard.cols = 6, 9
+    jcfg.checkerboard.square_size_mm = 10.0
+    jcfg.acquire.simulate = True
+    jcfg.acquire.pack_frames = True
+    jcfg.acquire.http_port = 0
+    jcfg.save(str(tmp_path / "jax.json"))
+    cfg = config.load_config(str(tmp_path / "jax.json"))
+    assert (cfg.checkerboard.rows, cfg.checkerboard.cols) == (6, 9)
+    assert cfg.checkerboard.square_size_mm == 10.0
+    assert cfg.acquire.simulate is True and cfg.acquire.pack_frames is True
+    assert cfg.acquire.http_port == 0
+    over = config.load_config(None, {"acquire.simulate": "true", "checkerboard.rows": "6",
+                                     "acquire.settle_ms_scan": "0"})
+    assert over.acquire.simulate is True and over.checkerboard.rows == 6
+    assert over.acquire.settle_ms_scan == 0
+    assert capsys.readouterr().err == ""
+    assert "checkerboard" not in config._DROPPED and "acquire" not in config._DROPPED
+    assert json.dumps(config.jax_dict(cfg)) == json.dumps(jcfg.to_dict())
+    j_over = jconfig.load_config(None, {"acquire.simulate": "true",
+                                        "checkerboard.rows": "6",
+                                        "acquire.settle_ms_scan": "0"})
+    assert json.dumps(config.jax_dict(over)) == json.dumps(j_over.to_dict())

@@ -40,7 +40,11 @@ def test_importing_every_port_module_leaves_jax_unloaded():
     assert len(mods) >= 15
     for m in ("utils.telemetry", "utils.faults", "utils.deadline", "utils.profiling",
               "pipeline.stagecache", "ops.fused_view", "io.native", "pipeline.report",
-              "acquire.viewer", "ops.posegraph", "ops.surface_recon"):
+              "acquire.viewer", "ops.posegraph", "ops.surface_recon",
+              "calib.chessboard", "calib.inspect", "calib.undistort", "calib.pipeline",
+              "calib.visualize", "acquire.projector", "acquire.turntable",
+              "acquire.server", "acquire.sequencer", "acquire.autoscan", "acquire.webcam",
+              "acquire.android"):
         assert f"{PKG}.{m}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
