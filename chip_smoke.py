@@ -213,7 +213,31 @@ Imports nothing of JAX. Phases, each of which exits non-zero on failure:
    frames.slbp byte-equal to phase 7's, 24 progress events; then
    ``run_pipeline`` over them: merged.ply and model.stl byte-identical to
    phase 7's cold run, its kernel launches as phase 7's; the capture wall,
-   the median round trip a frame and the pipeline wall printed.
+   the median round trip a frame and the pipeline wall printed;
+13. the coordinated pipeline (``coordinated_phase``, after phase 12(d)):
+   first phase 7's 23 chain pairs, prepped from its cached cleaned views,
+   registered in groups of ``merge.pair_batch`` and each alone (a worker's
+   pair item): T, fitnesses and rmse byte-equal to each other and to
+   phase 7's cached pair entries (``pair_group_gate``); then
+   ``run_pipeline`` with ``coordinator.workers`` over phase 7's 24 views
+   and config on the card, in fresh directories, each arm's merged.ply and
+   model.stl byte-identical to phase 7's cold run. (a) loopback, 2 worker
+   processes (each with its own CUDA context): 24 view and 23 pair items
+   completed with no steal and nothing lost; this process (the assembly
+   pass) launches none of decode_maps, scan_fused, decode_packed_maps,
+   radius_count, ransac_score or nn1; the workers' exit lines (``.coord/
+   worker<r>.log``) sum to decode_maps 24 and radius_count 48, with
+   ransac_score and nn1 launched; each worker's peak device memory and the
+   wall beside phase 7's cold wall printed. (b) the pod fabric
+   (``coordinator.listen``, a secret, one spawned worker warming a private
+   L1 root, ``merge.incremental``, the flight recorder) joined by an
+   external ``worker --spec <out>/.coord/join.json`` started here: it
+   completes an item and exits 0, the fold lane folds a view, the port's
+   ``report --validate`` exits 0 and the journals' fabric bytes equal the
+   blob server's counters (pushes, fetches, bytes and the assembly tail
+   printed). (c) chaos: ``SL3D_FAULTS=worker.item~w0:worker.kill@3`` under
+   an 8 s lease and 1 s heartbeats: w0 exits 137, the ledger holds a
+   steal and no item completed before the kill is granted again.
 
 Then one ``{"kernels": [...]}`` JSON line (times from phases 2, 4 and 6,
 bounds from this run's shapes, and each kernel's launches from one run of
@@ -3412,6 +3436,319 @@ def capture_phase(dev, data: str, calib: str, raw: list, root: str, cold: dict,
         check(counts[k] > 0, f"captured pipeline never launched {k}: {counts}")
 
 
+# phase 13: the coordinated pipeline. (c)'s lease is short enough to steal
+# quickly and still longer than any opaque stage call of a warm worker
+COORD_WORKERS = 2
+COORD_LEASE_S = 8.0
+COORD_VIEW_KERNELS = ("decode_maps", "scan_fused", "decode_packed_maps", "radius_count",
+                      "ransac_score", "nn1")
+PORT_PKG = "structured_light_for_3d_model_replication_tpu_torch"
+
+
+def worker_exit(log_path: str) -> dict | None:
+    """A worker log's exit line: {"launches": {kernel: n}, "peak_bytes": n};
+    None for a worker that was killed (it writes none)."""
+    import re
+
+    with open(log_path, encoding="utf-8") as f:
+        lines = f.read().splitlines()
+    for line in reversed(lines):
+        m = re.search(r"exit: launches (\{.*\}) peak_device_bytes (\d+)", line)
+        if m:
+            return {"launches": json.loads(m.group(1)), "peak_bytes": int(m.group(2))}
+    return None
+
+
+def _ledger(out: str) -> list[dict]:
+    with open(os.path.join(out, "ledger.jsonl"), encoding="utf-8") as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def _start_external(out: str, done) -> dict:
+    """A thread that waits for the coordinator's ``<out>/.coord/join.json``
+    and starts ``python -m <port> worker --spec`` on it, its output in
+    ``<out>/.coord/ext0.log``. Returns {"thread", "proc" (once started)}."""
+    import threading
+
+    ext: dict = {}
+
+    def join() -> None:
+        path = os.path.join(out, ".coord", "join.json")
+        deadline = time.monotonic() + 300.0
+        while not os.path.exists(path):
+            if done.is_set() or time.monotonic() > deadline:
+                return
+            time.sleep(0.05)
+        time.sleep(0.2)   # the coordinator's json.dump has finished
+        here = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [here] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+        with open(os.path.join(out, ".coord", "ext0.log"), "wb") as logf:
+            ext["proc"] = subprocess.Popen(
+                [sys.executable, "-m", PORT_PKG, "worker", "--spec", path],
+                stdout=logf, stderr=subprocess.STDOUT, env=env, cwd=here)
+
+    ext["thread"] = threading.Thread(target=join, name="chip-smoke-ext0", daemon=True)
+    ext["thread"].start()
+    return ext
+
+
+def pair_group_gate(dev, data: str, calib: str, cold: dict, card: str) -> None:
+    """Phase 13's first gate: phase 7's 23 chain pairs, prepped from its
+    cached cleaned views as a worker preps them, registered in groups of
+    ``merge.pair_batch`` (the streamed lane's schedule) and each alone (a
+    worker's pair item): T, gfit, ifit and irmse byte-equal, and equal to
+    the pair entries phase 7's streamed lane cached. A pair that rounded by
+    its group would show here, not as a cold merge in the arms below."""
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.config import load_config
+    from structured_light_for_3d_model_replication_tpu_torch.models import (
+        reconstruction as recon,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.pipeline import stages
+    from structured_light_for_3d_model_replication_tpu_torch.pipeline.stagecache import (
+        StageCache,
+    )
+
+    cfg = load_config(None, PIPE_OVERRIDES)
+    cache = StageCache(os.path.join(cold["out"], ".slscan-cache"), log=lambda m: None)
+    _, _, keys, _ = stages._view_plan(calib, data, cfg, stages.CLEAN_STEPS, cache,
+                                      lambda m: None, dev)
+    views = [cache.get("view", k) for k in keys]
+    check(len(views) == PIPE_VIEWS and all(v is not None for v in views),
+          "pair group gate: phase 7's cleaned views are not all cached")
+    pts = [np.asarray(v["points"], np.float32) for v in views]
+    digs = [StageCache.digest_arrays(points=p, colors=np.asarray(v["colors"], np.uint8))
+            for p, v in zip(pts, views)]
+    voxel = float(cfg.merge.voxel_size)
+    preps = [recon.prep_view(p, voxel, cfg.merge.sample_before, device=dev) for p in pts]
+    pairs = [(preps[i + 1], preps[i]) for i in range(len(preps) - 1)]
+    kw = dict(feat_bf16=cfg.parallel.force_bf16_features)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    group, t_group = timed(lambda: recon.register_prep_pairs(
+        pairs, list(range(len(pairs))), cfg.merge, voxel, **kw))
+    alone, t_alone = timed(lambda: [recon.register_prep_pairs([pr], [i], cfg.merge, voxel,
+                                                              **kw)
+                                    for i, pr in enumerate(pairs)])
+    names = ("T", "gfit", "ifit", "irmse")
+    for i in range(len(pairs)):
+        for k, name in enumerate(names):
+            check(np.asarray(alone[i][k][0]).tobytes() == np.asarray(group[k][i]).tobytes(),
+                  f"pair group gate: pair {i}'s {name} alone differs from its group's")
+        hit = cache.get("pair", stages._pair_key(cache, cfg, dev, digs[i], digs[i + 1], i))
+        check(hit is not None, f"pair group gate: phase 7 cached no pair {i}")
+        for k, name in enumerate(names):
+            check(np.asarray(hit[name], np.float32).tobytes()
+                  == np.asarray(group[k][i], np.float32).tobytes(),
+                  f"pair group gate: pair {i}'s {name} differs from phase 7's streamed lane")
+    print(json.dumps({"pair_group_gate": len(pairs), "pair_batch": cfg.merge.pair_batch,
+                      "grouped_s": t_group, "alone_s": t_alone, "card": card}), flush=True)
+
+
+def coordinated_phase(dev, data: str, calib: str, root: str, cold: dict,
+                      card: str) -> None:
+    """Phase 13: first ``pair_group_gate`` (a pair's bytes alone, in its
+    group and in phase 7's pair cache), then ``run_pipeline`` with
+    ``coordinator.workers`` over phase
+    7's 24 views (phase 7's config, device cuda) in fresh directories, each
+    arm's merged.ply and model.stl byte-identical to phase 7's cold run.
+    (a) loopback, 2 spawned workers: the ledger completes 24 view and 23
+    pair items with no steal and nothing lost; this process (the assembly
+    pass) launches none of COORD_VIEW_KERNELS; the workers' launch counts
+    (their logs' exit lines) sum to decode_maps 24 and radius_count 48,
+    with ransac_score and nn1 launched; each worker's peak device memory and
+    the wall beside phase 7's cold wall printed. (b) the pod fabric:
+    ``coordinator.listen=127.0.0.1:0``, a secret, 1 spawned worker,
+    ``merge.incremental`` and the flight recorder on, plus an external
+    worker started here from ``<out>/.coord/join.json``: it completes at
+    least one item and exits 0, the spawned worker warms its private L1
+    root, the fold lane folds at least one view, the port's ``report
+    --validate`` exits 0 over the directory and the journals' fabric bytes
+    equal the blob server's counters; pushes, fetches, bytes and the
+    assembly tail printed. (c) chaos: ``SL3D_FAULTS=worker.item~w0:
+    worker.kill@3``, a COORD_LEASE_S lease and 1 s heartbeats: w0 exits
+    137, the ledger holds a steal, and no item completed before the kill is
+    granted again."""
+    import threading
+
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.cli import main as cli_main
+    from structured_light_for_3d_model_replication_tpu_torch.config import load_config
+    from structured_light_for_3d_model_replication_tpu_torch.ops import kernels
+    from structured_light_for_3d_model_replication_tpu_torch.pipeline import (
+        report as replib,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.pipeline import stages
+    from structured_light_for_3d_model_replication_tpu_torch.utils import faults
+
+    with open(os.path.join(cold["out"], "merged.ply"), "rb") as f:
+        cold_ply = f.read()
+    with open(os.path.join(cold["out"], "model.stl"), "rb") as f:
+        cold_stl = f.read()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    pair_group_gate(dev, data, calib, cold, card)
+
+    def run(arm: str, sets: dict, external: bool = False):
+        cfg = load_config(None, {**PIPE_OVERRIDES, **sets})
+        out = os.path.join(root, f"coord_{arm}")
+        ext, done = None, threading.Event()
+        if external:
+            ext = _start_external(out, done)
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            report = stages.run_pipeline(calib, data, out, cfg=cfg, device=dev,
+                                         log=lambda m: None)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            done.set()
+            if ext is not None:
+                ext["thread"].join(timeout=10.0)
+                proc = ext.get("proc")
+                if proc is not None:
+                    try:
+                        proc.wait(timeout=60.0)
+                    except subprocess.TimeoutExpired:
+                        proc.kill()
+                        proc.wait()
+        counts = kernels.launch_counts()
+        for name, mine in (("merged.ply", cold_ply), ("model.stl", cold_stl)):
+            with open(os.path.join(out, name), "rb") as f:
+                check(f.read() == mine,
+                      f"coordinated {arm}: {name} differs from phase 7's cold run")
+        check(report.failures == [] and not report.degraded,
+              f"coordinated {arm}: failures {[f.as_dict() for f in report.failures]}")
+        c = report.coordinator or {}
+        check(c.get("device") == str(dev), f"coordinated {arm}: ran on {c.get('device')}")
+        workers = {}
+        for name in sorted(os.listdir(os.path.join(out, ".coord"))):
+            if name.endswith(".log"):
+                workers[name[:-4]] = worker_exit(os.path.join(out, ".coord", name))
+        killed = {f"worker{w[1:]}" for w, rc in c.get("worker_exit_codes", {}).items()
+                  if rc == 137}
+        for w, v in workers.items():
+            check(v is not None or w in killed,
+                  f"coordinated {arm}: {w}'s log has no exit line")
+        line = {"coordinated": arm, "wall_s": wall, "cold_wall_s": cold["wall_s"],
+                "coordination_wall_s": c.get("coordination_wall_s"),
+                "assembly": c.get("assembly"), "item_states": c.get("item_states"),
+                "completed_by_worker": c.get("completed_by_worker"),
+                "steals": c.get("steals"), "exit_codes": c.get("worker_exit_codes"),
+                "assembly_launches": counts,
+                "workers": {w: v and {"launches": v["launches"],
+                                      "peak_device_gb": round(v["peak_bytes"] / 1e9, 3)}
+                            for w, v in workers.items()},
+                "walls_s": report.walls_s, "card": card}
+        if ext is not None:
+            line["external_exit"] = ext["proc"].returncode if "proc" in ext else None
+        print(json.dumps(line), flush=True)
+        return out, report, c, counts, workers, ext
+
+    # (a) loopback
+    n_items = 2 * PIPE_VIEWS - 1
+    out, report, c, counts, workers, _ = run("loopback",
+                                             {"coordinator.workers": COORD_WORKERS})
+    check(c["item_states"] == {"completed": n_items} and c["steals"] == 0,
+          f"coordinated loopback: items {c['item_states']}, steals {c['steals']}")
+    events = _ledger(out)
+    done_items = {e["item"] for e in events if e["type"] == "complete"}
+    check(sum(i.startswith("view:") for i in done_items) == PIPE_VIEWS
+          and sum(i.startswith("pair:") for i in done_items) == PIPE_VIEWS - 1,
+          f"coordinated loopback: the ledger completes {sorted(done_items)}")
+    check(not any(e["type"] in ("steal", "lost") for e in events),
+          "coordinated loopback: the ledger holds a steal or a lost item")
+    for k in COORD_VIEW_KERNELS:
+        check(counts[k] == 0, f"coordinated loopback: the assembly pass launched {k} "
+                              f"{counts[k]} times (a view or pair was not a cache hit)")
+    total = {k: sum(w["launches"].get(k, 0) for w in workers.values())
+             for k in kernels.launch_counts()}
+    check(len(workers) == COORD_WORKERS, f"coordinated loopback: worker logs {list(workers)}")
+    check(total["decode_maps"] == PIPE_VIEWS and total["radius_count"] == 2 * PIPE_VIEWS,
+          f"coordinated loopback: the workers launched decode_maps "
+          f"{total['decode_maps']} and radius_count {total['radius_count']} times, not "
+          f"{PIPE_VIEWS} and {2 * PIPE_VIEWS}")
+    check(total["ransac_score"] > 0 and total["nn1"] > 0,
+          f"coordinated loopback: the workers never registered a pair: {total}")
+    print(f"coordinated (a) loopback: {c['coordination_wall_s']:.2f} s coordinating, "
+          f"{c['total_wall_s']:.2f} s in all against phase 7's cold "
+          f"{cold['wall_s']:.2f} s; workers' launches {json.dumps(total)}; peak device "
+          + ", ".join(f"{w} {v['peak_bytes'] / 1e9:.3f} GB" for w, v in workers.items()),
+          flush=True)
+
+    # (b) the pod fabric, an external worker and the incremental assembly
+    out, report, c, counts, workers, ext = run("fabric", {
+        "coordinator.workers": 1, "coordinator.listen": "127.0.0.1:0",
+        "coordinator.secret": "chip-smoke-pod", "merge.incremental": True,
+        "observability.trace": True}, external=True)
+    check("proc" in ext and ext["proc"].returncode == 0,
+          f"coordinated fabric: the external worker exited "
+          f"{ext['proc'].returncode if 'proc' in ext else 'never started'}")
+    check(c["completed_by_worker"].get("ext0", 0) >= 1,
+          f"coordinated fabric: the external worker completed nothing "
+          f"({c['completed_by_worker']})")
+    l1 = os.path.join(out, ".slscan-cache.w0")
+    check(os.path.isdir(l1) and any(f.endswith(".npz") for f in os.listdir(l1)),
+          "coordinated fabric: the spawned worker warmed no private L1 root")
+    asm = report.assembly or {}
+    check(asm.get("folded_views", 0) >= 1 and asm.get("used_views", 0) >= 1,
+          f"coordinated fabric: the fold lane folded nothing ({asm})")
+    rc, text = run_cli(cli_main, ["report", out, "--validate"])
+    check(rc == 0, f"coordinated fabric: report --validate exited {rc}:\n{text}")
+    rows = replib.merge_host_timeline(out)
+    moved = {k: sum(int(r.get(k) or 0) for r in rows if r.get("ev") == "fabric.bytes")
+             for k in ("fetched", "pushed", "deduped")}
+    fb = c["fabric"]
+    check((moved["fetched"], moved["pushed"], moved["deduped"])
+          == (fb["bytes_fetched"], fb["bytes_pushed"], fb["bytes_deduped"]),
+          f"coordinated fabric: the journals' fabric bytes {moved} against the blob "
+          f"server's {fb}")
+    print(f"coordinated (b) fabric: blob pushes {fb['pushes']} ({fb['bytes_pushed']} B), "
+          f"fetches {fb['fetches']} ({fb['bytes_fetched']} B), dedups {fb['dedups']}; "
+          f"locality hits {c.get('locality_hits')} misses {c.get('locality_misses')}; "
+          f"completed {c['completed_by_worker']}; folded {asm['folded_views']} views, "
+          f"{asm['used_views']} seeded the merge; assembly tail "
+          f"{c['assembly']['tail_s']:.3f} s; {len(rows)} journal rows, "
+          f"{len(replib.host_journals(out))} journals valid", flush=True)
+
+    # (c) chaos: w0 killed on its third item under a short lease
+    os.environ["SL3D_FAULTS"] = "worker.item~w0:worker.kill@3"
+    try:
+        out, report, c, counts, workers, _ = run("chaos", {
+            "coordinator.workers": COORD_WORKERS, "coordinator.lease_s": COORD_LEASE_S,
+            "coordinator.heartbeat_s": 1.0})
+    finally:
+        os.environ.pop("SL3D_FAULTS", None)
+        faults.reset()
+    check(c["worker_exit_codes"].get("w0") == 137,
+          f"coordinated chaos: w0 exited {c['worker_exit_codes']}")
+    events = _ledger(out)
+    steals = [e for e in events if e["type"] == "steal"]
+    check(len(steals) >= 1, "coordinated chaos: the ledger holds no steal")
+    first_done: dict = {}
+    for i, e in enumerate(events):
+        if e["type"] == "complete":
+            first_done.setdefault(e["item"], i)
+    again = sorted({e["item"] for i, e in enumerate(events)
+                    if e["type"] == "grant" and i > first_done.get(e["item"], len(events))})
+    check(not again, f"coordinated chaos: completed items granted again: {again}")
+    print(f"coordinated (c) chaos: w0 exited 137; {len(steals)} steal(s) "
+          f"({', '.join(e['item'] for e in steals)}); {c['item_states']}; wall "
+          f"{c['total_wall_s']:.2f} s; phase 13 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -3471,6 +3808,7 @@ def main() -> int:
         legacy_pipeline_phase(dev, data, calib, scene, root, cold, card)
         capture_phase(dev, data, calib, raw, root, cold, card)
         del raw
+        coordinated_phase(dev, data, calib, root, cold, card)
     for line in lines:
         line["launches"], line["launches_run"] = launches[line["name"]]
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f}s "

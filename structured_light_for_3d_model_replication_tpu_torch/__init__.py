@@ -28,6 +28,10 @@ each counterpart at the same path:
   pipeline/stages.py reconstruct, clean, merge_views, mesh_cloud, run_pipeline
                      (its default schedule: cache, retries, deadlines, streaming)
   pipeline/stagecache.py the content-addressed stage cache
+  pipeline/blobstore.py, pipeline/assembly.py
+                     the pod fabric's blob store; the incremental assembly
+  parallel/          the multiprocess coordinator, its workers, leases and
+                     endpoint grammar (``pipeline --workers N``, ``worker``)
   utils/faults.py, utils/deadline.py, utils/telemetry.py, utils/profiling.py
                      fault injection + retries, deadlines + watchdog, the
                      flight recorder, lane overlap accounting

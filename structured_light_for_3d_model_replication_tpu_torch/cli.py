@@ -18,7 +18,9 @@
       <scan root> --calib calib.mat --out <dir> [--steps ...] \\
       [--compute-batch N] [--packed-ingest] [--no-cache] [--no-stream] \\
       [--pair-batch N] [--trace] [--run-budget S] [--no-deadlines] \\
-      [--device cuda|cpu]
+      [--workers N] [--device cuda|cpu]
+  python -m structured_light_for_3d_model_replication_tpu_torch worker \\
+      --spec <out>/.coord/worker0.json
   python -m structured_light_for_3d_model_replication_tpu_torch report \\
       <pipeline out dir> [--validate] [--prometheus] [--chrome-trace [PATH]] \\
       [--width N]
@@ -44,7 +46,11 @@ The flags and exit codes are the JAX CLI's, plus ``--device`` on the
 commands that compute (default cuda; without CUDA the command fails
 unless ``--device cpu`` is given). ``config`` prints the resolved
 configuration as the JAX package's JSON (its keys, the dropped ones
-included); ``report`` reads a traced ``pipeline`` run (``--trace``);
+included); ``report`` reads a traced ``pipeline`` run (``--trace``); ``pipeline
+--workers N`` (or ``--set coordinator.listen=host:port``) runs the scan
+across worker processes on ``--device``, each started as ``worker --spec``
+with that device in its spec (``worker`` reads its config and device from
+the spec alone);
 ``--artifacts`` records each clean step's or merge step's cloud and a
 ``progress.json`` (``acquire/viewer.StageRecorder``). ``calibrate`` solves
 the stereo rig on the host with OpenCV and prints the JAX CLI's tables;
@@ -208,7 +214,23 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--no-deadlines", action="store_true",
                    help="disable the per-lane deadlines and the stall watchdog "
                         "(deadlines.enabled=false; env SL3D_NO_DEADLINES=1)")
+    p.add_argument("--workers", type=int, default=None, metavar="N",
+                   help="coordinated multiprocess mode (coordinator.workers): "
+                        "lease per-view and per-pair items to N worker processes "
+                        "on --device, with lease expiry and work stealing; a "
+                        "killed worker costs only its in-flight items and the "
+                        "output stays byte-identical to a single-process run "
+                        "(grants journal to <out>/ledger.jsonl; a crashed "
+                        "coordinator resumes with zero recompute)")
     _common_args(p)
+    p = sub.add_parser(
+        "worker",
+        help="one coordinated-run worker process, started by 'pipeline --workers "
+             "N' (or joining a listening coordinator with <out>/.coord/join.json)")
+    p.add_argument("--spec", required=True,
+                   help="worker spec JSON written by the coordinator "
+                        "(<out>/.coord/workerN.json); it names the config and the "
+                        "device")
     p = sub.add_parser(
         "report",
         help="render a traced pipeline run's flight-recorder artifacts: lane "
@@ -316,6 +338,25 @@ def _print_pipeline(report, out_dir: str) -> None:
     if report.cache:
         print(f"[pipeline] stage cache: {report.cache['hits']} hits, "
               f"{report.cache['misses']} misses")
+    if report.assembly:
+        asm = report.assembly
+        tail = asm.get("tail_s")
+        print(f"[pipeline] assembly: {asm.get('used_views', 0)} of "
+              f"{asm.get('folded_views', 0)} folded view(s) seeded the merge"
+              + (f"; tail {tail}s after last item settled" if tail is not None else ""))
+    if report.coordinator:
+        c = report.coordinator
+        print(f"[pipeline] coordinator: {c['items_total']} item(s) across "
+              f"{c['workers']} worker(s), steals={c.get('steals', 0)}, "
+              f"resumed={c.get('resumed_completed', 0)}; ledger -> {c['ledger']}")
+        if c.get("listen"):
+            fb = c.get("fabric") or {}
+            print(f"[pipeline] fabric: listening on {c['listen']}; blob "
+                  f"fetches={fb.get('fetches', 0)} pushes={fb.get('pushes', 0)} "
+                  f"dedups={fb.get('dedups', 0)} ({fb.get('bytes_fetched', 0)} B out / "
+                  f"{fb.get('bytes_pushed', 0)} B in / {fb.get('bytes_deduped', 0)} B "
+                  f"deduped); locality hits={c.get('locality_hits', 0)} "
+                  f"misses={c.get('locality_misses', 0)}")
     print("[pipeline] walls (s): " + ", ".join(
         f"{k} {v:.3f}" for k, v in report.walls_s.items()))
     if report.degraded:
@@ -603,6 +644,15 @@ def main(argv: list[str] | None = None) -> int:
         return 1
     if args.command == "synth":
         return _synth(args)
+    if args.command == "worker":
+        # config, faults, device and identity all come from the spec the
+        # coordinator wrote: the worker sees exactly the coordinator's
+        # resolved config. Line-buffered, so a killed worker's log is whole.
+        from structured_light_for_3d_model_replication_tpu_torch.parallel import worker
+
+        if hasattr(sys.stdout, "reconfigure"):
+            sys.stdout.reconfigure(line_buffering=True)
+        return worker.run_worker(args.spec)
     cfg = load_config(args.config, parse_overrides(args.set))
     if args.command == "config":
         json.dump(jax_dict(cfg), sys.stdout, indent=2)
@@ -677,6 +727,8 @@ def main(argv: list[str] | None = None) -> int:
             cfg.pipeline.run_budget_s = args.run_budget
         if args.no_deadlines:
             cfg.deadlines.enabled = False
+        if args.workers is not None:
+            cfg.coordinator.workers = args.workers
         report = stages.run_pipeline(args.calib, args.target, args.out, cfg=cfg,
                                      steps=_steps(args.steps), stl_name=args.stl_name,
                                      device=args.device)

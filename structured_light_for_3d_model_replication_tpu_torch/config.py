@@ -10,9 +10,9 @@ JSON config file loads in both packages:
     unknown key there is an error, as in the JAX package;
   - ``parallel`` carries ``backend``, ``force_bf16_features``,
     ``compute_batch``, ``io_workers`` and ``prefetch_depth``; ``pipeline``
-    carries every key. The other keys of
+    and ``coordinator`` carry every key. The other keys of
     ``parallel``, and the sections the port does not model
-    (``coordinator``, ``serving``, ``scan_root``), configure features the port does not have yet: they
+    (``serving``, ``scan_root``), configure features the port does not have yet: they
     load without effect, and the loader logs each one set away from the
     JAX package's default, once a process (``_DROPPED``).
 """
@@ -28,7 +28,8 @@ from typing import Any
 __all__ = ["ProjectorConfig", "CheckerboardConfig", "DecodeConfig", "TriangulateConfig",
            "CleanConfig", "MergeConfig", "MeshConfig", "ParallelConfig",
            "PipelineConfig", "ObservabilityConfig", "DeadlinesConfig",
-           "FaultsConfig", "AcquireConfig", "Config", "load_config", "jax_dict"]
+           "FaultsConfig", "CoordinatorConfig", "AcquireConfig", "Config", "load_config",
+           "jax_dict"]
 
 
 @dataclass
@@ -100,8 +101,8 @@ class MergeConfig:
     view i-1; ``'posegraph'`` adds a first<->last loop closure and a global
     pose-graph solve (``merge_360_posegraph``). ``stream``, ``pair_batch``
     and ``incremental`` are schedule knobs (never stage-cache key material);
-    ``incremental`` belongs to the JAX package's coordinated pods and the
-    port never reads it."""
+    ``incremental`` folds a coordinated run's settled views and pairs into
+    the merge while its workers still run (``pipeline/assembly.py``)."""
 
     voxel_size: float = 3.0
     icp_dist_ratio: float = 1.5
@@ -300,6 +301,41 @@ class DeadlinesConfig:
 
 
 @dataclass
+class CoordinatorConfig:
+    """The multiprocess coordinator (``parallel/coordinator.py``): one
+    scan's view and pair items leased to N worker processes under a
+    lease/heartbeat protocol. ``workers=0`` with an empty ``listen`` (the
+    default) is a single-process run. Workers only warm the
+    content-addressed stage cache and the coordinator's assembly pass is the
+    single-process pipeline over it, so the output bytes are the
+    single-process run's."""
+
+    # worker processes to spawn (0 = single-process, coordinator disabled)
+    workers: int = 0
+    # a granted item's lease; it renews on every OverlapStats.add heartbeat,
+    # so only a killed, preempted, wedged or partitioned worker lets one
+    # expire, and the item is then stolen and granted to a survivor
+    lease_s: float = 45.0
+    # worker -> coordinator heartbeat cadence (well under lease_s)
+    heartbeat_s: float = 2.0
+    # times one item may be stolen before it is left to the assembly pass
+    max_steals: int = 3
+    # coordinator TCP port (loopback only); 0 = ephemeral
+    port: int = 0
+    # worker -> coordinator connect deadline
+    connect_timeout_s: float = 20.0
+    # the pod fabric (parallel/netutil.py endpoint grammar): the
+    # coordinator's bind endpoint ("host:port", "[v6]:port", ":port"); set,
+    # it co-hosts the blob store, spawned workers get private L1 cache roots
+    # and external workers may join over TCP
+    listen: str = ""
+    # worker side: the coordinator endpoint to dial (empty: loopback `port`)
+    connect: str = ""
+    # shared secret of the hello handshake (coordinator and blob store)
+    secret: str = ""
+
+
+@dataclass
 class FaultsConfig:
     """Deterministic fault injection (``utils/faults.py``). Disabled by
     default; the SL3D_FAULTS / SL3D_FAULTS_SEED env vars override it."""
@@ -324,6 +360,7 @@ class Config:
     parallel: ParallelConfig = field(default_factory=ParallelConfig)
     pipeline: PipelineConfig = field(default_factory=PipelineConfig)
     faults: FaultsConfig = field(default_factory=FaultsConfig)
+    coordinator: CoordinatorConfig = field(default_factory=CoordinatorConfig)
     deadlines: DeadlinesConfig = field(default_factory=DeadlinesConfig)
     observability: ObservabilityConfig = field(default_factory=ObservabilityConfig)
 
@@ -341,10 +378,6 @@ class Config:
 _DROPPED: dict[str, Any] = {
     "parallel": {"data_axis": 0, "model_axis": 1, "merge_mesh": False,
                  "shard_views": True},
-    "coordinator": {
-        "workers": 0, "lease_s": 45.0, "heartbeat_s": 2.0, "max_steals": 3,
-        "port": 0, "connect_timeout_s": 20.0, "listen": "", "connect": "",
-        "secret": ""},
     "serving": {
         "host": "127.0.0.1", "port": 8089, "max_active_scans": 4,
         "tenant_active_quota": 2, "tenant_queue_quota": 8, "queue_depth": 64,

@@ -247,17 +247,6 @@ def prep_view_device(points: torch.Tensor, count: int, voxel: float) -> _Prep:
     return _Prep(p_c, v_c, nr, feat)
 
 
-def _pair_group_bucket(count: int, batch: int) -> int:
-    """Launch-group size: ``batch`` for full groups, a ragged tail on the
-    next power of two."""
-    if count >= batch:
-        return batch
-    b = 1
-    while b < count:
-        b *= 2
-    return min(b, batch)
-
-
 def _prep_to_bucket(prep: _Prep, bucket: int):
     """Zero-pad one view's prep to a pair bucket (pad rows invalid)."""
     pad = bucket - prep.points.shape[0]
@@ -274,10 +263,12 @@ def register_prep_pairs(pairs, pair_ids, cfg: MergeConfig, voxel: float,
                         samples=None, feat_bf16: bool | None = None):
     """Register (prep_src, prep_dst) pairs: grouped by pair bucket (the
     larger of the two views' buckets), ``cfg.pair_batch`` pairs a launch
-    group (a ragged tail padded on the power-of-two ladder with copies of
-    its last pair). ``pair_ids`` are each pair's global chain position, the
-    seed of its draws; ``samples`` an optional {pair index: [trials, 3]} of
-    given draws; ``feat_bf16`` as in ``registration.register_pairs``.
+    group, whose ICP always runs on ``cfg.pair_batch`` lanes (a short group,
+    a ragged tail or a worker's one pair, padded with copies of its last
+    pair), so a pair gives the same bytes in every group. ``pair_ids`` are
+    each pair's global chain position, the seed of its draws; ``samples``
+    an optional {pair index: [trials, 3]} of given draws; ``feat_bf16`` as
+    in ``registration.register_pairs``.
     Returns host (T [P, 4, 4], gfit, ifit, irmse) in input order."""
     n_pairs = len(pairs)
     batch = max(1, int(cfg.pair_batch))
@@ -292,16 +283,16 @@ def register_prep_pairs(pairs, pair_ids, cfg: MergeConfig, voxel: float,
         idxs = by_bucket[bucket]
         for s0 in range(0, len(idxs), batch):
             chunk = idxs[s0:s0 + batch]
-            launch = chunk + [chunk[-1]] * (_pair_group_bucket(len(chunk), batch) - len(chunk))
             stacks = [[] for _ in range(7)]
-            for i in launch:
+            for i in chunk:
                 sp, sv, _, sf = _prep_to_bucket(pairs[i][0], bucket)
                 dp, dv, dn, df = _prep_to_bucket(pairs[i][1], bucket)
                 for k, a in enumerate((sp, sv, sf, dp, dv, df, dn)):
                     stacks[k].append(a)
             out = reg.register_pairs(
-                *(torch.stack(s) for s in stacks), pair_ids=[pair_ids[i] for i in launch],
-                samples=None if samples is None else [samples[i] for i in launch], **kw)
+                *(torch.stack(s) for s in stacks), pair_ids=[pair_ids[i] for i in chunk],
+                samples=None if samples is None else [samples[i] for i in chunk],
+                icp_lanes=batch, **kw)
             T_l, gf_l, fi_l, ir_l = (o.detach().cpu().numpy() for o in out)
             for j, i in enumerate(chunk):
                 T[i], gf[i], fi[i], ir[i] = T_l[j], gf_l[j], fi_l[j], ir_l[j]
@@ -456,10 +447,13 @@ def _accumulate_views(raw_p: torch.Tensor, transforms) -> torch.Tensor:
     return _apply_transforms(raw_p, T.to(raw_p.device))
 
 
-def _chain(T_pairs, gfit_all, ifit_all, irmse_all, log):
+def _chain(T_pairs, gfit_all, ifit_all, irmse_all, log, seed=None):
     """Host f32 chain of the pair transforms (view i into view 0's frame),
-    logging each pair's fitness as the JAX package does."""
-    transforms = [np.eye(4, dtype=np.float32)]
+    logging each pair's fitness as the JAX package does. ``seed``: the
+    chain's first transforms, already accumulated (an incremental
+    assembly's validated prefix); the chain goes on from its last."""
+    transforms = ([np.asarray(t, np.float32) for t in seed] if seed
+                  else [np.eye(4, dtype=np.float32)])
     for i in range(1, len(T_pairs) + 1):
         gfit = float(gfit_all[i - 1])
         if gfit < 0.05:
@@ -467,6 +461,8 @@ def _chain(T_pairs, gfit_all, ifit_all, irmse_all, log):
                 f"— alignment may fail")
         log(f"[merge_360] view {i}: global fit {gfit:.3f} | ICP fit "
             f"{float(ifit_all[i - 1]):.3f} rmse {float(irmse_all[i - 1]):.3f}")
+        if i < len(transforms):
+            continue   # folded before the last item settled
         transforms.append((transforms[-1] @ np.asarray(T_pairs[i - 1], np.float32))
                           .astype(np.float32))
     return transforms
@@ -491,20 +487,36 @@ def transform_views_batched(points_list, transforms, device=None):
 
 def finalize_chain(clouds, T_pairs, gfit_all, ifit_all, irmse_all,
                    cfg: MergeConfig | None = None, log=print,
-                   timings: dict | None = None, device=None, step_callback=None):
+                   timings: dict | None = None, device=None, step_callback=None,
+                   prefold=None):
     """Chain-accumulate the pair transforms (host f32 matmuls), move views
     1..n-1 into view 0's frame in one batch, concatenate, and run the final
     voxel/outlier pass. Returns (points, colors, transforms).
     ``step_callback(i, new_points, new_colors, total)`` gets each newly
     folded view's moved arrays and the running point count, view 0 first
-    as a seed call with ``i == 0``; it changes nothing of the merge."""
+    as a seed call with ``i == 0``; it changes nothing of the merge.
+
+    ``prefold``: an incremental assembly's folded prefix
+    (``pipeline.assembly.Prefold``, already validated against this run's
+    view order, digests and pair transforms). Its transforms and moved
+    views stand for the first ``len(prefold.transforms)`` views and only
+    the suffix is chained and moved here; the fold moved its views with
+    ``_apply_transforms`` on the CPU, bit-equal to this batch on any
+    device, so the merged bytes do not depend on how much was folded."""
     cfg = cfg or MergeConfig()
     tm = timings if timings is not None else {}
     n = len(clouds)
     t0 = time.perf_counter()
-    transforms = _chain(T_pairs[:n - 1], gfit_all, ifit_all, irmse_all, log)
-    moved = transform_views_batched([clouds[i][0] for i in range(1, n)],
-                                    transforms[1:], device=device)
+    start = 1
+    seed = None
+    if prefold is not None and 2 <= len(prefold.transforms) <= n:
+        seed = prefold.transforms
+        start = len(seed)
+    transforms = _chain(T_pairs[:n - 1], gfit_all, ifit_all, irmse_all, log, seed=seed)
+    moved = ([np.asarray(p, np.float32) for p in prefold.merged_p[1:start]]
+             if seed is not None else [])
+    moved += transform_views_batched([clouds[i][0] for i in range(start, n)],
+                                     transforms[start:], device=device)
     if step_callback is not None:
         total = len(clouds[0][0])
         step_callback(0, np.asarray(clouds[0][0], np.float32),

@@ -40,9 +40,14 @@ def _parked(points: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
 
 def sq_dist(q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """Squared distances ((dx*dx + dy*dy) + dz*dz), each step rounded, the
-    kernels' order; broadcast over the leading axes of q [..., 3], c [..., 3]."""
-    d = q - c
-    return (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2]
+    kernels' order; broadcast over the leading axes of q [..., 3], c [..., 3].
+    One coordinate at a time, in place: no [..., 3] difference temporary."""
+    d2 = q[..., 0] - c[..., 0]
+    d2.mul_(d2)
+    t = q[..., 1] - c[..., 1]
+    d2.add_(t.mul_(t))
+    t = q[..., 2] - c[..., 2]
+    return d2.add_(t.mul_(t))
 
 
 def _sq_dist_block(q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:

@@ -13,7 +13,10 @@ host-only engine there, and its sharded pair batch are not ported).
     it is launched with; ``samples`` injects given draws instead.
   - ICP: point-to-plane Gauss-Newton with the JAX package's direction-aware
     convergence stop, run for a whole group of pairs at once: one ``nn1``
-    launch per step serves every pair still iterating.
+    launch and one batched step update per step serve every lane of the
+    group, at a fixed lane count (``lanes``, padded with copies), with the
+    converged pairs masked, so a pair's transform never depends on the
+    pairs it is launched with either.
   - ``icp_point_to_plane`` and ``ransac_global_registration`` are the
     standalone one-pair entry points; on the card they launch ``nn1`` (and
     ``ransac_score``) at every size.
@@ -146,43 +149,52 @@ def _icp_step_update(T, cur, q, nrm, ok, nv):
 
 
 def _icp_core(src, src_valid, dst_pts, dst_valid, dst_normals, T0, max_dist,
-              iters: int):
+              iters: int, lanes: int | None = None):
     """Convergence-stopped point-to-plane ICP for P pairs ([P, N, 3] ...):
     at most ``iters`` steps a pair, Open3D's criteria with the JAX package's
     direction-aware rmse leg (a step that neither improved rmse beyond 1e-6
     nor left the 2e-3 * rmse noise band, with fitness unchanged, ends the
-    pair). Pairs stop independently; each step is one nn1 launch over the
-    pairs still running. Returns (T [P, 4, 4], fitness [P], rmse [P]) of
-    the last step, as the JAX while_loop does."""
+    pair). Pairs stop independently. Every step runs over all the lanes,
+    ``max(P, lanes)`` of them (the last pair copied into the extra ones),
+    and a converged lane keeps its state under a mask: on the card the
+    batched products, reductions and solves choose their schedule by the
+    batch's shape, so a shrinking active set, or another group size, would
+    round a pair by its group mates. At one lane count a pair gives the
+    same bits in any group, or alone. Returns (T [P, 4, 4], fitness [P],
+    rmse [P]) of the last step, as the JAX while_loop does."""
     dev = src.device
+    p = src.shape[0]
+    n_lanes = max(p, int(lanes or p))
+    if n_lanes > p:
+        pad = torch.tensor(list(range(p)) + [p - 1] * (n_lanes - p), device=dev)
+        src, src_valid, dst_pts, dst_valid, dst_normals, T0 = (
+            x.index_select(0, pad)
+            for x in (src, src_valid, dst_pts, dst_valid, dst_normals, T0))
     nv = torch.clamp_min(src_valid.sum(-1).to(torch.float32), 1.0)
     dst_parked = _park(dst_pts, dst_valid)
     md2 = _f32(max_dist, dev) * _f32(max_dist, dev)
     T = T0.to(torch.float32).clone()
-    p = src.shape[0]
-    neg1 = torch.full((p,), -1.0, dtype=torch.float32, device=dev)
+    neg1 = torch.full((n_lanes,), -1.0, dtype=torch.float32, device=dev)
     pf, pr, fit, rmse = neg1.clone(), neg1.clone(), neg1.clone(), neg1.clone()
-    it = torch.zeros(p, dtype=torch.int32, device=dev)
-    active = torch.full((p,), iters > 0, dtype=torch.bool, device=dev)
-    while True:
-        a = torch.nonzero(active).flatten()
-        if a.numel() == 0:
-            break
-        cur = transform_points(T[a], src[a])
-        j, d2 = _nn1_dispatch(cur, dst_parked[a])
+    it = torch.zeros(n_lanes, dtype=torch.int32, device=dev)
+    active = torch.full((n_lanes,), iters > 0, dtype=torch.bool, device=dev)
+    while bool(active.any()):
+        cur = transform_points(T, src)
+        j, d2 = _nn1_dispatch(cur, dst_parked)
         jj = j.long()[..., None].expand(-1, -1, 3)
-        q = torch.gather(dst_pts[a], 1, jj)
-        nrm = torch.gather(dst_normals[a], 1, jj)
-        ok = src_valid[a] & (d2 <= md2) & torch.isfinite(d2)
-        T_new, f_new, r_new = _icp_step_update(T[a], cur, q, nrm, ok, nv[a])
-        pf[a], pr[a] = fit[a], rmse[a]
-        fit[a], rmse[a], T[a] = f_new, r_new, T_new
-        it[a] += 1
+        q = torch.gather(dst_pts, 1, jj)
+        nrm = torch.gather(dst_normals, 1, jj)
+        ok = src_valid & (d2 <= md2) & torch.isfinite(d2)
+        T_new, f_new, r_new = _icp_step_update(T, cur, q, nrm, ok, nv)
+        pf, pr = torch.where(active, fit, pf), torch.where(active, rmse, pr)
+        fit, rmse = torch.where(active, f_new, fit), torch.where(active, r_new, rmse)
+        T = torch.where(active[:, None, None], T_new, T)
+        it = it + active.to(torch.int32)
         tol_r = torch.clamp_min(2e-3 * rmse, 1e-6)
         moved = ((fit - pf).abs() > 1e-6) | ((pr - rmse) > 1e-6) \
             | ((rmse - pr).abs() > tol_r)
         active = active & (it < iters) & ((it == 0) | moved)
-    return T, fit, rmse
+    return T[:p], fit[:p], rmse[:p]
 
 
 def _as(x, dtype, dev) -> torch.Tensor:
@@ -459,14 +471,15 @@ def register_pairs(src_pts, src_valid, src_feat, dst_pts, dst_valid, dst_feat,
                    trials: int = 4096, icp_iters: int = 30,
                    edge_sim: float = 0.9, seed: int = 0, mutual: bool = True,
                    refine_iters: int = 3, pair_ids=None, samples=None,
-                   feat_bf16: bool | None = None):
+                   feat_bf16: bool | None = None, icp_lanes: int | None = None):
     """Register P independent (src, dst) pairs: FPFH correspondences +
     RANSAC global init per pair, then point-to-plane ICP for the group.
     Arrays share one padded shape: src_pts [P, N, 3], src_valid [P, N],
     src_feat [P, N, 33], dst_* likewise, dst_normals [P, M, 3]. ``pair_ids``
     [P] seed each pair's draws (default 0..P-1); ``samples`` optional
     [P, trials, 3] draws to use instead; ``feat_bf16`` True takes the bf16
-    feature product (None or False: f32). Returns (T [P, 4, 4], global
+    feature product (None or False: f32); ``icp_lanes`` the ICP's lane
+    count when it is more than P (``_icp_core``). Returns (T [P, 4, 4], global
     fitness [P], icp fitness [P], icp rmse [P]) as tensors."""
     exact_f32_products()
     p = src_pts.shape[0]
@@ -484,5 +497,5 @@ def register_pairs(src_pts, src_valid, src_feat, dst_pts, dst_valid, dst_feat,
         T0.append(T_i)
         gfit.append(gf_i)
     T, fit, rmse = _icp_core(src_pts, src_valid, dst_pts, dst_valid, dst_normals,
-                             torch.stack(T0), icp_max_dist, icp_iters)
+                             torch.stack(T0), icp_max_dist, icp_iters, lanes=icp_lanes)
     return T, torch.stack(gfit), fit, rmse

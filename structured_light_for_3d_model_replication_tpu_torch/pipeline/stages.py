@@ -30,8 +30,15 @@ clouds -> the masked clean chain -> 360-degree merge -> Poisson mesh ->
     output to cleaned cloud on the device (``ops/fused_view.py``) and hands
     the cleaned device buffers to the register lane.
 
-Not ported: the coordinator, ``parallel.merge_mesh`` and the incremental
-assembly prefold.
+With ``coordinator.workers > 0`` or a ``coordinator.listen`` endpoint,
+``run_pipeline`` hands the run to ``parallel/coordinator.run_coordinated``:
+worker processes warm the stage cache item by item (a view, a chain pair)
+and the coordinator's assembly pass is this single-process run over the
+warmed cache, so the bytes are the single-process run's. With
+``merge.incremental`` the coordinator folds settled views and pairs into
+the merge while the workers still run (``pipeline/assembly.py``); the
+assembly pass re-validates that ``prefold`` and seeds ``finalize_chain``
+with the prefix that holds. Not ported: ``parallel.merge_mesh``.
 
 ``clean_cloud`` / ``clean_batch`` (``sl3d clean``), ``merge_views``
 (``sl3d merge-360``) and ``mesh_cloud`` (``sl3d mesh``) are the file-level
@@ -1560,6 +1567,12 @@ class PipelineReport:
     clean_counts: list[dict] = field(default_factory=list)  # per merged view, angle order
     transforms: list = field(default_factory=list)  # view i -> view 0, angle order
     overlap: dict | None = None     # OverlapStats of the lanes incl. register
+    # a coordinated run's lease/steal/ledger summary (the coordinator
+    # attaches it after the assembly pass)
+    coordinator: dict | None = None
+    # the incremental assembly's accounting (merge.incremental pods only):
+    # folded / used views, folded pairs, fold wall, tail_s
+    assembly: dict | None = None
     cache: dict | None = None       # StageCache.stats()
     walls_s: dict = field(default_factory=dict)   # per stage, host wall
     elapsed_s: float = 0.0
@@ -1650,6 +1663,18 @@ def _merge_numeric_json(cfg: Config) -> str:
         {"force_bf16": cfg.parallel.force_bf16_features})
 
 
+def _pair_key(cache: StageCache, cfg: Config, dev: torch.device, dig_dst: str,
+              dig_src: str, pid: int) -> str:
+    """The stage-cache key of chain pair ``pid`` (view dst <- view src): the
+    two cleaned views' output digests, the merge numerics, the engine tag
+    and the chain position. The streamed registrar, a coordinated worker's
+    pair item and the incremental assembly all key pairs here: a drifted
+    key would read as a cold merge, never as a wrong byte."""
+    return cache.key("pair", digests=[dig_dst, dig_src],
+                     config_json=_merge_numeric_json(cfg) + _engine_json(cfg, dev)
+                     + json.dumps({"pair": pid}))
+
+
 class _StreamRegistrar:
     """The ``register`` lane of the streaming 360 merge.
 
@@ -1702,7 +1727,6 @@ class _StreamRegistrar:
         self.voxel = float(cfg.merge.voxel_size)
         self.pair_batch = max(1, cfg.merge.pair_batch)
         self.policy = _retry_policy(cfg)
-        self._pair_cfg = _merge_numeric_json(cfg) + _engine_json(cfg, device)
         self._stream = torch.cuda.Stream(device=device) if device.type == "cuda" else None
         self._pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="sl3d-register")
         self._futs: list = []
@@ -1819,8 +1843,8 @@ class _StreamRegistrar:
     def _enqueue(self, pid: int, src: int, dst: int) -> None:
         t = (pid, src, dst)
         self._seen.add(t)
-        key = self.cache.key("pair", digests=[self._digests[dst], self._digests[src]],
-                             config_json=self._pair_cfg + json.dumps({"pair": pid}))
+        key = _pair_key(self.cache, self.cfg, self.device, self._digests[dst],
+                        self._digests[src], pid)
         hit = self.cache.get("pair", key)
         if hit is not None:
             self._done[t] = (np.asarray(hit["T"], np.float32), float(hit["gfit"]),
@@ -1933,7 +1957,8 @@ def _view_plan(calib_path: str, target: str, cfg: Config, steps: tuple[str, ...]
 
 def run_pipeline(calib_path: str, target: str, out_dir: str, cfg: Config | None = None,
                  steps=CLEAN_STEPS, merged_name: str = "merged.ply",
-                 stl_name: str = "model.stl", log=print, device=None) -> PipelineReport:
+                 stl_name: str = "model.stl", log=print, device=None,
+                 prefold=None) -> PipelineReport:
     """Scan-to-print on ``device`` (None -> cuda): every view folder under
     ``target`` (with enough frames, in ``<n>deg`` angle order) ->
     ``reconstruct``'s lane -> ``_clean_arrays`` -> the streamed or barrier
@@ -1941,8 +1966,25 @@ def run_pipeline(calib_path: str, target: str, out_dir: str, cfg: Config | None 
     ``<out_dir>/model.stl``, each stage behind the stage cache (module
     docstring). With ``observability.trace`` the run writes ``trace.jsonl``
     and ``metrics.json``; it runs under the deadline layer. An exception
-    aborts the run and leaves ``<out_dir>/failures.json``."""
+    aborts the run and leaves ``<out_dir>/failures.json``.
+
+    ``coordinator.workers > 0`` or ``coordinator.listen`` runs the scan
+    across worker processes on ``device`` (``run_coordinated``), which
+    re-enters here with ``workers=0`` for the assembly pass. ``prefold``
+    (that pass of an incremental pod only): the coordinator's fold lane's
+    merged prefix (``pipeline.assembly.Prefold``), re-validated against this
+    run's own view order, digests and pair transforms before it seeds
+    ``finalize_chain``, so the bytes never depend on it."""
     cfg = cfg or Config()
+    if cfg.coordinator.workers > 0 or cfg.coordinator.listen:
+        # lazy: the coordinator imports this module for the item programs
+        from structured_light_for_3d_model_replication_tpu_torch.parallel import (
+            coordinator,
+        )
+
+        return coordinator.run_coordinated(calib_path, target, out_dir, cfg,
+                                           steps=tuple(steps), merged_name=merged_name,
+                                           stl_name=stl_name, log=log, device=device)
     dev = resolve_device(device)
     os.makedirs(out_dir, exist_ok=True)
     # a previous run's stall ledger / manifest must not pass for this run's
@@ -1967,7 +2009,7 @@ def run_pipeline(calib_path: str, target: str, out_dir: str, cfg: Config | None 
     try:
         with _run_context(cfg, out_dir, report.run_id, log):
             _run_pipeline_impl(calib_path, target, out_dir, cfg, tuple(steps),
-                               merged_name, stl_name, log, dev, report)
+                               merged_name, stl_name, log, dev, report, prefold)
         if tracer is not None:
             g = tracer.registry.set_gauge
             g("sl3d_run_wall_seconds", report.elapsed_s)
@@ -1977,6 +2019,9 @@ def run_pipeline(calib_path: str, target: str, out_dir: str, cfg: Config | None 
             g("sl3d_degraded", int(report.degraded))
             if report.overlap:
                 g("sl3d_critical_path_seconds", report.overlap.get("critical_path_s") or 0.0)
+            if report.assembly and report.assembly.get("tail_s") is not None:
+                # the value the assembly.tail journal instant carries
+                g("sl3d_assembly_tail_seconds", report.assembly["tail_s"])
         return report
     except Exception as e:
         # every abort leaves a manifest; the below-floor path wrote its own
@@ -2000,7 +2045,7 @@ def run_pipeline(calib_path: str, target: str, out_dir: str, cfg: Config | None 
 
 
 def _run_pipeline_impl(calib_path, target, out_dir, cfg: Config, steps, merged_name,
-                       stl_name, log, dev, report: PipelineReport) -> None:
+                       stl_name, log, dev, report: PipelineReport, prefold=None) -> None:
     t_start = time.perf_counter()
     walls = report.walls_s
     # a kill -9 in an earlier run leaves *.tmp orphans; none is data
@@ -2087,7 +2132,7 @@ def _run_pipeline_impl(calib_path, target, out_dir, cfg: Config, steps, merged_n
         dl.watchdog_suspend()
         t_merge = time.perf_counter()
         points, colors = _merge_stage(order, collected, cfg, cache, stream, arm_stream,
-                                      stats, t_stream0, log, dev, report)
+                                      stats, t_stream0, log, dev, report, prefold)
         walls["merge_s"] = time.perf_counter() - t_merge
     except BaseException:
         if stream is not None:
@@ -2146,6 +2191,18 @@ def _run_pipeline_impl(calib_path, target, out_dir, cfg: Config, steps, merged_n
     if report.failures:
         report.manifest_path = _failure_manifest(out_dir, report, len(sources),
                                                  len(collected), aborted=False, log=log)
+    if prefold is not None:
+        if report.assembly is None:
+            # a merge cache hit (or no streamed merge): nothing was seeded
+            report.assembly = {"folded_views": prefold.offered_views, "used_views": 0,
+                               "folded_pairs": len(prefold.T_pairs),
+                               "fold_wall_s": round(sum(e[2] for e in prefold.events), 6)}
+        if prefold.settled_unix:
+            # the OverlapStats gauge and the assembly.tail instant, one call
+            report.assembly["tail_s"] = round(time.time() - prefold.settled_unix, 6)
+            stats.set_assembly_tail(report.assembly["tail_s"], report.assembly)
+            if report.overlap is not None:
+                report.overlap.update(stats.assembly_snapshot())
     report.cache = cache.stats()
     report.elapsed_s = time.perf_counter() - t_start
     log(f"[pipeline] {report.summary}")
@@ -2209,11 +2266,11 @@ def _reconstruct_missing(missing, calib, cfg, steps, view_keys, cache, collected
 
 
 def _merge_stage(order, collected, cfg, cache, stream, arm_stream, stats, t_stream0, log,
-                 dev, report):
+                 dev, report, prefold=None):
     """The merge behind the merge cache: the streamed arm finishes the
-    register lane and runs ``finalize_chain``, the barrier arm runs
-    ``merge_360``. Returns (points, colors); sets the report's merge fields
-    and transforms."""
+    register lane and runs ``finalize_chain`` (seeded with the validated
+    part of ``prefold``), the barrier arm runs ``merge_360``. Returns
+    (points, colors); sets the report's merge fields and transforms."""
     digests = [StageCache.digest_arrays(points=collected[i][0], colors=collected[i][1])
                for i in order]
     merge_key = cache.key("merge", digests=digests,
@@ -2241,9 +2298,26 @@ def _merge_stage(order, collected, cfg, cache, stream, arm_stream, stats, t_stre
             T, gf, fi, ir = stream.finish(order, collected)
             tm["register_wait_s"] = time.perf_counter() - t0
             stats.finish(time.perf_counter() - t_stream0)
+            pf = None
+            if prefold is not None:
+                # trust nothing the pod phase folded until it matches this
+                # pass's order, digests and transforms
+                pf = prefold.validate(order, dict(zip(order, digests)), T, log=log)
+            if pf is not None:
+                # the fold lane's events, replayed now that a journal is open
+                for kind, idx, dur in pf.events:
+                    stats.add_fold(kind, idx, dur)
+                report.assembly = {"folded_views": prefold.offered_views,
+                                   "used_views": len(pf.transforms),
+                                   "folded_pairs": len(pf.T_pairs),
+                                   "fold_wall_s": round(sum(e[2] for e in pf.events), 6)}
+                log(f"[assembly] seeding finalize from {len(pf.transforms)} prefolded "
+                    f"view(s); only the {len(order) - len(pf.transforms)}-view suffix "
+                    f"accumulates here")
             report.overlap = stats.as_dict()
             points, colors, transforms = recon.finalize_chain(
-                clouds, T, gf, fi, ir, cfg.merge, log=log, timings=tm, device=dev)
+                clouds, T, gf, fi, ir, cfg.merge, log=log, timings=tm, device=dev,
+                prefold=pf)
             if stream.failures:
                 report.failures.extend(stream.failures)
                 report.degraded = True

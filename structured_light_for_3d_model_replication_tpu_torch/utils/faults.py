@@ -28,12 +28,20 @@ supplies the two halves of making that chain resilient:
                          item is the port name, ``sim`` or ``loopback``)
    ``http.capture``      each Android camera-host capture attempt
                          (acquire/android.py; item is the host URL)
+   ``worker.item``       each leased item a coordinated worker starts
+                         (parallel/worker.py; item is ``"<worker>:<item>"``)
+   ``worker.sock``       each control frame on the coordinator or blob-store
+                         wire (where ``net.slowlink`` delays)
+   ``coord.grant``       each grant, before it is journaled (coordinator)
+   ``ledger.append``     each ledger event, before its append
+   ``blob.fetch``        each blob-store fetch / push (pipeline/blobstore.py)
+   ``blob.push``
    ====================  ====================================================
 
    ``frame.pack`` also fires in the capture sequencer's pack-on-capture
    step (acquire/sequencer.py; item is the view folder). The grammar also
-   accepts the JAX package's other site names (coordinator, serving); the
-   port has no such stage, so they never fire.
+   accepts the JAX package's serving site names; the port has no serving
+   layer yet, so they never fire.
 
 2. **Retry/quarantine toolkit** — the exception classifier
    (:func:`is_transient`), the bounded exponential-backoff
@@ -80,10 +88,12 @@ lane's deadline); ``slow`` is the straggler that must trip only the SOFT
 watchdog threshold and still complete.
 
 The **host-scope kinds** (``worker.kill``, ``worker.preempt(T)``,
-``net.partition(T)``, ``net.slowlink(T)``) model whole-process fates in the
-JAX package's coordinated multi-process runs. The port has no coordinator;
-they parse, and raise (or block) as there, so one spec string means the same
-in both packages.
+``net.partition(T)``, ``net.slowlink(T)``) model whole-process fates in
+coordinated multi-process runs: a worker (``parallel/worker.py``) exits
+137 on ``worker.kill``, 143 after the grace of ``worker.preempt``, finishes
+its item cut off from the coordinator and reports it late on
+``net.partition``; ``net.slowlink`` delays each wire frame. One spec string
+means the same in both packages.
 """
 from __future__ import annotations
 

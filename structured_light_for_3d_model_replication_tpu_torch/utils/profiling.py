@@ -3,8 +3,10 @@
   - ``OverlapStats``: per-lane wall accounting of the reconstruct lanes
     (load, transfer, compute, clean, write) and the streaming register
     lane, the prefetch window's depth, device<->host bytes and kernel-lane
-    launches, under the JAX package's ``as_dict`` keys; its ``add`` is also
-    the heartbeat the stall watchdog listens for.
+    launches, the pod fabric's blob bytes and the incremental assembly's
+    folds, under the JAX package's ``as_dict`` keys; its ``add`` is also
+    the heartbeat the stall watchdog listens for, and the one a
+    coordinated worker renews its leases from (``set_heartbeat_hook``).
   - ``trace``: context manager around ``torch.profiler`` so any stage can
     emit a device trace (set ``SL3D_TRACE_DIR`` or pass a path; the trace is
     a Chrome-trace JSON that Perfetto loads).
@@ -21,7 +23,23 @@ from structured_light_for_3d_model_replication_tpu_torch.utils import (
 )
 from structured_light_for_3d_model_replication_tpu_torch.utils import telemetry
 
-__all__ = ["OverlapStats", "trace"]
+__all__ = ["OverlapStats", "trace", "set_heartbeat_hook"]
+
+# ambient progress-heartbeat hook: a coordinated-run worker installs its
+# lease renewal here, so every ``OverlapStats.add`` (the call that adds a
+# lane wall and beats the stall watchdog) also renews the worker's leases:
+# liveness as the coordinator sees it and compute progress come from one
+# call site. The hook never raises; unset, it costs one None check.
+_HEARTBEAT = None
+
+
+def set_heartbeat_hook(hook):
+    """Install (or clear, with None) the heartbeat hook; returns the
+    previous one."""
+    global _HEARTBEAT
+    prev = _HEARTBEAT
+    _HEARTBEAT = hook
+    return prev
 
 
 class OverlapStats:
@@ -78,6 +96,16 @@ class OverlapStats:
         self._frame_raw_bytes = 0
         # per-kernel-lane launch accounting: name -> [launches, wall_s, bytes]
         self._kernels: dict[str, list] = {}
+        # pod-fabric blob bytes (a worker's L2 fetches, pushes and dedups)
+        self._fabric_fetched = 0
+        self._fabric_pushed = 0
+        self._fabric_deduped = 0
+        # the incremental assembly: folds replayed by the assembly pass and
+        # the tail from the last item settled to the artifacts on disk
+        self._asm_fold_s = 0.0
+        self._asm_views = 0
+        self._asm_pairs = 0
+        self._asm_tail_s: float | None = None
         self.critical_path_s = 0.0
 
     def add(self, stage: str, elapsed_s: float, items: int = 0,
@@ -96,6 +124,9 @@ class OverlapStats:
         # pattern), so liveness and accounting cannot disagree. One None
         # check when no watchdog is armed.
         _deadline.beat(stage)
+        hb = _HEARTBEAT
+        if hb is not None:   # a coordinated worker's lease renewal
+            hb(stage)
         tr = telemetry.current()
         if tr is not None:
             tr.lane(stage, elapsed_s, view=view)
@@ -152,6 +183,9 @@ class OverlapStats:
             self._pairs_dispatched += n
             self._stage_s["register"] += dispatch_s
         _deadline.beat("register")
+        hb = _HEARTBEAT
+        if hb is not None:
+            hb("register")
         tr = telemetry.current()
         if tr is not None:
             # the register wall includes launch dispatch — mirror it as a
@@ -196,6 +230,58 @@ class OverlapStats:
             tr.instant(f"kernel.{name}", wall_s=round(w, 6),
                        bucket=int(bucket) if bucket is not None else None,
                        bytes=int(bytes_moved) or None)
+
+    def add_fabric(self, fetched: int = 0, pushed: int = 0, deduped: int = 0) -> None:
+        """Pod-fabric blob bytes: ``fetched`` (an L2 hit promoted into L1),
+        ``pushed`` (a write-through publish L2 took), ``deduped`` (a push L2
+        already held). The ``fabric.bytes`` journal instant comes from this
+        same call, so ``report``'s fabric totals match these counters."""
+        f, p, d = int(fetched), int(pushed), int(deduped)
+        with self._lock:
+            self._fabric_fetched += f
+            self._fabric_pushed += p
+            self._fabric_deduped += d
+        tr = telemetry.current()
+        if tr is not None:
+            tr.instant("fabric.bytes", fetched=f or None, pushed=p or None,
+                       deduped=d or None)
+
+    def add_fold(self, kind: str, idx: int, dur_s: float) -> None:
+        """One incremental-assembly fold (``kind`` 'view' or 'pair'). The
+        pod phase runs before ``run_pipeline`` opens its journal, so the
+        fold lane buffers its events and the assembly pass replays them
+        here: the ``assembly`` lane span and these sums from one call."""
+        d = float(dur_s)
+        with self._lock:
+            self._asm_fold_s += d
+            if kind == "view":
+                self._asm_views += 1
+            else:
+                self._asm_pairs += 1
+        tr = telemetry.current()
+        if tr is not None:
+            tr.lane("assembly", d, **{str(kind): int(idx)})
+
+    def set_assembly_tail(self, tail_s: float, info: dict | None = None) -> None:
+        """Stamp the assembly tail (last item settled -> artifacts on disk)
+        and journal the ``assembly.tail`` instant from the same call."""
+        t = float(tail_s)
+        with self._lock:
+            self._asm_tail_s = t
+        tr = telemetry.current()
+        if tr is not None:
+            tr.instant("assembly.tail", **{"tail_s": round(t, 6), **(info or {})})
+
+    def assembly_snapshot(self) -> dict:
+        """The assembly lane's gauges alone (the tail is known only after
+        the main ``as_dict`` snapshot)."""
+        with self._lock:
+            out = {"assembly_s": round(self._asm_fold_s, 4),
+                   "assembly_folded_views": self._asm_views,
+                   "assembly_folded_pairs": self._asm_pairs}
+            if self._asm_tail_s is not None:
+                out["assembly_tail_s"] = round(self._asm_tail_s, 4)
+            return out
 
     def sample_queue(self, depth: int) -> None:
         """One sample of the prefetch window's depth."""
@@ -256,9 +342,13 @@ class OverlapStats:
         out["transfer_bytes_frames_raw"] = self._frame_raw_bytes
         out["frame_bytes_ratio"] = (round(self._frame_raw_bytes / self._frame_bytes, 2)
                                     if self._frame_bytes else None)
+        out["fabric_bytes_fetched"] = self._fabric_fetched
+        out["fabric_bytes_pushed"] = self._fabric_pushed
+        out["fabric_bytes_deduped"] = self._fabric_deduped
         out["kernels"] = {
             name: {"launches": agg[0], "wall_s": round(agg[1], 4), "bytes_moved": agg[2]}
             for name, agg in sorted(self._kernels.items())}
+        out.update(self.assembly_snapshot())
         items = self._items
         out["compute_per_item_s"] = (round(self._stage_s["compute"] / items, 4)
                                      if items else None)

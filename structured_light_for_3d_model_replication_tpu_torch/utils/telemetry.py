@@ -51,7 +51,7 @@ import time
 __all__ = [
     "SCHEMA", "LANE_ORDER", "Tracer", "MetricsRegistry", "current", "activate",
     "deactivate", "new_run_id", "stage", "prometheus_text", "read_journal",
-    "export_chrome_trace",
+    "export_chrome_trace", "set_host_tag", "host_tag", "host_scoped",
 ]
 
 SCHEMA = "sl3d-trace-v1"
@@ -67,9 +67,46 @@ _SECONDS_BUCKETS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
 _COUNT_BUCKETS = (1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0)
 
 
+# host-scope identity of a coordinated run: when N workers share one out
+# dir, every run id and artifact a worker writes (trace.jsonl,
+# metrics.json, failures.json) carries the writer's tag, so no worker
+# clobbers another's. Unset (the coordinator, a single-process run) every
+# artifact keeps its canonical name.
+_HOST_TAG: str | None = None
+
+
+def set_host_tag(tag: str | None) -> str | None:
+    """Install this process's host tag (``w<rank>-<pid>`` in a worker
+    process; None restores canonical names). Returns the previous tag."""
+    global _HOST_TAG
+    prev = _HOST_TAG
+    _HOST_TAG = tag or None
+    return prev
+
+
+def host_tag() -> str | None:
+    return _HOST_TAG
+
+
+def host_scoped(filename: str) -> str:
+    """The host tag stamped into an artifact name before its extension
+    (``trace.jsonl`` -> ``trace.w0-1234.jsonl``); the name itself when no
+    tag is set."""
+    if _HOST_TAG is None:
+        return filename
+    stem, dot, ext = filename.rpartition(".")
+    if not dot:
+        return f"{filename}.{_HOST_TAG}"
+    return f"{stem}.{_HOST_TAG}.{ext}"
+
+
 def new_run_id() -> str:
-    """Sortable, collision-safe run identifier (UTC stamp + random hex)."""
-    return time.strftime("%Y%m%dT%H%M%SZ", time.gmtime()) + "-" + os.urandom(4).hex()
+    """Sortable, collision-safe run identifier (UTC stamp + random hex, and
+    the host tag in a worker process)."""
+    rid = time.strftime("%Y%m%dT%H%M%SZ", time.gmtime()) + "-" + os.urandom(4).hex()
+    if _HOST_TAG is not None:
+        rid += "-" + _HOST_TAG
+    return rid
 
 
 # ---------------------------------------------------------------------------

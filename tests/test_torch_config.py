@@ -29,7 +29,8 @@ def test_copied_sections_have_the_jax_defaults(env, monkeypatch):
         monkeypatch.setenv(k, v)
     port, jax = config.Config().to_dict(), jconfig.Config().to_dict()
     for section in ("faults", "deadlines", "observability", "projector", "decode",
-                    "triangulate", "clean", "merge", "mesh", "checkerboard", "acquire"):
+                    "triangulate", "clean", "merge", "mesh", "checkerboard", "acquire",
+                    "coordinator"):
         assert port[section] == jax[section], section
     for section in ("pipeline", "parallel"):
         assert port[section] == {k: jax[section][k] for k in port[section]}
@@ -55,7 +56,7 @@ def test_a_dropped_key_away_from_its_default_is_logged_once(tmp_path, capsys):
     jcfg.parallel.merge_mesh = True
     jcfg.parallel.shard_views = False
     jcfg.pipeline.fused_clean = True   # a carried key: it loads and is not logged
-    jcfg.coordinator.workers = 3
+    jcfg.serving.queue_depth = 3
     jcfg.pipeline.max_retries = 5
     jcfg.save(str(tmp_path / "jax.json"))
     for _ in range(2):
@@ -68,7 +69,7 @@ def test_a_dropped_key_away_from_its_default_is_logged_once(tmp_path, capsys):
         "(default False)",
         "[config] parallel.shard_views=False is not ported; the port ignores it "
         "(default True)",
-        "[config] coordinator.workers=3 is not ported; the port ignores it (default 0)",
+        "[config] serving.queue_depth=3 is not ported; the port ignores it (default 64)",
         "[config] serving.port=9000 is not ported; the port ignores it (default 8089)"])
     assert cfg.pipeline.max_retries == 5 and cfg2.pipeline.max_retries == 2
     assert cfg.pipeline.fused_clean is True and cfg2.pipeline.ascii_output is False
@@ -128,3 +129,31 @@ def test_checkerboard_and_acquire_are_carried_in_the_jax_order(tmp_path, capsys)
                                         "checkerboard.rows": "6",
                                         "acquire.settle_ms_scan": "0"})
     assert json.dumps(config.jax_dict(over)) == json.dumps(j_over.to_dict())
+
+
+def test_the_coordinator_section_and_merge_incremental_are_carried(tmp_path, capsys):
+    """``coordinator`` and ``merge.incremental`` load into the port (no
+    longer dropped, so never logged), from a JAX-package file and from
+    overrides, and the ``config`` JSON equals the JAX package's, key order
+    included; ``serving`` stays dropped."""
+    jcfg = jconfig.Config()
+    jcfg.coordinator.workers = 3
+    jcfg.coordinator.listen = "127.0.0.1:0"
+    jcfg.coordinator.secret = "s3"
+    jcfg.coordinator.lease_s = 8.0
+    jcfg.merge.incremental = True
+    jcfg.save(str(tmp_path / "jax.json"))
+    cfg = config.load_config(str(tmp_path / "jax.json"))
+    assert (cfg.coordinator.workers, cfg.coordinator.listen) == (3, "127.0.0.1:0")
+    assert cfg.coordinator.secret == "s3" and cfg.coordinator.lease_s == 8.0
+    assert cfg.merge.incremental is True
+    over = config.load_config(None, {"coordinator.workers": "2",
+                                     "coordinator.heartbeat_s": "1",
+                                     "merge.incremental": "true"})
+    assert over.coordinator.workers == 2 and over.coordinator.heartbeat_s == 1.0
+    assert over.merge.incremental is True
+    assert capsys.readouterr().err == ""
+    assert "coordinator" not in config._DROPPED and "serving" in config._DROPPED
+    assert [f.name for f in dataclasses.fields(config.CoordinatorConfig)] == \
+        [f.name for f in dataclasses.fields(jconfig.CoordinatorConfig)]
+    assert json.dumps(config.jax_dict(cfg)) == json.dumps(jcfg.to_dict())

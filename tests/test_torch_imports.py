@@ -44,7 +44,9 @@ def test_importing_every_port_module_leaves_jax_unloaded():
               "calib.chessboard", "calib.inspect", "calib.undistort", "calib.pipeline",
               "calib.visualize", "acquire.projector", "acquire.turntable",
               "acquire.server", "acquire.sequencer", "acquire.autoscan", "acquire.webcam",
-              "acquire.android"):
+              "acquire.android", "parallel", "parallel.netutil", "parallel.lease",
+              "parallel.coordinator", "parallel.worker", "pipeline.blobstore",
+              "pipeline.assembly"):
         assert f"{PKG}.{m}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -138,3 +140,28 @@ def test_the_native_io_source_is_the_ports_own():
     binding = (ROOT / PKG / "io" / "native.py").read_text()
     assert 'os.path.join(_HERE, "csrc", "slio.cpp")' in binding
     assert "SLIO_LIBRARY" not in binding and "parents" not in binding
+
+
+def test_the_coordinator_spawns_the_ports_worker(tmp_path, monkeypatch):
+    """``_spawn_worker`` starts ``python -m <port> worker --spec`` (never the
+    JAX package's CLI) with the coordinator's device in the spec and the
+    coordinator's ``sys.path`` on the child's PYTHONPATH."""
+    from structured_light_for_3d_model_replication_tpu_torch.parallel import coordinator
+
+    seen = {}
+
+    class _Popen:
+        def __init__(self, argv, stdout=None, stderr=None, env=None):
+            seen["argv"], seen["env"] = argv, env
+
+    monkeypatch.setattr(coordinator.subprocess, "Popen", _Popen)
+    coordinator._spawn_worker(3, 4, 5555, str(tmp_path), "cfg.json", "calib.mat", "scans",
+                              str(tmp_path), ("statistical",), "cuda")
+    spec_path = str(tmp_path / "worker3.json")
+    assert seen["argv"] == [sys.executable, "-m", PKG, "worker", "--spec", spec_path]
+    assert str(ROOT) in seen["env"]["PYTHONPATH"].split(os.pathsep)
+    import json
+
+    spec = json.loads(pathlib.Path(spec_path).read_text())
+    assert (spec["worker"], spec["device"], spec["port"]) == ("w3", "cuda", 5555)
+    assert "cache_root" not in spec
