@@ -108,9 +108,10 @@ Imports nothing of JAX. Phases, each of which exits non-zero on failure:
    true-pose arm: the pipeline's cleaned views merged under the true poses
    and meshed, gated at 1.5x the JAX package's errors against the true
    surfaces and the merged cloud (``PIPELINE_JAX["true_pose"]``); and the
-   mesh arm: ``mesh_cloud`` (depth 10, brick-refined) on ~188k points of the
-   three spheres' union, gated at 1.5x the JAX package's errors on the same
-   cloud (``MESH_JAX``) against the true spheres and the input cloud;
+   mesh arm: ``mesh_cloud`` (depth 9, the dense solve: MESH_DEPTH) on ~188k
+   points of the three spheres' union, gated at 1.5x the JAX package's
+   errors on the same cloud at the same depth (``MESH_JAX``) against the
+   true spheres and the input cloud;
 8. the schedule (``schedule_phase``) on the same 24 views, beside phase 7's
    cold run: the barrier arm (``merge.stream=false``) byte-identical to it,
    both walls and the register lane's wall beside the critical path
@@ -235,9 +236,33 @@ Imports nothing of JAX. Phases, each of which exits non-zero on failure:
    completes an item and exits 0, the fold lane folds a view, the port's
    ``report --validate`` exits 0 and the journals' fabric bytes equal the
    blob server's counters (pushes, fetches, bytes and the assembly tail
-   printed). (c) chaos: ``SL3D_FAULTS=worker.item~w0:worker.kill@3`` under
-   an 8 s lease and 1 s heartbeats: w0 exits 137, the ledger holds a
-   steal and no item completed before the kill is granted again.
+   printed). (c) chaos, on the first SERVE_SUBSET (8) views held to their
+   own solo run (``subset_reference``, run first):
+   ``SL3D_FAULTS=worker.item~w0:worker.kill@3`` under an 8 s lease and 1 s
+   heartbeats: w0 exits 137, the ledger holds a steal and no item
+   completed before the kill is granted again;
+14. the scan service (``serving_phase``, after phase 13), phase 7's config:
+   (a) a solo gateway over HTTP with auth on, two tenants minted by
+   ``tenant add``, one submitting phase 7's 24 views and one phase 8's
+   dirty copy together: both served byte-identical to phase 7's cold run
+   and phase 8's dirty run, at least one cross-tenant launch, no view
+   failure or engine exception line, no view computed in either assembly,
+   a 401 without a key and a 429 over the rate limit; then a rescan
+   planned after the store is warm (24 views deduped, no view kernel, the
+   same bytes) and /usage equal to the ledger's fold. (b)-(d) on the 8
+   views of ``subset_reference``, each byte-identical to its solo run: (b)
+   a ``serve.crash`` at the assembly boundary, then a new service over the
+   root resumes with no view computed; (c) two HA gateways (2 s lease): the
+   leader's renew stalls once it credited a view, the follower takes over
+   at epoch 2 and warms at most the views epoch 1 did not credit, and the
+   old leader's next append is fenced; (d) the elastic fleet (1 to 2
+   worker processes on the card beside the engine lane): a fleet worker
+   completes a view, the ledger holds the spawns, each worker's exit line
+   (launches, peak memory) printed, no worker process left. (e) ``warmup``
+   and ``doctor`` as subprocesses: both exit 0, warmup finds the library
+   built and prints each kernel's first launch, doctor prints the card's
+   name and power limit. Each arm prints its wall, its launches, the peak
+   device memory and each request's queue / warm / assembly split.
 
 Then one ``{"kernels": [...]}`` JSON line (times from phases 2, 4 and 6,
 bounds from this run's shapes, and each kernel's launches from one run of
@@ -387,17 +412,21 @@ PIPELINE_JAX = {
 }
 PIPE_STEPS = ("input", "background", "cluster", "radius", "statistical")
 MESH_POINTS = 200_000
+# The mesh arm meshes at depth 9 (the dense solve): at depth 10 its host
+# extraction alone took 67 s of the script; phase 7 and the true-pose arm
+# still run the depth-10 brick solve.
+MESH_DEPTH = 9
 # The mesh arm's gates: the JAX package's mesh_cloud of mesh_cloud() on the
-# CPU at depth 10 (tools/torch_pipeline_reference.py --mesh).
+# CPU at MESH_DEPTH (tools/torch_pipeline_reference.py --mesh).
 MESH_JAX = {
-    "surf_median_mm": 0.041278764902799026,
-    "surf_p99_mm": 3.0775032337983745,
-    "to_merged_median_mm": 0.3172093226289097,
-    "to_merged_p99_mm": 3.1958672256731617,
-    "from_merged_median_mm": 0.06465328910326502,
-    "from_merged_p99_mm": 0.12543843958863254,
-    "boundary_edges": 8345,
-    "nonmanifold_edges": 2898}
+    "surf_median_mm": 0.01822814154343888,
+    "surf_p99_mm": 11.480059209312035,
+    "to_merged_median_mm": 0.31726678052317286,
+    "to_merged_p99_mm": 12.107095797276253,
+    "from_merged_median_mm": 0.12398399907564436,
+    "from_merged_p99_mm": 0.23348048184432754,
+    "boundary_edges": 0,
+    "nonmanifold_edges": 424}
 
 
 # Phase 11's gates: the JAX package's errors on the same inputs on the CPU.
@@ -2778,14 +2807,15 @@ def true_pose_arm(dev, view_dir: str, poses, scene, root: str, card: str) -> Non
 
 def mesh_arm(dev, root: str, card: str) -> None:
     """The meshing stage against a known surface: ``mesh_cloud`` (the
-    ``mesh`` entry point: normals, depth-10 brick Poisson, extraction, trim)
-    on ``mesh_cloud()``'s points at the default Config(), gated at 1.5x the
+    ``mesh`` entry point: normals, the dense Poisson solve at MESH_DEPTH,
+    extraction, trim) on ``mesh_cloud()``'s points at the default Config()
+    with ``mesh.depth=MESH_DEPTH``, gated at 1.5x the
     JAX package's errors on the same cloud (``MESH_JAX``): the STL's
     distance to the true spheres, to the input cloud both ways, and its
     open and non-manifold edges."""
     import torch
 
-    from structured_light_for_3d_model_replication_tpu_torch.config import Config
+    from structured_light_for_3d_model_replication_tpu_torch.config import load_config
     from structured_light_for_3d_model_replication_tpu_torch.io import ply
     from structured_light_for_3d_model_replication_tpu_torch.pipeline import stages
 
@@ -2793,13 +2823,15 @@ def mesh_arm(dev, root: str, card: str) -> None:
     src, out = os.path.join(root, "mesh_cloud.ply"), os.path.join(root, "mesh_arm.stl")
     ply.write_ply(src, cloud)
     tm: dict = {}
+    cfg = load_config(None, {"mesh.depth": MESH_DEPTH})
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    stages.mesh_cloud(src, out, cfg=Config(), device=dev, log=lambda m: None, timings=tm)
+    stages.mesh_cloud(src, out, cfg=cfg, device=dev, log=lambda m: None, timings=tm)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     acc = stl_accuracy(out, scene, cloud)
-    print(json.dumps({"mesh": "sphere union", "points": int(len(cloud)), "wall_s": wall,
+    print(json.dumps({"mesh": "sphere union", "depth": MESH_DEPTH,
+                      "points": int(len(cloud)), "wall_s": wall,
                       "walls_s": tm, "stl": acc, "card": card}), flush=True)
     for key, ref in MESH_JAX.items():
         check(acc[key] <= GATE * ref,
@@ -3553,7 +3585,7 @@ def pair_group_gate(dev, data: str, calib: str, cold: dict, card: str) -> None:
                       "grouped_s": t_group, "alone_s": t_alone, "card": card}), flush=True)
 
 
-def coordinated_phase(dev, data: str, calib: str, root: str, cold: dict,
+def coordinated_phase(dev, data: str, calib: str, root: str, cold: dict, subset: dict,
                       card: str) -> None:
     """Phase 13: first ``pair_group_gate`` (a pair's bytes alone, in its
     group and in phase 7's pair cache), then ``run_pipeline`` with
@@ -3576,7 +3608,8 @@ def coordinated_phase(dev, data: str, calib: str, root: str, cold: dict,
     assembly tail printed. (c) chaos: ``SL3D_FAULTS=worker.item~w0:
     worker.kill@3``, a COORD_LEASE_S lease and 1 s heartbeats: w0 exits
     137, the ledger holds a steal, and no item completed before the kill is
-    granted again."""
+    granted again; this arm runs on the SERVE_SUBSET views
+    (``subset_reference``) and is held to their solo run's bytes."""
     import threading
 
     import torch
@@ -3598,7 +3631,8 @@ def coordinated_phase(dev, data: str, calib: str, root: str, cold: dict,
     t_phase = time.perf_counter()
     pair_group_gate(dev, data, calib, cold, card)
 
-    def run(arm: str, sets: dict, external: bool = False):
+    def run(arm: str, sets: dict, external: bool = False, data_: str = data,
+            want: tuple = (cold_ply, cold_stl)):
         cfg = load_config(None, {**PIPE_OVERRIDES, **sets})
         out = os.path.join(root, f"coord_{arm}")
         ext, done = None, threading.Event()
@@ -3608,7 +3642,7 @@ def coordinated_phase(dev, data: str, calib: str, root: str, cold: dict,
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         try:
-            report = stages.run_pipeline(calib, data, out, cfg=cfg, device=dev,
+            report = stages.run_pipeline(calib, data_, out, cfg=cfg, device=dev,
                                          log=lambda m: None)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
@@ -3624,10 +3658,10 @@ def coordinated_phase(dev, data: str, calib: str, root: str, cold: dict,
                         proc.kill()
                         proc.wait()
         counts = kernels.launch_counts()
-        for name, mine in (("merged.ply", cold_ply), ("model.stl", cold_stl)):
+        for name, mine in zip(("merged.ply", "model.stl"), want):
             with open(os.path.join(out, name), "rb") as f:
                 check(f.read() == mine,
-                      f"coordinated {arm}: {name} differs from phase 7's cold run")
+                      f"coordinated {arm}: {name} differs from its solo run")
         check(report.failures == [] and not report.degraded,
               f"coordinated {arm}: failures {[f.as_dict() for f in report.failures]}")
         c = report.coordinator or {}
@@ -3722,12 +3756,13 @@ def coordinated_phase(dev, data: str, calib: str, root: str, cold: dict,
           f"{c['assembly']['tail_s']:.3f} s; {len(rows)} journal rows, "
           f"{len(replib.host_journals(out))} journals valid", flush=True)
 
-    # (c) chaos: w0 killed on its third item under a short lease
+    # (c) chaos: w0 killed on its third item under a short lease, on the subset
     os.environ["SL3D_FAULTS"] = "worker.item~w0:worker.kill@3"
     try:
         out, report, c, counts, workers, _ = run("chaos", {
             "coordinator.workers": COORD_WORKERS, "coordinator.lease_s": COORD_LEASE_S,
-            "coordinator.heartbeat_s": 1.0})
+            "coordinator.heartbeat_s": 1.0}, data_=subset["data"],
+            want=(subset["ply"], subset["stl"]))
     finally:
         os.environ.pop("SL3D_FAULTS", None)
         faults.reset()
@@ -3747,6 +3782,477 @@ def coordinated_phase(dev, data: str, calib: str, root: str, cold: dict,
           f"({', '.join(e['item'] for e in steals)}); {c['item_states']}; wall "
           f"{c['total_wall_s']:.2f} s; phase 13 took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
+
+
+SERVE_SUBSET = 8        # phase 14(b)-(d): the first 8 of phase 7's views, full width
+SERVE_HA_LEASE_S = 2.0
+SERVE_HA_SLOW_S = 0.5   # compute.view:slow a view in 14(c), both gateways
+SERVE_WAIT_S = 300.0
+
+
+def subset_reference(dev, data: str, calib: str, root: str, card: str) -> dict:
+    """The first SERVE_SUBSET of phase 7's views copied to root/scans_subset
+    and one solo ``run_pipeline`` of them (phase 7's config, in the phase):
+    what phase 13(c) and phase 14(b)-(d) are held to. Returns {"data",
+    "ply", "stl", "wall_s"}."""
+    import shutil
+
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.config import load_config
+    from structured_light_for_3d_model_replication_tpu_torch.pipeline import stages
+
+    sub = os.path.join(root, "scans_subset")
+    views = sorted(n for n in os.listdir(data) if os.path.isdir(os.path.join(data, n)))
+    for name in views[:SERVE_SUBSET]:
+        shutil.copytree(os.path.join(data, name), os.path.join(sub, name))
+    out = os.path.join(root, "subset_solo")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    report = stages.run_pipeline(calib, sub, out, cfg=load_config(None, PIPE_OVERRIDES),
+                                 device=dev, log=lambda m: None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(not report.failures and report.views_computed == SERVE_SUBSET,
+          f"subset solo: {report.views_computed} views computed, failures "
+          f"{[f.as_dict() for f in report.failures]}")
+    ref = {"data": sub, "wall_s": wall}
+    for key, name in (("ply", "merged.ply"), ("stl", "model.stl")):
+        with open(os.path.join(out, name), "rb") as f:
+            ref[key] = f.read()
+    print(json.dumps({"subset solo": SERVE_SUBSET, "wall_s": wall,
+                      "merged_points": report.merged_points, "card": card}), flush=True)
+    return ref
+
+
+def _serve_splits(ledger_path: str) -> dict:
+    """Each request's queue (submit -> admit), warm (admit -> warmed) and
+    assembly (warmed -> finish) seconds from the ledger's timestamps."""
+    marks: dict = {}
+    with open(ledger_path, encoding="utf-8") as f:
+        for line in f:
+            try:
+                ev = json.loads(line)
+            except ValueError:
+                continue
+            if ev.get("type") in ("submit", "admit", "warmed", "finish") and "scan" in ev:
+                marks.setdefault(ev["scan"], {}).setdefault(ev["type"], ev["t"])
+    out = {}
+    for sid, m in marks.items():
+        if {"submit", "admit", "warmed", "finish"} <= set(m):
+            out[sid] = {"queue_s": round(m["admit"] - m["submit"], 3),
+                        "warm_s": round(m["warmed"] - m["admit"], 3),
+                        "assembly_s": round(m["finish"] - m["warmed"], 3)}
+    return out
+
+
+def _engine_trouble(logs: list[str]) -> list[str]:
+    """Engine exception, view failure and fallback lines of a service log."""
+    return [m for m in logs if m.startswith("[serve] engine ") or "view FAILED" in m
+            or "degraded to per-view" in m]
+
+
+def _wait_done(svc, sid: str, what: str) -> dict:
+    from structured_light_for_3d_model_replication_tpu_torch.parallel.admission import (
+        TERMINAL,
+    )
+
+    t0 = time.monotonic()
+    d = None
+    while time.monotonic() - t0 < SERVE_WAIT_S:
+        d = svc.status(sid)
+        if d is not None and d["state"] in TERMINAL:
+            break
+        time.sleep(0.05)
+    check(d is not None and d["state"] == "done", f"serve {what}: {sid} ended {d}")
+    return d
+
+
+def _served_bytes(svc, sid: str, want: tuple, what: str) -> None:
+    for art, mine in (("ply", want[0]), ("stl", want[1])):
+        path, err = svc.result_path(sid, art)
+        check(bool(path), f"serve {what}: no {art} for {sid}: {err}")
+        with open(path, "rb") as f:
+            check(f.read() == mine, f"serve {what}: {sid}'s {art} differs from its solo run")
+
+
+def serving_phase(dev, data: str, calib: str, root: str, cold: dict, subset: dict,
+                  card: str) -> None:
+    """Phase 14: the scan service (``pipeline/serving.py``) on the card,
+    phase 7's config with ``serving.port=0``. Each arm zeroes the kernels'
+    launch counts and the peak device memory first and prints its wall, its
+    launches, the peak and each request's queue / warm / assembly split from
+    the ledger. (a) a solo gateway over HTTP with auth on: two tenants
+    minted by ``tenant add`` (ta limited to one submit a window), ta submits
+    phase 7's 24 views and tb phase 8's dirty copy together; both done, the
+    served merged.ply and model.stl byte-identical to phase 7's cold run and
+    phase 8's dirty run, at least one cross-tenant launch, no view failure,
+    no engine exception or fallback line, each assembly computing no view;
+    an unauthenticated submit is a 401, ta's second a 429; then tb submits
+    phase 7's views again, planned after the store is warm: 24 views
+    deduped, none computed, the bytes phase 7's; /usage equals
+    ``fold_usage`` over the ledger. (b)-(d) on the SERVE_SUBSET views
+    (``subset_reference``): (b) ``serve.crash`` at the assembly boundary of
+    the scan, then a new ScanService over the root resumes it with no view
+    computed and its bytes; (c) two HA gateways, a SERVE_HA_LEASE_S lease:
+    once the leader credited a view, its renew stalls; the follower takes
+    over at epoch 2, computes at most the views epoch 1 did not credit, the
+    bytes are the subset's, and the old leader's next append is fenced and
+    it demotes; (d) the elastic fleet (min 1, max 2 workers on the card,
+    compute_batch 1 so the lane and the workers share the grants): the
+    bytes, a fleet worker completed a view, the ledger holds the spawns,
+    each worker's exit line (launches, peak memory) printed, no worker
+    process left after close. (e) ``warmup`` and ``doctor`` as
+    subprocesses: both exit 0, warmup finds the library built and prints
+    each kernel's first launch, doctor prints the card's name and power
+    limit."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.cli import main as cli_main
+    from structured_light_for_3d_model_replication_tpu_torch.config import load_config
+    from structured_light_for_3d_model_replication_tpu_torch.ops import kernels
+    from structured_light_for_3d_model_replication_tpu_torch.parallel import admission
+    from structured_light_for_3d_model_replication_tpu_torch.pipeline import serving
+    from structured_light_for_3d_model_replication_tpu_torch.utils import faults
+
+    def read(path):
+        with open(path, "rb") as f:
+            return f.read()
+
+    cold_b = (read(os.path.join(cold["out"], "merged.ply")),
+              read(os.path.join(cold["out"], "model.stl")))
+    dirty_b = (read(os.path.join(root, "schedule_dirty", "merged.ply")),
+               read(os.path.join(root, "schedule_dirty", "model.stl")))
+    sub_b = (subset["ply"], subset["stl"])
+    t_phase = time.perf_counter()
+
+    def cfg(**sets):
+        base = {**PIPE_OVERRIDES, "serving.port": 0}
+        base.update({k.replace("__", "."): v for k, v in sets.items()})
+        return load_config(None, base)
+
+    def arm_start():
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        return time.perf_counter()
+
+    def arm_line(arm: str, t0: float, root_: str, scans=None, **extra):
+        torch.cuda.synchronize()
+        splits = _serve_splits(os.path.join(root_, "ledger.jsonl"))
+        line = {"serve": arm, "wall_s": time.perf_counter() - t0,
+                "launches": kernels.launch_counts(),
+                "peak_device_gb": round(torch.cuda.max_memory_allocated() / 1e9, 3),
+                "requests": {k: v for k, v in splits.items() if scans is None or k in scans},
+                **extra, "card": card}
+        print(json.dumps(line), flush=True)
+        return line
+
+    def post(url, payload, key=None):
+        req = urllib.request.Request(
+            url + "/submit", data=json.dumps(payload).encode(),
+            headers={"Content-Type": "application/json", **({"X-API-Key": key} if key
+                                                              else {})})
+        try:
+            with urllib.request.urlopen(req, timeout=60) as r:
+                return r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+
+    def get(url):
+        with urllib.request.urlopen(url, timeout=60) as r:
+            return r.read()
+
+    # (a) solo gateway over HTTP, auth on
+    root_a = os.path.join(root, "serve_a")
+    keys = {}
+    for tenant, extra in (("ta", ["--rate-limit", "1"]), ("tb", [])):
+        rc, text = run_cli(cli_main, ["tenant", "add", root_a, tenant, *extra,
+                                      "--device", dev.type])
+        check(rc == 0, f"serve (a): tenant add {tenant} exited {rc}")
+        keys[tenant] = text.strip().rsplit(" ", 1)[-1]
+    logs: list[str] = []
+    t0 = arm_start()
+    httpd, svc = serving.start_gateway(
+        root_a, cfg=cfg(serving__auth_enabled=True, serving__max_active_scans=4),
+        log=logs.append, device=dev)
+    threading.Thread(target=httpd.serve_forever, kwargs={"poll_interval": 0.05},
+                     daemon=True).start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    dirty = os.path.join(root, "scans_dirty")
+    try:
+        code, body = post(url, {"tenant": "ta", "target": data, "calib": calib})
+        check(code == 401 and body.get("reason") == "auth-required",
+              f"serve (a): unauthenticated submit answered {code} {body}")
+        sids = {}
+        for tenant, target in (("ta", data), ("tb", dirty)):
+            code, body = post(url, {"tenant": tenant, "target": target, "calib": calib},
+                              key=keys[tenant])
+            check(code == 200, f"serve (a): {tenant}'s submit answered {code} {body}")
+            sids[tenant] = body["scan_id"]
+        code, body = post(url, {"tenant": "ta", "target": data, "calib": calib},
+                          key=keys["ta"])
+        check(code == 429 and body.get("reason") == "rate-limited",
+              f"serve (a): ta's second submit answered {code} {body}")
+        for tenant, want in (("ta", cold_b), ("tb", dirty_b)):
+            d = _wait_done(svc, sids[tenant], "(a)")
+            _served_bytes(svc, sids[tenant], want, "(a)")
+            check(get(f"{url}/result/{sids[tenant]}?artifact=stl") == want[1],
+                  f"serve (a): /result of {sids[tenant]} differs")
+            check(d["report"]["views_computed"] == 0,
+                  f"serve (a): {sids[tenant]}'s assembly computed "
+                  f"{d['report']['views_computed']} views")
+        reg = svc.registry
+        cross = reg.counter_value("sl3d_serve_cross_tenant_launches_total")
+        check(cross >= 1, "serve (a): no cross-tenant launch")
+        warmed = {t: reg.counter_value("sl3d_serve_views_warmed_total", tenant=t)
+                  for t in ("ta", "tb")}
+        fails = {t: reg.counter_value("sl3d_serve_view_failures_total", tenant=t)
+                 for t in ("ta", "tb")}
+        check(not any(fails.values()) and not _engine_trouble(logs),
+              f"serve (a): view failures {fails}: {_engine_trouble(logs)[:5]}")
+        arm_line("(a) two tenants", t0, root_a, scans=set(sids.values()),
+                 cross_tenant_launches=cross,
+                         launches_total=reg.counter_value("sl3d_serve_launches_total"),
+                         launch_views=reg.counter_value("sl3d_serve_launch_views_total"),
+                         views_warmed=warmed)
+        dedup0 = reg.counter_value("sl3d_serve_views_dedup_total", tenant="tb")
+        t0 = arm_start()
+        code, body = post(url, {"tenant": "tb", "target": data, "calib": calib,
+                                "scan_id": "again"}, key=keys["tb"])
+        check(code == 200, f"serve (a): tb's second submit answered {code} {body}")
+        d = _wait_done(svc, body["scan_id"], "(a) dedup")
+        _served_bytes(svc, body["scan_id"], cold_b, "(a) dedup")
+        dedup = reg.counter_value("sl3d_serve_views_dedup_total", tenant="tb") - dedup0
+        again = reg.counter_value("sl3d_serve_views_warmed_total", tenant="tb") - warmed["tb"]
+        check(dedup == PIPE_VIEWS and again == 0 and d["report"]["views_computed"] == 0,
+              f"serve (a) dedup: {dedup} deduped, {again} warmed, "
+              f"{d['report']['views_computed']} computed")
+        counts = kernels.launch_counts()
+        check(counts["decode_maps"] == 0 and counts["radius_count"] == 0,
+              f"serve (a) dedup: view kernels launched {counts}")
+        usage = json.loads(get(f"{url}/usage"))
+        rs = admission.replay_serving(os.path.join(root_a, "ledger.jsonl"))
+        check(usage == {"schema": "sl3d-usage-v1", "tenants": admission.fold_usage(rs)},
+              f"serve (a): /usage {usage} is not the ledger's fold")
+        arm_line("(a) dedup", t0, root_a, scans={body["scan_id"]}, deduped=dedup,
+                 usage=usage["tenants"])
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        svc.close()
+
+    # (b) durable restart: a crash at the assembly boundary, then resume
+    root_b = os.path.join(root, "serve_b")
+    payload = {"tenant": "ta", "target": subset["data"], "calib": calib, "scan_id": "job1"}
+    t0 = arm_start()
+    c = cfg(faults__spec="serve.crash~assembly:crash")
+    faults.configure_from(c.faults)
+    svc = serving.ScanService(root_b, cfg=c, log=lambda m: None, device=dev)
+    try:
+        svc.start()
+        ok, body = svc.submit(payload)
+        check(ok, f"serve (b): submit {body}")
+        t_end = time.monotonic() + SERVE_WAIT_S
+        while svc.phase != "crashed" and time.monotonic() < t_end:
+            time.sleep(0.05)
+        check(svc.phase == "crashed", f"serve (b): no crash ({svc.status('ta-job1')})")
+    finally:
+        svc.close()
+        faults.reset()
+    crashed_s = time.perf_counter() - t0
+    logs = []
+    svc = serving.ScanService(root_b, cfg=cfg(), log=logs.append, device=dev)
+    try:
+        svc.start()
+        d = _wait_done(svc, "ta-job1", "(b)")
+        _served_bytes(svc, "ta-job1", sub_b, "(b)")
+        check(d["report"]["views_computed"] == 0 and not _engine_trouble(logs),
+              f"serve (b): resumed assembly computed {d['report']['views_computed']} "
+              f"views; {_engine_trouble(logs)[:5]}")
+        arm_line("(b) crash + resume", t0, root_b, crashed_after_s=crashed_s,
+                 resumed=svc.registry.counter_value("sl3d_serve_resumed_total"))
+    finally:
+        svc.close()
+
+    # (c) HA failover: the leader's renew stalls once part of the scan is credited
+    root_c = os.path.join(root, "serve_c")
+    ha = dict(serving__ha_enabled=True, serving__ha_lease_s=SERVE_HA_LEASE_S,
+              serving__ha_poll_s=0.2, parallel__compute_batch=2)
+    slow = f"compute.view:slow({SERVE_HA_SLOW_S})x1000"
+    faults.configure(slow)
+    logs_a, logs_b = [], []
+    t0 = arm_start()
+    def gateway(log):
+        httpd, svc = serving.start_gateway(root_c, cfg=cfg(**ha), log=log, device=dev)
+        threading.Thread(target=httpd.serve_forever, kwargs={"poll_interval": 0.05},
+                         daemon=True).start()
+        return httpd, svc
+
+    httpd_a, a = gateway(logs_a.append)
+    httpd_b = b = None
+    try:
+        t_end = time.monotonic() + 60.0
+        while a.role != "leader" and time.monotonic() < t_end:
+            time.sleep(0.05)
+        check(a.role == "leader", f"serve (c): the first gateway is {a.role}")
+        httpd_b, b = gateway(logs_b.append)
+        ok, body = a.submit({"tenant": "ta", "target": subset["data"], "calib": calib,
+                             "scan_id": "ha"})
+        check(ok, f"serve (c): submit {body}")
+        ledger = os.path.join(root_c, "ledger.jsonl")
+        t_end = time.monotonic() + SERVE_WAIT_S
+        while time.monotonic() < t_end and not any(
+                e["type"] == "complete" for e in _ledger_events(ledger)):
+            time.sleep(0.05)
+        faults.configure(f"{slow},election.renew~{a.run_id}:stall({3 * SERVE_HA_LEASE_S})")
+        t_arm = time.perf_counter()
+        t_end = time.monotonic() + 60.0
+        while b.role != "leader" and time.monotonic() < t_end:
+            time.sleep(0.05)
+        check(b.role == "leader" and b.epoch == 2,
+              f"serve (c): the follower is {b.role} at epoch {b.epoch}")
+        takeover_s = time.perf_counter() - t_arm
+        d = _wait_done(b, "ta-ha", "(c)")
+        _served_bytes(b, "ta-ha", sub_b, "(c)")
+        t_end = time.monotonic() + 60.0
+        while a.role != "follower" and time.monotonic() < t_end:
+            time.sleep(0.05)
+        events = _ledger_events(ledger)
+        credited = {e["item"] for e in events
+                    if e["type"] == "complete" and e.get("epoch") == 1}
+        stale = admission.replay_serving(ledger)["stale_ignored"]
+        b_warmed = b.registry.counter_value("sl3d_serve_views_warmed_total", tenant="ta")
+        fenced = [m for m in logs_a if "fenced" in m]
+        check(a.role == "follower" and fenced,
+              f"serve (c): the old leader is {a.role}; fenced lines {fenced}")
+        check(b_warmed <= SERVE_SUBSET - len(credited) and d["report"]["views_computed"] == 0,
+              f"serve (c): the new leader warmed {b_warmed} views with {len(credited)} "
+              f"credited at epoch 1; its assembly computed {d['report']['views_computed']}")
+        trouble = [m for m in _engine_trouble(logs_a + logs_b) if "fenced" not in m]
+        check(not trouble, f"serve (c): {trouble[:5]}")
+        arm_line("(c) HA failover", t0, root_c, takeover_s=takeover_s,
+                 credited_epoch1=len(credited), new_leader_warmed=b_warmed,
+                 stale_ignored=stale, fenced=fenced[0])
+    finally:
+        faults.reset()
+        for h in (httpd_b, httpd_a):
+            if h is not None:
+                h.shutdown()
+                h.server_close()
+        if b is not None:
+            b.close()
+        a.close()
+
+    # (d) the elastic fleet on the card
+    root_d = os.path.join(root, "serve_d")
+    logs = []
+    t0 = arm_start()
+    svc = serving.ScanService(root_d, cfg=cfg(
+        serving__fleet_enabled=True, serving__fleet_min_workers=1,
+        serving__fleet_max_workers=2, serving__fleet_poll_s=0.2,
+        parallel__compute_batch=1), log=logs.append, device=dev)
+    pids: set = set()
+    try:
+        svc.start()
+        t_end = time.monotonic() + 180.0
+        while not svc.fleet.state()["hellos"] and time.monotonic() < t_end:
+            time.sleep(0.1)
+        check(bool(svc.fleet.state()["hellos"]), "serve (d): no fleet worker said hello")
+        ok, body = svc.submit({"tenant": "ta", "target": subset["data"], "calib": calib})
+        check(ok, f"serve (d): submit {body}")
+        d = _wait_done(svc, body["scan_id"], "(d)")
+        _served_bytes(svc, body["scan_id"], sub_b, "(d)")
+        st = svc.fleet.state()
+        pids = set(st["pids"].values()) | {h["pid"] for h in st["hellos"].values()}
+    finally:
+        svc.close()
+    events = _ledger_events(os.path.join(root_d, "ledger.jsonl"))
+    spawns = [e for e in events if e["type"] == "fleet" and e["action"] in
+              ("spawn", "respawn")]
+    by_worker: dict = {}
+    for e in events:
+        if e["type"] == "complete":
+            by_worker[e["worker"]] = by_worker.get(e["worker"], 0) + 1
+    check(spawns and sum(n for w, n in by_worker.items() if w.startswith("fw")) >= 1,
+          f"serve (d): spawns {len(spawns)}, completes by worker {by_worker}")
+    alive = []
+    for pid in pids:
+        try:
+            os.kill(pid, 0)
+            alive.append(pid)
+        except ProcessLookupError:
+            pass
+    check(not alive, f"serve (d): fleet worker(s) {alive} outlived the service")
+    workers = {}
+    fleet_dir = os.path.join(root_d, "fleet")
+    for name in sorted(os.listdir(fleet_dir)):
+        if name.endswith(".log"):
+            v = worker_exit(os.path.join(fleet_dir, name))
+            check(v is not None, f"serve (d): {name} has no exit line")
+            workers[name[:-4]] = {"launches": v["launches"],
+                                  "peak_device_gb": round(v["peak_bytes"] / 1e9, 3)}
+    check(d["report"]["views_computed"] == 0 and not _engine_trouble(logs),
+          f"serve (d): assembly computed {d['report']['views_computed']}; "
+          f"{_engine_trouble(logs)[:5]}")
+    arm_line("(d) elastic fleet", t0, root_d, spawns=[(e["action"], e["rank"], e["gen"])
+                                                      for e in spawns],
+             completes_by_worker=by_worker, workers=workers)
+
+    # (e) warmup and doctor as subprocesses on the card
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [here] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    cmds = {"warmup": ["warmup", "--cam", f"{PIPE_CAM[0]}x{PIPE_CAM[1]}",
+                       "--proj", f"{PIPE_PROJ[0]}x{PIPE_PROJ[1]}",
+                       "--views", str(SERVE_SUBSET), "--compute-batch", str(SERVE_SUBSET),
+                       "--merge-views", str(SERVE_SUBSET)],
+            "doctor": ["doctor", "--probe-timeout", "120"]}
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen([sys.executable, "-m", PORT_PKG, *cmd], cwd=here,
+                                    env=env, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+             for name, cmd in cmds.items()}   # both at once: two processes, one card
+    lines = {}
+    try:
+        for name, proc in procs.items():
+            out, err = proc.communicate(timeout=600)
+            lines[name] = (out, time.perf_counter() - t0)
+            print(out, end="", flush=True)
+            check(proc.returncode == 0, f"serve (e): {name} exited {proc.returncode}:\n"
+                                        f"{out[-2000:]}{err[-2000:]}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    text = lines["warmup"][0]
+    check("kernel library found built" in text and "first launch" in text,
+          "serve (e): warmup did not find the library built or printed no first launch")
+    text = lines["doctor"][0]
+    check(torch.cuda.get_device_name(0) in text and card in text,
+          f"serve (e): doctor does not print the card ({card})")
+    print(json.dumps({"serve": "(e) warmup + doctor", "warmup_s": lines["warmup"][1],
+                      "doctor_s": lines["doctor"][1], "card": card}), flush=True)
+    print(f"serve: phase 14 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def _ledger_events(path: str) -> list[dict]:
+    out = []
+    try:
+        with open(path, encoding="utf-8") as f:
+            for line in f:
+                try:
+                    out.append(json.loads(line))
+                except ValueError:
+                    pass
+    except OSError:
+        pass
+    return out
 
 
 def main() -> int:
@@ -3808,7 +4314,9 @@ def main() -> int:
         legacy_pipeline_phase(dev, data, calib, scene, root, cold, card)
         capture_phase(dev, data, calib, raw, root, cold, card)
         del raw
-        coordinated_phase(dev, data, calib, root, cold, card)
+        subset = subset_reference(dev, data, calib, root, card)
+        coordinated_phase(dev, data, calib, root, cold, subset, card)
+        serving_phase(dev, data, calib, root, cold, subset, card)
     for line in lines:
         line["launches"], line["launches_run"] = launches[line["name"]]
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f}s "

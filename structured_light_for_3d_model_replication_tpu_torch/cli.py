@@ -41,6 +41,15 @@
       [--save-dir captures] [--viewer] [--artifact-dir artifacts]
   python -m structured_light_for_3d_model_replication_tpu_torch viewer <dir> \\
       [--port 5051]
+  python -m structured_light_for_3d_model_replication_tpu_torch serve <root> \\
+      [--port 0] [--ha] [--fleet] [--auth] [--ready-file F] [--device cuda|cpu]
+  python -m structured_light_for_3d_model_replication_tpu_torch tenant \\
+      add|list <root> [name] [--key K] [--rate-limit N] [--device cuda|cpu]
+  python -m structured_light_for_3d_model_replication_tpu_torch warmup \\
+      [--cam 1920x1080] [--proj 1920x1080] [--views 24] [--compute-batch N] \\
+      [--merge-views 24] [--device cuda|cpu]
+  python -m structured_light_for_3d_model_replication_tpu_torch doctor \\
+      [--no-probe] [--probe-timeout S] [--root DIR]
 
 The flags and exit codes are the JAX CLI's, plus ``--device`` on the
 commands that compute (default cuda; without CUDA the command fails
@@ -58,6 +67,15 @@ the stereo rig on the host with OpenCV and prints the JAX CLI's tables;
 (``acquire.simulate=true``: a virtual projector and a simulated turntable,
 frames still come from the phone through the capture server);
 ``capture-serve`` and ``viewer`` serve until interrupted (ctrl-C, exit 0).
+``serve`` runs the multi-tenant scan service (``pipeline/serving.py``) on
+``--device`` until SIGTERM/SIGINT, which drain it; ``tenant add`` mints a
+tenant's API key for its ``--auth`` front door. ``warmup`` pre-pays a fresh
+machine's first scan on the card: the kernels' ``nvcc`` build and the first
+launch of each kernel family at the given shapes (the port has no compile
+cache: ``--cache-dir`` is accepted and has no effect). ``doctor`` checks the
+card (a bounded probe in a subprocess, the card's name and power limit), the
+card lock, the kernel library and the native IO library, and exits 1 when
+the probe fails.
 Every command past ``config`` and ``report`` arms the fault-injection plan of the ``faults`` config section, which the
 ``SL3D_FAULTS`` / ``SL3D_FAULTS_SEED`` environment variables override.
 """
@@ -309,7 +327,107 @@ def _parser() -> argparse.ArgumentParser:
                    help="record live sweep progress (elapsed/remaining) into this "
                         "directory for the web viewer")
     _config_args(p)
+    _serving_parsers(sub)
     return parser
+
+
+def _serving_parsers(sub) -> None:
+    """``serve``, ``tenant``, ``warmup`` and ``doctor``: the JAX CLI's
+    flags, plus ``--device`` where the command computes."""
+    p = sub.add_parser(
+        "serve",
+        help="persistent multi-tenant scan service: POST /submit scan requests, "
+             "cross-tenant launches on one device, per-request SLOs, per-tenant "
+             "quotas, Prometheus /metrics; every result byte-identical to a solo "
+             "`pipeline` run. Durable: accepted requests survive kill -9 (a "
+             "restart over the same root resumes them); SIGTERM/SIGINT drain")
+    p.add_argument("root", help="service state directory (scans/, shared stage "
+                                "cache, ledger.jsonl, requests/, serve.json)")
+    p.add_argument("--host", default=None, help="bind address (default: serving.host)")
+    p.add_argument("--port", type=int, default=None,
+                   help="bind port, 0 = ephemeral (default: serving.port)")
+    p.add_argument("--max-active-scans", type=int, default=None,
+                   help="scans admitted to the engine at once "
+                        "(default: serving.max_active_scans)")
+    p.add_argument("--drain-budget", type=float, default=None,
+                   help="seconds active scans get to finish after SIGTERM before "
+                        "being checkpointed for the next start "
+                        "(default: serving.drain_budget_s)")
+    p.add_argument("--ready-file", default=None,
+                   help="also write the bound-address JSON here once listening")
+    p.add_argument("--ha", action="store_true", default=None,
+                   help="join the leader-elected gateway group over this root "
+                        "(serving.ha_enabled): one member owns the engine, the "
+                        "rest serve reads and redirect /submit to the leader")
+    p.add_argument("--ha-lease", type=float, default=None,
+                   help="leader lease lifetime in seconds — the failover bound "
+                        "(default: serving.ha_lease_s)")
+    p.add_argument("--fleet", action="store_true", default=None,
+                   help="elastic worker fleet (serving.fleet_enabled): the leader "
+                        "autoscales `worker` processes on --device against live "
+                        "queue signals and journals every decision to the ledger")
+    p.add_argument("--fleet-max", type=int, default=None,
+                   help="fleet size ceiling (default: serving.fleet_max_workers)")
+    p.add_argument("--fleet-min", type=int, default=None,
+                   help="fleet size floor kept warm even when idle "
+                        "(default: serving.fleet_min_workers)")
+    p.add_argument("--auth", action="store_true", default=None,
+                   help="authenticated front door (serving.auth_enabled): /submit "
+                        "requires a per-tenant API key from <root>/tenants.json "
+                        "(`tenant add` mints one) and enforces per-tenant rate "
+                        "limits; metered usage served at /usage")
+    _common_args(p)
+    p = sub.add_parser(
+        "tenant",
+        help="manage the authenticated front door's tenants: `tenant add <root> "
+             "<name>` mints an API key (printed ONCE; only its sha256 lands in "
+             "<root>/tenants.json), `tenant list <root>` shows who exists")
+    p.add_argument("action", choices=("add", "list"))
+    p.add_argument("root", help="service state directory (the one `serve` runs over)")
+    p.add_argument("name", nargs="?", default=None, help="tenant name (add)")
+    p.add_argument("--key", default=None,
+                   help="use this key instead of minting one (key rotation; still "
+                        "stored hashed)")
+    p.add_argument("--rate-limit", type=int, default=None,
+                   help="per-tenant submits allowed per window (overrides "
+                        "serving.auth_rate_limit for this tenant)")
+    p.add_argument("--rate-window", type=float, default=None,
+                   help="sliding window seconds for --rate-limit")
+    _common_args(p)
+    p = sub.add_parser(
+        "warmup",
+        help="pre-pay a fresh machine's first scan on the card: build the kernels "
+             "(nvcc) and launch each kernel family once at the given shapes")
+    p.add_argument("--cam", default="1920x1080", help="camera WxH to warm")
+    p.add_argument("--proj", default="1920x1080", help="projector WxH to warm")
+    p.add_argument("--views", type=int, default=24,
+                   help="view count of the forward_views launch")
+    p.add_argument("--compute-batch", type=int, default=None,
+                   help="also warm the batched lane's launches (raw, packed and the "
+                        "fused clean) at this compute_batch (default: "
+                        "parallel.compute_batch; 0 skips)")
+    p.add_argument("--merge-views", type=int, default=24,
+                   help="turntable views of the merge warm (0 skips it)")
+    p.add_argument("--merge-cam", default="480x360")
+    p.add_argument("--merge-proj", default="512x256")
+    p.add_argument("--cache-dir", default=".jax_cache",
+                   help="accepted for the JAX CLI's sake; the port has no compile "
+                        "cache (its kernels live in ops/_kernel_build/<hash>/)")
+    _common_args(p)
+    p = sub.add_parser(
+        "doctor",
+        help="diagnose the execution environment: the card (bounded probe in a "
+             "subprocess, name and power limit), the card lock, the kernel "
+             "library, the native IO library and the optional modules")
+    p.add_argument("--probe-timeout", type=float, default=60.0,
+                   help="seconds before the card probe is declared hung")
+    p.add_argument("--no-probe", action="store_true",
+                   help="skip the card probe (report the rest at once; also the "
+                        "switch for intentionally CPU-only setups)")
+    p.add_argument("--root", default=".",
+                   help="directory whose .gpu_lock to inspect (default: current "
+                        "directory)")
+    _config_args(p)
 
 
 def _common_args(p: argparse.ArgumentParser) -> None:
@@ -636,6 +754,250 @@ def _auto_scan(args, cfg) -> int:
     return 0 if result.view_dirs else 1
 
 
+def _serve(args, cfg) -> int:
+    from structured_light_for_3d_model_replication_tpu_torch.pipeline import serving
+
+    s = cfg.serving
+    if args.host is not None:
+        s.host = args.host
+    if args.port is not None:
+        s.port = args.port
+    if args.max_active_scans is not None:
+        s.max_active_scans = args.max_active_scans
+    if args.drain_budget is not None:
+        s.drain_budget_s = args.drain_budget
+    if args.ha:
+        s.ha_enabled = True
+    if args.ha_lease is not None:
+        s.ha_lease_s = args.ha_lease
+    if args.fleet:
+        s.fleet_enabled = True
+    if args.fleet_max is not None:
+        s.fleet_max_workers = args.fleet_max
+    if args.fleet_min is not None:
+        s.fleet_min_workers = args.fleet_min
+    if args.auth:
+        s.auth_enabled = True
+    if hasattr(sys.stdout, "reconfigure"):
+        sys.stdout.reconfigure(line_buffering=True)
+    return serving.serve(args.root, cfg=cfg, ready_file=args.ready_file,
+                         device=args.device)
+
+
+def _tenant(args) -> int:
+    import secrets
+
+    from structured_light_for_3d_model_replication_tpu_torch.parallel import admission
+    from structured_light_for_3d_model_replication_tpu_torch.utils.device import (
+        resolve_device,
+    )
+
+    resolve_device(args.device)
+    path = os.path.join(args.root, "tenants.json")
+    if args.action == "list":
+        auth = admission.TenantAuth(path)
+        names = auth.known()
+        if not names:
+            print(f"no tenants in {path}")
+            return 0
+        for name in names:
+            lim = auth.tenant_limits(name)
+            print(f"{name}{f'  rate {lim[0]}/{lim[1]:g}s' if lim else ''}")
+        return 0
+    if not args.name:
+        print("tenant add needs a name", file=sys.stderr)
+        return 1
+    key = args.key or secrets.token_hex(16)
+    os.makedirs(args.root, exist_ok=True)
+    admission.write_tenant(path, args.name, key, rate_limit=args.rate_limit,
+                           rate_window_s=args.rate_window)
+    # the only time the plaintext exists outside the client: tenants.json
+    # holds its sha256 only
+    print(f"tenant {args.name!r} written to {path}")
+    print(f"API key (save it — shown once): {key}")
+    return 0
+
+
+def _wh(text: str) -> tuple[int, int]:
+    w, h = text.lower().split("x")
+    return int(w), int(h)
+
+
+def _warmup(args, cfg) -> int:
+    """Pre-pay what a fresh machine pays on its first scan: the kernels'
+    build, then each kernel family's first launch at the given shapes
+    (``kernels.first_launch_ms`` times each entry's first launch by CUDA
+    events), each step's wall beside it."""
+    import time
+
+    import numpy as np
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.utils.device import (
+        resolve_device,
+    )
+
+    dev = resolve_device(args.device)
+    if args.cache_dir != ".jax_cache":
+        print(f"[warmup] --cache-dir {args.cache_dir!r} has no effect: the port has "
+              f"no compile cache", file=sys.stderr)
+    if dev.type != "cuda":
+        print(f"[warmup] device {dev}: the CPU runs the kernels' plain versions and "
+              f"has no kernels to build; nothing to warm")
+        return 0
+    from structured_light_for_3d_model_replication_tpu_torch.models import (
+        reconstruction as recon,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.models.scanner import (
+        SLScanner,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.io import images as imio
+    from structured_light_for_3d_model_replication_tpu_torch.ops import _build, kernels
+    from structured_light_for_3d_model_replication_tpu_torch.ops import fused_view as fvlib
+    from structured_light_for_3d_model_replication_tpu_torch.ops import graycode as gc
+    from structured_light_for_3d_model_replication_tpu_torch.ops import triangulate as tri
+    from structured_light_for_3d_model_replication_tpu_torch.pipeline import stages
+    from structured_light_for_3d_model_replication_tpu_torch.utils import synthetic as syn
+
+    built = os.path.isfile(_build.library_path())
+    t0 = time.perf_counter()
+    _build.load_library()
+    print(f"[warmup] kernel library {'found built' if built else 'built'} in "
+          f"{time.perf_counter() - t0:.2f}s -> {_build.library_path()}", flush=True)
+    cam, proj = _wh(args.cam), _wh(args.proj)
+    base = gc.generate_pattern_stack(proj[0], proj[1])
+    yi = (np.arange(cam[1]) * proj[1]) // cam[1]
+    xi = (np.arange(cam[0]) * proj[0]) // cam[0]
+    frames = np.ascontiguousarray(base[:, yi[:, None], xi[None, :]])
+    calib = syn.default_rig(cam_size=cam, proj_size=proj).calibration()
+    kw = dict(thresh_mode="manual")
+    steps: list[tuple[str, float, dict]] = []
+
+    def step(name: str, fn):
+        with kernels.first_launch_ms() as first:
+            torch.cuda.synchronize(dev)
+            t = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize(dev)
+            wall = (time.perf_counter() - t) * 1e3
+        steps.append((name, wall, first))
+        print(f"[warmup] {name}: {wall:.1f} ms"
+              + "".join(f"; {k} first launch {v:.3f} ms" for k, v in first.items()
+                        if k not in {e for _, _, f in steps[:-1] for e in f}),
+              flush=True)
+        return out
+
+    sc = None
+    for plane_eval in ("quadratic", "table"):
+        sc = SLScanner(calib, cam, proj, row_mode=1, plane_eval=plane_eval, device=dev)
+        res = step(f"forward[{plane_eval}] {cam[0]}x{cam[1]}",
+                   lambda: sc.forward(frames, **kw))
+    if args.views > 1:
+        stack = np.stack([np.roll(frames, 7 * i, axis=2) for i in range(args.views)])
+        step(f"forward_views[{args.views}]", lambda: sc.forward_views(stack, **kw))
+        del stack
+    cb = args.compute_batch if args.compute_batch is not None else cfg.parallel.compute_batch
+    if cb > 1:
+        stack = np.stack([np.roll(frames, 7 * i, axis=2) for i in range(cb)])
+        res = step(f"batched lane[{cb}]", lambda: sc.forward_views(stack, **kw))
+        step(f"fused_clean[{cb}]", lambda: fvlib.fused_clean_views(
+            res.points, res.colors, res.valid, cfg.clean, stages.CLEAN_STEPS))
+        packed = [imio.pack_stack(v) for v in stack]
+        step(f"forward_views_packed[{cb}]", lambda: sc.forward_views_packed(
+            np.stack([p.planes for p in packed]), np.stack([p.white for p in packed]),
+            np.stack([p.black for p in packed]), n_frames=int(frames.shape[0]), **kw))
+        del stack, packed
+    pts, cols = tri.compact_cloud(res if cb <= 1 else tri.CloudResult(
+        res.points[0], res.colors[0], res.valid[0]))
+    step(f"clean chain[{len(pts)} points]", lambda: stages._clean_arrays(
+        pts, cols, cfg, stages.CLEAN_STEPS, device=dev))
+    if args.merge_views > 1:
+        mcam, mproj = _wh(args.merge_cam), _wh(args.merge_proj)
+        mrig = syn.default_rig(cam_size=mcam, proj_size=mproj)
+        scene = syn.Scene([syn.Sphere(np.array([0.0, 0.0, 420.0]), 70.0),
+                           syn.Sphere(np.array([55.0, -40.0, 360.0]), 28.0),
+                           syn.Sphere(np.array([-48.0, 35.0, 370.0]), 22.0)])
+        t = time.perf_counter()
+        clouds = []
+        for R, tr in syn.turntable_poses(args.merge_views, 360.0 / args.merge_views,
+                                         pivot=np.array([0.0, 0.0, 400.0])):
+            vf, _ = syn.render_scene(mrig, scene.transformed(R, tr))
+            dec = gc.decode_stack_np(vf, n_cols=mproj[0], n_rows=mproj[1],
+                                     thresh_mode="manual")
+            cloud = tri.triangulate_np(dec.col_map, dec.row_map, dec.mask, dec.texture,
+                                       mrig.calibration(), row_mode=1)
+            p, c = tri.compact_cloud(cloud)
+            clouds.append((p.astype(np.float32), c.astype(np.uint8)))
+        print(f"[warmup] rendered {args.merge_views} merge views on the host in "
+              f"{time.perf_counter() - t:.1f}s", flush=True)
+        step(f"merge chain[{args.merge_views}]", lambda: recon.merge_360(
+            clouds, cfg=cfg.merge, log=lambda m: None, device=dev))
+    seen = {e for _, _, f in steps for e in f}
+    for k in kernels.KERNELS:
+        if not any(e.startswith(f"slscan_{k.__name__}") for e in seen):
+            print(f"[warmup] {k.__name__}: not launched at these shapes")
+    print(f"[warmup] done: {len(seen)} kernel entries launched; later processes "
+          f"find the library built")
+    return 0
+
+
+def _doctor(args) -> int:
+    """One-shot environment diagnosis; every check is bounded (the card
+    probe runs in a subprocess, ``nvidia-smi`` under a timeout)."""
+    import subprocess
+
+    from structured_light_for_3d_model_replication_tpu_torch.io import native
+    from structured_light_for_3d_model_replication_tpu_torch.ops import _build
+    from structured_light_for_3d_model_replication_tpu_torch.utils import gpulock
+    from structured_light_for_3d_model_replication_tpu_torch.utils.preflight import (
+        accelerator_preflight,
+    )
+
+    ok = True
+    root = os.path.abspath(args.root)
+    if args.no_probe:
+        print("[doctor] card: probe skipped (--no-probe)")
+    else:
+        status, detail = accelerator_preflight(timeout=args.probe_timeout, cwd=root)
+        healthy = status == "ok" and detail != "cpu"
+        print(f"[doctor] card: {'ok' if healthy else 'FAIL'} — {status} ({detail})")
+        if status == "ok" and detail == "cpu":
+            print("[doctor]   no CUDA device is visible; intentionally CPU-only? "
+                  "use --no-probe and --device cpu")
+        ok = ok and healthy
+    try:
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, timeout=30)
+        rows = smi.stdout.strip().splitlines() if smi.returncode == 0 else []
+        print("[doctor] nvidia-smi: " + ("; ".join(rows) if rows else
+                                         f"exit {smi.returncode}"))
+    except (OSError, subprocess.TimeoutExpired) as e:
+        print(f"[doctor] nvidia-smi: unavailable ({type(e).__name__})")
+    held, detail = gpulock.probe_gpu_lock(root)
+    print(f"[doctor] gpu lock: {'HELD (' + detail + ') — another card client is '
+                                'active; it releases on exit' if held else detail}")
+    lib = _build.library_path()
+    if os.path.isfile(lib):
+        print(f"[doctor] kernel library: built for the current sources ({lib})")
+    else:
+        print(f"[doctor] kernel library: not built for the current sources — the "
+              f"first scan on the card runs nvcc; `warmup` pre-pays it ({lib})")
+    path, why = native.status()
+    print(f"[doctor] native slio: {'available (' + path + ')' if path else 'unavailable'}"
+          + (f" — {why}" if why and not path else ""))
+    for mod, why in (("cv2", "chessboard detection / projector window"),
+                     ("serial", "hardware turntable"),
+                     ("matplotlib", "calibration rig plots")):
+        try:
+            __import__(mod)
+            print(f"[doctor] {mod}: available")
+        except ImportError:
+            print(f"[doctor] {mod}: absent — {why} unavailable (everything else works)")
+    print(f"[doctor] {'all core checks passed' if ok else 'ISSUES FOUND'}")
+    return 0 if ok else 1
+
+
 def main(argv: list[str] | None = None) -> int:
     parser = _parser()
     args = parser.parse_args(argv)
@@ -660,6 +1022,10 @@ def main(argv: list[str] | None = None) -> int:
         return 0
     if args.command == "report":
         return _report(args, cfg)
+    if args.command == "doctor":
+        return _doctor(args)
+    if args.command == "tenant":
+        return _tenant(args)
     from structured_light_for_3d_model_replication_tpu_torch.pipeline import (
         stages,
     )
@@ -684,6 +1050,10 @@ def main(argv: list[str] | None = None) -> int:
         return _scan(args, cfg)
     if args.command == "auto-scan":
         return _auto_scan(args, cfg)
+    if args.command == "serve":
+        return _serve(args, cfg)
+    if args.command == "warmup":
+        return _warmup(args, cfg)
     if args.command == "clean":
         steps = _steps(args.steps)
         if os.path.isdir(args.input):

@@ -9,12 +9,12 @@ JSON config file loads in both packages:
     and ``observability`` are whole copies (with their env overrides); an
     unknown key there is an error, as in the JAX package;
   - ``parallel`` carries ``backend``, ``force_bf16_features``,
-    ``compute_batch``, ``io_workers`` and ``prefetch_depth``; ``pipeline``
-    and ``coordinator`` carry every key. The other keys of
-    ``parallel``, and the sections the port does not model
-    (``serving``, ``scan_root``), configure features the port does not have yet: they
-    load without effect, and the loader logs each one set away from the
-    JAX package's default, once a process (``_DROPPED``).
+    ``compute_batch``, ``io_workers`` and ``prefetch_depth``; ``pipeline``,
+    ``coordinator`` and ``serving`` carry every key, and ``scan_root`` is
+    carried too. The other keys of ``parallel`` configure the JAX
+    package's device mesh, which the port does not have: they load without
+    effect, and the loader logs each one set away from the JAX package's
+    default, once a process (``_DROPPED``).
 """
 from __future__ import annotations
 
@@ -28,8 +28,8 @@ from typing import Any
 __all__ = ["ProjectorConfig", "CheckerboardConfig", "DecodeConfig", "TriangulateConfig",
            "CleanConfig", "MergeConfig", "MeshConfig", "ParallelConfig",
            "PipelineConfig", "ObservabilityConfig", "DeadlinesConfig",
-           "FaultsConfig", "CoordinatorConfig", "AcquireConfig", "Config", "load_config",
-           "jax_dict"]
+           "FaultsConfig", "CoordinatorConfig", "AcquireConfig", "ServingConfig",
+           "Config", "load_config", "jax_dict"]
 
 
 @dataclass
@@ -346,6 +346,93 @@ class FaultsConfig:
 
 
 @dataclass
+class ServingConfig:
+    """The persistent multi-tenant scan service (``pipeline/serving.py``,
+    the ``serve`` command): a stdlib-HTTP gateway admits scans through the
+    multi-scan lease/ledger protocol (``parallel/admission.py``), engine
+    lanes warm the shared content-addressed stage cache with views drawn
+    from several scans at once (one device launch may hold several
+    tenants' views), and each request is assembled by the single-process
+    ``run_pipeline`` over the warmed cache, so every response is the solo
+    ``pipeline`` run's bytes. The JAX package's section, key for key."""
+
+    # gateway bind address (plaintext HTTP; loopback by default)
+    host: str = "127.0.0.1"
+    # 0 = ephemeral (the bound port is logged and written to serve.json)
+    port: int = 8089
+    # scans admitted to the engine at once; queued scans wait weighted-fair
+    max_active_scans: int = 4
+    # per-tenant caps on active and queued scans (over the queue quota: 429)
+    tenant_active_quota: int = 2
+    tenant_queue_quota: int = 8
+    # total queue depth across tenants (429 when full)
+    queue_depth: int = 64
+    # engine item lease (s): a lane that stops beating loses its grants
+    lease_s: float = 30.0
+    # default per-request SLO (s) when a submit carries no budget_s; 0 = none
+    default_budget_s: float = 0.0
+    # default tenant weight of the weighted-fair admission and grants
+    default_weight: float = 1.0
+    # engine lanes drawing view grants (each runs one launch at a time)
+    engine_lanes: int = 1
+    # the per-view clean steps (comma list); service-wide, since steps are
+    # view-cache key material
+    clean_steps: str = "background,cluster,radius,statistical"
+    # engine idle poll (s)
+    poll_s: float = 0.05
+    # persist every accepted submit (request record, fsync) before its
+    # answer, and resume from the records and the ledger on start
+    durable: bool = True
+    # graceful-stop budget (s) before in-flight scans are checkpointed
+    drain_budget_s: float = 30.0
+    # shed a queued scan that waited longer than this (s); 0 = off
+    max_queue_wait_s: float = 0.0
+    # per-tenant circuit breaker: consecutive failed scans that open it
+    # (0 = off), and the cooldown before one half-open probe
+    breaker_threshold: int = 3
+    breaker_cooldown_s: float = 30.0
+    # gateway HA: members over one root elect a leader through
+    # <root>/leader.json; the rest serve reads and redirect submits
+    ha_enabled: bool = False
+    # leader lease (s): the failover bound
+    ha_lease_s: float = 5.0
+    # leader renew cadence (s); 0 = ha_lease_s / 3
+    ha_renew_s: float = 0.0
+    # follower takeover poll (s); 0 = ha_lease_s / 5
+    ha_poll_s: float = 0.0
+    # elastic fleet (parallel/fleet.py): the leader spawns and retires
+    # worker processes against live admission signals
+    fleet_enabled: bool = False
+    fleet_min_workers: int = 0
+    fleet_max_workers: int = 4
+    # supervisor tick (s)
+    fleet_poll_s: float = 0.5
+    # one worker per this many grantable views
+    fleet_scale_up_queue: int = 4
+    # retire to the floor only after this long idle (s)
+    fleet_scale_in_idle_s: float = 5.0
+    # respawn backoff (s), doubling per death up to the max
+    fleet_backoff_s: float = 0.5
+    fleet_backoff_max_s: float = 30.0
+    # deaths of one rank inside the window that mark it flapping (0 = off)
+    fleet_flap_threshold: int = 3
+    fleet_flap_window_s: float = 60.0
+    # fleet bridge bind endpoint (netutil grammar); empty = loopback,
+    # workers then warm the shared store on this host's disk
+    fleet_listen: str = ""
+    # shared secret of the fleet workers' hello
+    fleet_secret: str = ""
+    # front-door auth: per-tenant API keys (sha256 at rest in
+    # <root>/tenants.json, written by the `tenant` command)
+    auth_enabled: bool = False
+    # tenants file; empty = <root>/tenants.json
+    auth_tenants_file: str = ""
+    # default per-tenant submits per window (0 = unlimited)
+    auth_rate_limit: int = 0
+    auth_rate_window_s: float = 60.0
+
+
+@dataclass
 class Config:
     """Root configuration of the scan-to-print path."""
 
@@ -363,6 +450,8 @@ class Config:
     coordinator: CoordinatorConfig = field(default_factory=CoordinatorConfig)
     deadlines: DeadlinesConfig = field(default_factory=DeadlinesConfig)
     observability: ObservabilityConfig = field(default_factory=ObservabilityConfig)
+    serving: ServingConfig = field(default_factory=ServingConfig)
+    scan_root: str = ""   # dated scan folder; empty = ./scans/<date>
 
     def to_dict(self) -> dict[str, Any]:
         return dataclasses.asdict(self)
@@ -378,21 +467,6 @@ class Config:
 _DROPPED: dict[str, Any] = {
     "parallel": {"data_axis": 0, "model_axis": 1, "merge_mesh": False,
                  "shard_views": True},
-    "serving": {
-        "host": "127.0.0.1", "port": 8089, "max_active_scans": 4,
-        "tenant_active_quota": 2, "tenant_queue_quota": 8, "queue_depth": 64,
-        "lease_s": 30.0, "default_budget_s": 0.0, "default_weight": 1.0,
-        "engine_lanes": 1, "clean_steps": "background,cluster,radius,statistical",
-        "poll_s": 0.05, "durable": True, "drain_budget_s": 30.0,
-        "max_queue_wait_s": 0.0, "breaker_threshold": 3, "breaker_cooldown_s": 30.0,
-        "ha_enabled": False, "ha_lease_s": 5.0, "ha_renew_s": 0.0, "ha_poll_s": 0.0,
-        "fleet_enabled": False, "fleet_min_workers": 0, "fleet_max_workers": 4,
-        "fleet_poll_s": 0.5, "fleet_scale_up_queue": 4, "fleet_scale_in_idle_s": 5.0,
-        "fleet_backoff_s": 0.5, "fleet_backoff_max_s": 30.0, "fleet_flap_threshold": 3,
-        "fleet_flap_window_s": 60.0, "fleet_listen": "", "fleet_secret": "",
-        "auth_enabled": False, "auth_tenants_file": "", "auth_rate_limit": 0,
-        "auth_rate_window_s": 60.0},
-    "scan_root": "",
 }
 _SECTIONS = {"Config": None, "ParallelConfig": "parallel", "PipelineConfig": "pipeline"}
 _logged: set[str] = set()
@@ -542,6 +616,9 @@ def jax_dict(cfg: Config) -> dict[str, Any]:
         if top not in ours:
             out[top] = ({k: seen.get(f"{top}.{k}", v) for k, v in dropped.items()}
                         if isinstance(dropped, dict) else seen.get(top, dropped))
+            continue
+        if not isinstance(ours[top], dict):   # a carried top-level key
+            out[top] = ours[top]
             continue
         sec = dict(ours[top])
         for k, v in (dropped or {}).items():

@@ -28,6 +28,7 @@ chunk their rows, so none materializes an N x N matrix.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import threading
 
@@ -87,11 +88,38 @@ def _count(wrapper) -> None:
         wrapper.launches += 1
 
 
+_first_ms: dict[str, float] | None = None   # set by first_launch_ms()
+
+
+@contextlib.contextmanager
+def first_launch_ms():
+    """Record, inside the block, each kernel entry's first launch: its
+    device time in ms (CUDA events around the launch on the current
+    stream), keyed by entry name. Yields the dict it fills (``warmup``'s
+    first-launch table); later launches are not timed."""
+    global _first_ms
+    prev, _first_ms = _first_ms, {}
+    try:
+        yield _first_ms
+    finally:
+        _first_ms = prev
+
+
 def _launch(name: str, device: torch.device, *args) -> None:
     lib = _lib()
+    rec = _first_ms
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, name)(*args, stream)
+        cur = torch.cuda.current_stream(device)
+        stream = cur.cuda_stream
+        if rec is not None and name not in rec:
+            t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t0.record(cur)
+            err = getattr(lib, name)(*args, stream)
+            t1.record(cur)
+            t1.synchronize()
+            rec[name] = t0.elapsed_time(t1)
+        else:
+            err = getattr(lib, name)(*args, stream)
     if err != 0:
         msg = lib.slscan_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")

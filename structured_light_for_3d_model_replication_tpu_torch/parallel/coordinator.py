@@ -107,12 +107,21 @@ class Ledger:
     line-buffered and fsynced — a torn final line (kill -9 mid-write) is
     tolerated by replay, never repaired in place."""
 
-    def __init__(self, path: str, run_id: str, meta: dict | None = None):
+    def __init__(self, path: str, run_id: str, meta: dict | None = None,
+                 epoch=None, fence=None):
+        # HA serving: ``epoch`` is a callable giving the writer's current
+        # fencing token, stamped on every line; ``fence`` runs before each
+        # append and raises (election.FencedWrite) to refuse the write of a
+        # deposed leader. Without them a line is what it always was.
         self.path = path
         self._lock = threading.Lock()
+        self._epoch = epoch
+        self._fence = fence
         self._f = open(path, "a", encoding="utf-8")
         head = {"type": "meta", "schema": LEDGER_SCHEMA, "run_id": run_id,
                 "t0_unix": time.time()}
+        if epoch is not None:
+            head["epoch"] = int(epoch())
         head.update(meta or {})
         self._append(head)
 
@@ -127,7 +136,11 @@ class Ledger:
         # torn-tail / lost-line case replay must tolerate), a transient
         # here surfaces to the caller exactly like a full-disk write
         faults.fire("ledger.append", item=type_)
+        if self._fence is not None:
+            self._fence()
         rec = {"type": type_, "t": round(time.time(), 6)}
+        if self._epoch is not None:
+            rec["epoch"] = int(self._epoch())
         rec.update(fields)
         self._append(rec)
 
@@ -565,15 +578,24 @@ def _build_items(cfg: Config, sources: list[str], view_keys: list[str],
 def _spawn_worker(rank: int, n: int, port: int, spec_dir: str,
                   cfg_path: str, calib_path: str, target: str, out_dir: str,
                   steps: tuple[str, ...], device: str,
-                  fabric: dict | None = None) -> subprocess.Popen:
+                  fabric: dict | None = None, name: str | None = None,
+                  generation: int = 0,
+                  cache_root: str | None = None) -> subprocess.Popen:
     """Write ``<spec_dir>/worker<rank>.json`` and start ``python -m
     structured_light_for_3d_model_replication_tpu_torch worker --spec`` on
     it (fork + exec, so a coordinator that already holds a CUDA context
-    hands none to the child), its output in ``worker<rank>.log``."""
-    wname = f"w{rank}"
+    hands none to the child), its output in ``worker<rank>.log``. The
+    serving fleet names its workers (``name``), stamps a respawn's
+    ``generation`` and points them at the service's shared store
+    (``cache_root``)."""
+    wname = name or f"w{rank}"
     spec = {"config": cfg_path, "calib": calib_path, "target": target,
             "out": out_dir, "steps": list(steps), "port": port,
             "worker": wname, "num_workers": n, "device": device}
+    if generation:
+        # a fleet respawn reuses the rank's name; the generation tells this
+        # incarnation from the one the supervisor reaped
+        spec["generation"] = int(generation)
     if fabric:
         # networked mode: dial the real endpoint, authenticate, use the
         # blob fabric as L2 — and warm a PRIVATE L1 root, so each spawned
@@ -582,6 +604,9 @@ def _spawn_worker(rank: int, n: int, port: int, spec_dir: str,
         spec.update(fabric)
         spec["cache_root"] = os.path.join(out_dir,
                                           f".slscan-cache.{wname}")
+    if cache_root:
+        # the fleet on loopback warms the service's shared store directly
+        spec["cache_root"] = cache_root
     spec_path = os.path.join(spec_dir, f"worker{rank}.json")
     with open(spec_path, "w") as f:
         json.dump(spec, f, indent=2)

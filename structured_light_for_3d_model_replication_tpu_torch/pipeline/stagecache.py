@@ -64,7 +64,7 @@ from structured_light_for_3d_model_replication_tpu_torch.utils import (
 from structured_light_for_3d_model_replication_tpu_torch.utils import faults
 from structured_light_for_3d_model_replication_tpu_torch.utils import telemetry
 
-__all__ = ["StageCache", "config_subtree"]
+__all__ = ["StageCache", "TenantCache", "config_subtree"]
 
 # bump when a stage's numeric contract changes (payload layout, op
 # semantics): stale entries then read as misses instead of wrong hits
@@ -310,3 +310,130 @@ class StageCache:
                 "miss_stages": list(self.misses),
                 "evicted": len(self.evicted),
                 "put_errors": len(self.put_errors)}
+
+
+def _safe_tenant(tenant: str) -> str:
+    """Filesystem-safe tenant id: restricted charset, bounded length, no
+    dot-prefix (so a tenant can never escape or shadow the namespace
+    root). An empty result is a caller bug, not a default identity."""
+    import re
+
+    t = re.sub(r"[^A-Za-z0-9._-]", "_", str(tenant))[:64].lstrip(".")
+    if not t:
+        raise ValueError(f"unusable tenant id {tenant!r}")
+    return t
+
+
+class TenantCache(StageCache):
+    """Per-tenant namespace view over a SHARED content-addressed store (the
+    JAX package's class: the same marker layout, so either package's
+    service reads the other's namespaces).
+
+    Payload bytes live once in the shared store directory — identical
+    frame bytes submitted by two tenants hash to the same content key and
+    share ONE ``.npz`` entry (cross-tenant dedup is free because the key
+    scheme never includes identity, only content). What is per-tenant is
+    the *namespace*: a directory of zero-byte ``<stage>-<key16>.ref``
+    markers recording which store entries this tenant has read or
+    written. ``evict_tenant`` drops a tenant's refs and deletes only the
+    payloads no other tenant still references — so evicting tenant A can
+    never cold tenant B's entries, and a tenant's cache footprint is
+    exactly its ref set. Tenants never share *outputs* (every request
+    owns its out_dir); they share only content-keyed intermediates.
+    """
+
+    def __init__(self, store_root: str, tenant: str,
+                 ns_root: str | None = None, enabled: bool = True,
+                 log=None, verify: bool = True):
+        super().__init__(store_root, enabled=enabled, log=log,
+                         verify=verify)
+        self.tenant = _safe_tenant(tenant)
+        self.ns_root = ns_root or (store_root.rstrip(os.sep) + "-ns")
+        self.ns_dir = os.path.join(self.ns_root, self.tenant)
+        if enabled:
+            os.makedirs(self.ns_dir, exist_ok=True)
+
+    def _ref_path(self, stage: str, key: str) -> str:
+        return os.path.join(self.ns_dir, f"{stage}-{key[:16]}.ref")
+
+    def _touch_ref(self, stage: str, key: str) -> None:
+        if not self.enabled:
+            return
+        try:
+            with open(self._ref_path(stage, key), "a", encoding="utf-8"):
+                pass
+        except OSError:
+            pass    # a lost ref marker only risks early eviction, never data
+
+    def get(self, stage: str, key: str) -> dict | None:
+        hit = super().get(stage, key)
+        if hit is not None:
+            # reads ref too: a dedup hit on another tenant's entry must
+            # keep the payload alive past THAT tenant's eviction
+            self._touch_ref(stage, key)
+        return hit
+
+    def put(self, stage: str, key: str, **arrays) -> None:
+        super().put(stage, key, **arrays)
+        self._touch_ref(stage, key)
+
+    def refs(self) -> list[str]:
+        """This tenant's referenced entry names (``<stage>-<key16>``)."""
+        try:
+            return sorted(f[:-4] for f in os.listdir(self.ns_dir)
+                          if f.endswith(".ref"))
+        except OSError:
+            return []
+
+    @staticmethod
+    def tenants(ns_root: str) -> list[str]:
+        try:
+            return sorted(d for d in os.listdir(ns_root)
+                          if os.path.isdir(os.path.join(ns_root, d)))
+        except OSError:
+            return []
+
+    @classmethod
+    def evict_tenant(cls, store_root: str, tenant: str,
+                     ns_root: str | None = None, log=None) -> dict:
+        """Drop ``tenant``'s namespace and garbage-collect store payloads
+        nobody else references. Returns {"refs_dropped", "payloads_deleted",
+        "payloads_kept"} — kept means another tenant still holds a ref."""
+        log = log or (lambda m: None)
+        ns_root = ns_root or (store_root.rstrip(os.sep) + "-ns")
+        t = _safe_tenant(tenant)
+        ns_dir = os.path.join(ns_root, t)
+        mine = set()
+        try:
+            mine = {f[:-4] for f in os.listdir(ns_dir)
+                    if f.endswith(".ref")}
+        except OSError:
+            pass
+        others: set[str] = set()
+        for other in cls.tenants(ns_root):
+            if other == t:
+                continue
+            try:
+                others.update(f[:-4]
+                              for f in os.listdir(os.path.join(ns_root,
+                                                               other))
+                              if f.endswith(".ref"))
+            except OSError:
+                continue
+        deleted = kept = 0
+        for name in sorted(mine):
+            if name in others:
+                kept += 1
+                continue
+            try:
+                os.remove(os.path.join(store_root, name + ".npz"))
+                deleted += 1
+            except OSError:
+                pass    # already gone (or never published): nothing to GC
+        import shutil
+
+        shutil.rmtree(ns_dir, ignore_errors=True)
+        log(f"[cache] evicted tenant {t}: {len(mine)} ref(s) dropped, "
+            f"{deleted} payload(s) deleted, {kept} kept (still shared)")
+        return {"refs_dropped": len(mine), "payloads_deleted": deleted,
+                "payloads_kept": kept}

@@ -1958,7 +1958,7 @@ def _view_plan(calib_path: str, target: str, cfg: Config, steps: tuple[str, ...]
 def run_pipeline(calib_path: str, target: str, out_dir: str, cfg: Config | None = None,
                  steps=CLEAN_STEPS, merged_name: str = "merged.ply",
                  stl_name: str = "model.stl", log=print, device=None,
-                 prefold=None) -> PipelineReport:
+                 prefold=None, cache: StageCache | None = None) -> PipelineReport:
     """Scan-to-print on ``device`` (None -> cuda): every view folder under
     ``target`` (with enough frames, in ``<n>deg`` angle order) ->
     ``reconstruct``'s lane -> ``_clean_arrays`` -> the streamed or barrier
@@ -1974,7 +1974,10 @@ def run_pipeline(calib_path: str, target: str, out_dir: str, cfg: Config | None 
     (that pass of an incremental pod only): the coordinator's fold lane's
     merged prefix (``pipeline.assembly.Prefold``), re-validated against this
     run's own view order, digests and pair transforms before it seeds
-    ``finalize_chain``, so the bytes never depend on it."""
+    ``finalize_chain``, so the bytes never depend on it. ``cache``: a
+    caller's stage cache in place of ``<out_dir>/.slscan-cache`` (the
+    serving assembly passes its tenant's ``TenantCache`` over the shared
+    store); the keys are the same either way."""
     cfg = cfg or Config()
     if cfg.coordinator.workers > 0 or cfg.coordinator.listen:
         # lazy: the coordinator imports this module for the item programs
@@ -2009,7 +2012,7 @@ def run_pipeline(calib_path: str, target: str, out_dir: str, cfg: Config | None 
     try:
         with _run_context(cfg, out_dir, report.run_id, log):
             _run_pipeline_impl(calib_path, target, out_dir, cfg, tuple(steps),
-                               merged_name, stl_name, log, dev, report, prefold)
+                               merged_name, stl_name, log, dev, report, prefold, cache)
         if tracer is not None:
             g = tracer.registry.set_gauge
             g("sl3d_run_wall_seconds", report.elapsed_s)
@@ -2045,13 +2048,16 @@ def run_pipeline(calib_path: str, target: str, out_dir: str, cfg: Config | None 
 
 
 def _run_pipeline_impl(calib_path, target, out_dir, cfg: Config, steps, merged_name,
-                       stl_name, log, dev, report: PipelineReport, prefold=None) -> None:
+                       stl_name, log, dev, report: PipelineReport, prefold=None,
+                       cache: StageCache | None = None) -> None:
     t_start = time.perf_counter()
     walls = report.walls_s
     # a kill -9 in an earlier run leaves *.tmp orphans; none is data
     atomic.sweep_tmp(out_dir, log=log, recursive=True)
-    cache = StageCache(os.path.join(out_dir, ".slscan-cache"), enabled=cfg.pipeline.cache,
-                       log=log, verify=cfg.pipeline.verify_cache)
+    if cache is None:
+        cache = StageCache(os.path.join(out_dir, ".slscan-cache"),
+                           enabled=cfg.pipeline.cache, log=log,
+                           verify=cfg.pipeline.verify_cache)
     calib, sources, view_keys, walls["cache_keys_s"] = _view_plan(
         calib_path, target, cfg, steps, cache, log, dev)
     floor = max(2, cfg.pipeline.min_views)

@@ -430,6 +430,18 @@ class RunContext:
         if self.run_deadline is not None:
             self.run_deadline.check(what)
 
+    def abort(self, reason: str = "externally aborted") -> None:
+        """Abort the run this context governs from outside (the serving
+        drain's lever): the run deadline becomes one already expired and
+        the token is cancelled, so the next stage boundary or cancellable
+        wait leaves through the normal DeadlineExceeded path, failures.json
+        included, instead of being killed mid-write."""
+        d = Deadline(0.0, reason)
+        d.t_end = float("-inf")
+        self.run_deadline = d
+        self.token.cancel(reason)
+
+
 _CTX: RunContext | None = None
 
 

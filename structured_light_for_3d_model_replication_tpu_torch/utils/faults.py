@@ -36,12 +36,18 @@ supplies the two halves of making that chain resilient:
    ``ledger.append``     each ledger event, before its append
    ``blob.fetch``        each blob-store fetch / push (pipeline/blobstore.py)
    ``blob.push``
+   ``serve.crash``       the serving gateway's crash boundaries (item is
+                         ``"grant:<item>"``, ``"complete:<item>"`` or
+                         ``"assembly:<scan_id>"``; pipeline/serving.py)
+   ``http.submit``       each gateway /submit before admission
+   ``election.acquire``  each HA leader-lease acquire / renew attempt (item
+   ``election.renew``    is the member's owner id; parallel/election.py)
+   ``fleet.decide``      each fleet supervisor decision (parallel/fleet.py)
+   ``worker.spawn``      each fleet worker spawn, after its journal line
    ====================  ====================================================
 
    ``frame.pack`` also fires in the capture sequencer's pack-on-capture
-   step (acquire/sequencer.py; item is the view folder). The grammar also
-   accepts the JAX package's serving site names; the port has no serving
-   layer yet, so they never fire.
+   step (acquire/sequencer.py; item is the view folder).
 
 2. **Retry/quarantine toolkit** — the exception classifier
    (:func:`is_transient`), the bounded exponential-backoff

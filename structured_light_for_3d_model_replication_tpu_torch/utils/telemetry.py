@@ -202,6 +202,11 @@ class MetricsRegistry:
                 h = self._hists[k] = _Histogram(buckets)
             h.observe(value)
 
+    def counter_value(self, name: str, labels: dict | None = None,
+                      **kwlabels) -> float:
+        with self._lock:
+            return self._counters.get((name, _labelkey(kwlabels, labels)), 0.0)
+
     def as_dict(self) -> dict:
         def row(k, v):
             return {"name": k[0], "labels": dict(k[1]), "value": v}

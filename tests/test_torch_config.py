@@ -30,7 +30,7 @@ def test_copied_sections_have_the_jax_defaults(env, monkeypatch):
     port, jax = config.Config().to_dict(), jconfig.Config().to_dict()
     for section in ("faults", "deadlines", "observability", "projector", "decode",
                     "triangulate", "clean", "merge", "mesh", "checkerboard", "acquire",
-                    "coordinator"):
+                    "coordinator", "serving", "scan_root"):
         assert port[section] == jax[section], section
     for section in ("pipeline", "parallel"):
         assert port[section] == {k: jax[section][k] for k in port[section]}
@@ -56,12 +56,13 @@ def test_a_dropped_key_away_from_its_default_is_logged_once(tmp_path, capsys):
     jcfg.parallel.merge_mesh = True
     jcfg.parallel.shard_views = False
     jcfg.pipeline.fused_clean = True   # a carried key: it loads and is not logged
-    jcfg.serving.queue_depth = 3
+    jcfg.parallel.data_axis = 3
     jcfg.pipeline.max_retries = 5
     jcfg.save(str(tmp_path / "jax.json"))
     for _ in range(2):
         cfg = config.load_config(str(tmp_path / "jax.json"))
-    cfg2 = config.load_config(None, {"serving.port": "9000", "pipeline.ascii_output": "false",
+    cfg2 = config.load_config(None, {"parallel.model_axis": "2",
+                                     "pipeline.ascii_output": "false",
                                      "parallel.merge_mesh": "true"})
     err = capsys.readouterr().err.splitlines()
     assert sorted(err) == sorted([
@@ -69,8 +70,8 @@ def test_a_dropped_key_away_from_its_default_is_logged_once(tmp_path, capsys):
         "(default False)",
         "[config] parallel.shard_views=False is not ported; the port ignores it "
         "(default True)",
-        "[config] serving.queue_depth=3 is not ported; the port ignores it (default 64)",
-        "[config] serving.port=9000 is not ported; the port ignores it (default 8089)"])
+        "[config] parallel.data_axis=3 is not ported; the port ignores it (default 0)",
+        "[config] parallel.model_axis=2 is not ported; the port ignores it (default 1)"])
     assert cfg.pipeline.max_retries == 5 and cfg2.pipeline.max_retries == 2
     assert cfg.pipeline.fused_clean is True and cfg2.pipeline.ascii_output is False
     with open(tmp_path / "bad.json", "w") as f:
@@ -135,7 +136,7 @@ def test_the_coordinator_section_and_merge_incremental_are_carried(tmp_path, cap
     """``coordinator`` and ``merge.incremental`` load into the port (no
     longer dropped, so never logged), from a JAX-package file and from
     overrides, and the ``config`` JSON equals the JAX package's, key order
-    included; ``serving`` stays dropped."""
+    included; ``serving`` and ``scan_root`` are carried as well."""
     jcfg = jconfig.Config()
     jcfg.coordinator.workers = 3
     jcfg.coordinator.listen = "127.0.0.1:0"
@@ -153,7 +154,36 @@ def test_the_coordinator_section_and_merge_incremental_are_carried(tmp_path, cap
     assert over.coordinator.workers == 2 and over.coordinator.heartbeat_s == 1.0
     assert over.merge.incremental is True
     assert capsys.readouterr().err == ""
-    assert "coordinator" not in config._DROPPED and "serving" in config._DROPPED
+    assert "coordinator" not in config._DROPPED and "serving" not in config._DROPPED
+    assert "scan_root" not in config._DROPPED
     assert [f.name for f in dataclasses.fields(config.CoordinatorConfig)] == \
         [f.name for f in dataclasses.fields(jconfig.CoordinatorConfig)]
     assert json.dumps(config.jax_dict(cfg)) == json.dumps(jcfg.to_dict())
+
+
+def test_the_serving_section_and_scan_root_are_carried(tmp_path, capsys):
+    """``serving`` and ``scan_root`` load into the port (never logged),
+    from a JAX-package file and from overrides, with the JAX package's
+    field names in its order, and the ``config`` JSON equals the JAX
+    package's."""
+    jcfg = jconfig.Config()
+    jcfg.serving.ha_enabled = True
+    jcfg.serving.fleet_max_workers = 2
+    jcfg.serving.auth_rate_limit = 5
+    jcfg.serving.clean_steps = "statistical"
+    jcfg.scan_root = "/scans"
+    jcfg.save(str(tmp_path / "jax.json"))
+    cfg = config.load_config(str(tmp_path / "jax.json"))
+    assert cfg.serving.ha_enabled is True and cfg.serving.fleet_max_workers == 2
+    assert cfg.serving.auth_rate_limit == 5 and cfg.scan_root == "/scans"
+    over = config.load_config(None, {"serving.port": "0", "serving.ha_lease_s": "1.5",
+                                     "scan_root": "r"})
+    assert over.serving.port == 0 and over.serving.ha_lease_s == 1.5
+    assert over.scan_root == "r"
+    assert capsys.readouterr().err == ""
+    assert [f.name for f in dataclasses.fields(config.ServingConfig)] == \
+        [f.name for f in dataclasses.fields(jconfig.ServingConfig)]
+    assert json.dumps(config.jax_dict(cfg)) == json.dumps(jcfg.to_dict())
+    j_over = jconfig.load_config(None, {"serving.port": "0", "serving.ha_lease_s": "1.5",
+                                        "scan_root": "r"})
+    assert json.dumps(config.jax_dict(over)) == json.dumps(j_over.to_dict())

@@ -46,7 +46,8 @@ def test_importing_every_port_module_leaves_jax_unloaded():
               "acquire.server", "acquire.sequencer", "acquire.autoscan", "acquire.webcam",
               "acquire.android", "parallel", "parallel.netutil", "parallel.lease",
               "parallel.coordinator", "parallel.worker", "pipeline.blobstore",
-              "pipeline.assembly"):
+              "pipeline.assembly", "parallel.admission", "parallel.election",
+              "parallel.fleet", "pipeline.serving", "utils.preflight", "utils.gpulock"):
         assert f"{PKG}.{m}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

@@ -127,6 +127,9 @@ def test_config_json_loads_in_both_packages(tmp_path):
     # defaults and field names agree; the port's own file loads in the JAX package
     for section, fields in config.Config().to_dict().items():
         jsec = jconfig.Config().to_dict()[section]
+        if not isinstance(fields, dict):    # a top-level key (scan_root)
+            assert jsec == fields, section
+            continue
         assert {k: jsec[k] for k in fields} == fields
     config.Config().save(str(tmp_path / "port.json"))
     assert jconfig.load_config(str(tmp_path / "port.json")).decode == jconfig.DecodeConfig()

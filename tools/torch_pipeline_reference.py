@@ -42,8 +42,8 @@ for three more RANSAC seeds (pair ids offset by 1000 a seed). Some minutes.
 
 ``--mesh`` instead meshes ``chip_smoke.mesh_cloud()`` (points on the three
 spheres' union, a closed surface with a known distance) with the JAX
-package's ``mesh_cloud`` at depth 10 (``density_cap=false``: the brick
-solve) and prints the STL's distance to the true spheres, to the input
+package's ``mesh_cloud`` at ``chip_smoke.MESH_DEPTH`` (``density_cap=false``)
+and prints the STL's distance to the true spheres, to the input
 cloud and its edges: ``chip_smoke.MESH_JAX``. ``--mesh --mesh-mode
 surface`` meshes the same cloud with ``mesh.mode='surface'`` (ball
 pivoting) instead: ``chip_smoke.SURFACE_JAX``.
@@ -288,6 +288,8 @@ def run_mesh_jax(root: str, port: bool, mode: str = "watertight") -> None:
     src = os.path.join(root, "cloud.ply")
     ply.write_ply(src, cloud)
     over = {"mesh.density_cap": False, "mesh.mode": mode}
+    if mode == "watertight":
+        over["mesh.depth"] = chip_smoke.MESH_DEPTH
     runs = [("jax_cpu", lambda out: stages.mesh_cloud(
         src, out, cfg=load_config(None, over), log=_quiet))]
     if port:
