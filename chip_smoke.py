@@ -263,8 +263,33 @@ Imports nothing of JAX. Phases, each of which exits non-zero on failure:
    built and prints each kernel's first launch, doctor prints the card's
    name and power limit. Each arm prints its wall, its launches, the peak
    device memory and each request's queue / warm / assembly split.
+15. the large-cloud k-NN engines (``flagship_phase`` right after phase 3,
+   ``feature_prep_phase`` after phase 7): (a) the knn_binmin kernel (each
+   query row's nearest column in each of M strided bins, the partial reduce
+   of the binned selection) equal to its plain version bit for bit at
+   feature prep's shape (phase 7's largest prep, every row, k = 32, recall
+   0.95), at the merged cloud's normals shape (mesh_cloud(), 16,384 rows,
+   k = 30, recall 0.99) and at a 1080p view's cluster shape (its bucket,
+   the background step's survivors valid, 4,096 rows, k = 16, recall 0.99),
+   each row's recall against the exact arm printed, the mean at least the
+   target and every miss one-sided; timed at the 1080p shape beside its
+   plain version and torch.cdist + torch.topk. (b) ``run_pipeline`` over
+   FLAGSHIP_VIEWS of phase 3's 1080p .slbp views with the default Config()
+   at the render's projector size, cold: knn_binmin launched, per-view
+   clean counts within 1 % of the JAX package's on the same views and the
+   cleaned points' distance to the true sphere within 1.5x
+   (``FLAGSHIP_CLEAN_JAX``, tools/torch_flagship_reference.py); each clean
+   step's wall a view (the cluster step's k-NN apart from its label
+   rounds), the merge and mesh walls, the peak device memory, the launches,
+   the merged cloud's and the STL's distance to the sphere, and the exact
+   arm's k-NN on 65,536 rows scaled to the view, printed. (c) phase 7 runs
+   the binned selection in feature prep (approx:0.95) and in the merged
+   cloud's normals: knn_binmin launched in both of its runs, and the
+   ``feature_group_gate``: one view's features prepped alone equal the same
+   view padded into the device arm's shared bucket (beside phase 7's merged
+   cloud: the views share one 2048-row bucket).
 
-Then one ``{"kernels": [...]}`` JSON line (times from phases 2, 4 and 6,
+Then one ``{"kernels": [...]}`` JSON line (times from phases 2, 4, 6 and 15,
 bounds from this run's shapes, and each kernel's launches from one run of
 the main path, named in ``launches_run``: the cold streamed pipeline for
 every kernel it launches, else its own arm of phase 3, the cold flagship
@@ -457,6 +482,34 @@ SURFACE_JAX = {"faces": 511057, "surf_median_mm": 0.03402390588220783,
 # 350 mm) does not fit the band the camera and the projector share on this
 # rig (0.47 z - 80 mm tall: 85 mm at 350 mm, 203 mm at 600 mm), so the
 # squares are 10 mm and the nearest board 400 mm away.
+# Phase 15(b): run_pipeline over the first FLAGSHIP_VIEWS of phase 3's 1080p
+# .slbp views (one render, per-view noise: the views share one pose).
+FLAGSHIP_VIEWS = 4
+# Phase 15(a): knn_binmin's query rows at the 1080p cluster shape and at the
+# merged cloud's normals shape (at the feature-prep shape every row); 15(b):
+# the exact arm's query subset, its time scaled to the view
+BINMIN_ROWS_VIEW = 4096
+BINMIN_ROWS_NORMALS = 16384
+EXACT_ROWS = 65536
+BINMIN_REPLACES = ("structured_light_for_3d_model_replication_tpu/ops/knn.py:188 "
+                   "(not a pallas_call: lax.approx_min_k, also knn.py:260 and "
+                   "pointcloud.py:418)")
+FLAGSHIP_CLEAN_GATE = 0.01   # per-view clean counts within 1 % of the JAX package's
+# The JAX package's clean chain on the CPU over the same views and config
+# (tools/torch_flagship_reference.py): per view, the counts after each
+# clean step (PIPE_STEPS) and the cleaned points' distance to the true
+# sphere (median, p99, mm). The views' noise flips no decoded bit, so the
+# four are one cloud.
+FLAGSHIP_CLEAN_JAX = {
+    "clean_counts": [[1061700, 203258, 196387, 196380, 186670]] * 4,
+    "surf_mm": [[0.058363519555086896, 0.15746744417063696]] * 4}
+
+
+def flagship_view_name(i: int) -> str:
+    """Phase 3's name of its i-th .slbp view."""
+    return f"view_{i * 45:03d}deg"
+
+
 CALIB_POSES = 10
 CALIB_BOARD = (6, 9, 10.0)            # inner corners (rows, cols), square mm
 CALIB_DEPTHS = (400.0, 600.0)
@@ -2161,6 +2214,7 @@ def _device_busy(prof) -> dict:
             rows.append((e.key, us / 1e3, e.count))
     rows.sort(key=lambda r: -r[1])
     return {"busy_ms": sum(r[1] for r in rows) if rows else None,
+            "knn_binmin_ms": sum(ms for k, ms, _ in rows if "knn_binmin" in k),
             "top": [{"name": k[:80], "ms": ms, "count": c} for k, ms, c in rows[:8]]}
 
 
@@ -2487,7 +2541,9 @@ def pipeline_phase(dev, data: str, calib: str, scene, root: str,
         check(counts["radius_count"] == 2 * PIPE_VIEWS,
               f"pipeline {arm}: radius_count launched {counts['radius_count']} times, "
               f"not 2 a view")
-        for k in ("nn1", "ransac_score", "slab_mean_knn"):
+        # knn_binmin: feature prep's binned selection (approx:0.95) and the
+        # merged cloud's normals (above knn._BRUTE_MAX rows)
+        for k in ("nn1", "ransac_score", "slab_mean_knn", "knn_binmin"):
             check(counts[k] > 0, f"pipeline {arm} never launched {k}: {counts}")
         check(len(clean) == len(ref["clean_counts"]), f"pipeline {arm}: {len(clean)} views")
         for i, (mine, theirs) in enumerate(zip(clean, ref["clean_counts"])):
@@ -2750,6 +2806,302 @@ def schedule_phase(dev, data: str, calib: str, root: str, cold: dict,
                                     "deadlines.register_s")
     check(not _lane_threads(), f"schedule budget: lane threads {_lane_threads()} outlived "
                                f"deadlines.register_s")
+
+
+def exact_keys(pts, rows, k: int):
+    """The exact arm's k smallest (d2 bits << 32 | index) keys of the given
+    rows of a parked cloud, ascending: ``knn.knn(exact=True)``'s per-block
+    work (``knn._smallest_keys``, and a top-k over every key of the rows
+    where a tie crosses the cut), on those rows only."""
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.ops import knn as knnlib
+
+    n = pts.shape[0]
+    cols = torch.arange(n, device=pts.device)
+    block = max(1, (1 << 26) // n)
+    out = []
+    for s in range(0, rows.shape[0], block):
+        r = rows[s:s + block].long()
+        d2 = knnlib._sq_dist_block(pts[r], pts)
+        d2.masked_fill_(r[:, None] == cols[None, :], float("inf"))
+        key, cross = knnlib._smallest_keys(d2, k)
+        if bool(cross.any()):
+            key[cross] = torch.topk(knnlib._keys(d2[cross], cols), k, dim=1, largest=False,
+                                    sorted=True).values
+        out.append(key)
+    return torch.cat(out)
+
+
+def binmin_case(what: str, pts, rows, k: int, recall: float, card: str, extra: dict,
+                timed: bool = False) -> dict:
+    """knn_binmin on parked points and query rows at M = kernels.binmin_bins(N,
+    k, recall): d2 and idx equal to the plain version bit for bit; the
+    binned selection (the k smallest (d2, index) keys of a row's M winners,
+    as knn._knn_binned takes them) against the exact arm's on those rows:
+    each row's recall (the mean at least ``recall``) and each rank's
+    distance at or above the exact one (misses only overestimate). With
+    ``timed``, the kernel line: CUDA events (ms), torch.profiler's device
+    time, the plain version and the yardstick (torch.cdist then torch.topk
+    over the same rows), the bound at the issue ceiling (10 instructions a
+    pair) and the whole view's."""
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.ops import kernels
+    from structured_light_for_3d_model_replication_tpu_torch.ops import knn as knnlib
+
+    n, r = pts.shape[0], rows.shape[0]
+    m = kernels.binmin_bins(n, k, recall)
+    kd, ki = kernels.knn_binmin(pts, rows, m)
+    (pd, pi), plain_ms = _timed_once(lambda: kernels.knn_binmin_plain(pts, rows, m))
+    torch.cuda.synchronize()
+    equal = bool(torch.equal(kd.view(torch.int32), pd.view(torch.int32))
+                 and torch.equal(ki, pi))
+    bad = int(((kd.view(torch.int32) != pd.view(torch.int32)) | (ki != pi)).sum())
+    check(equal, f"knn_binmin ({what}): {bad} of {r * m} (row, bin) winners differ from "
+                 f"the plain version")
+    del pd, pi
+    sel = torch.topk(knnlib._keys(kd, ki.long()), k, dim=1, largest=False, sorted=True).values
+    ex = exact_keys(pts, rows, k)
+    hit = ((sel & 0xFFFFFFFF)[:, :, None] == (ex & 0xFFFFFFFF)[:, None, :]).any(2)
+    rec = hit.sum(1).double() / k
+    # d2 bit patterns order as the floats: each rank at or above the exact one
+    one_sided = bool(((sel >> 32) >= (ex >> 32)).all())
+    mean = float(rec.mean())
+    check(mean >= recall, f"knn_binmin ({what}): mean recall {mean} < {recall}")
+    check(one_sided, f"knn_binmin ({what}): a selected distance below the exact one")
+    out = {"knn_binmin": what, "n": n, "rows": r, "k": k, "recall_target": recall, "bins": m,
+           "mean_recall": mean, "min_recall": float(rec.min()),
+           "rows_below_target": float((rec < recall).double().mean()),
+           "bit_equal": equal, "one_sided": one_sided, "plain_ms": plain_ms}
+    del kd, ki, sel, ex, hit
+    if timed:
+        fn = lambda: kernels.knn_binmin(pts, rows, m)  # noqa: E731
+        ms = time_ms(fn, reps=5)
+        dev_ms = device_ms(fn, 5, "knn_binmin_kernel")
+        lib_ms = time_ms(lambda: torch.topk(torch.cdist(
+            pts[rows.long()], pts, compute_mode="donot_use_mm_for_euclid_dist"), k, dim=1,
+            largest=False), reps=2, warm=1)
+        torch.cuda.empty_cache()
+        # bytes: the cloud and the rows once, the [rows, M] winners out;
+        # operations: 10 issued instructions a (row, column) pair (the d2's
+        # 8, the compare, acting on it), the issue ceiling
+        b_ms = max(bound(n * 12 + r * 4 + r * m * 8, 0)[0], issue_ceiling(r * n * 10))
+        out.update({"name": "knn_binmin", "route": "cuda", "source": CLOUD_SOURCE,
+                    "replaces": BINMIN_REPLACES, "launches": 0, "max_abs_err": 0.0,
+                    "ms": ms, "device_ms": dev_ms, "library_ms": lib_ms,
+                    "library": "torch.cdist + torch.topk over the same rows",
+                    "bound_ms": b_ms, "bound_by": "operations",
+                    "view_bound_ms": issue_ceiling(n * n * 10), "clocks": clocks()})
+    print(json.dumps(dict(out, **extra, card=card)), flush=True)
+    return out
+
+
+def flagship_phase(dev, rig, stacks, card: str) -> list[dict]:
+    """Phase 15, right after phase 3 (its packed stacks in memory). (b)
+    ``run_pipeline`` over the first FLAGSHIP_VIEWS 1080p views (.slbp, the
+    default Config() at the render's projector size, the cleaned views
+    written out), cold: every clean step's wall a view (the cluster step's
+    k-NN, core count and label rounds apart), the merge and mesh walls, the
+    peak device memory and the launches; gated on knn_binmin launched, the
+    per-view clean counts within 1 % of the JAX package's on the same views
+    (``FLAGSHIP_CLEAN_JAX``) and the cleaned points' distance to the true
+    sphere (median, p99) within 1.5x; the merged cloud's and the STL's
+    printed. (a) knn_binmin at the cluster step's shape of one such view
+    (the background step's survivors of its 2048-row bucket, k = 16, recall
+    0.99, BINMIN_ROWS_VIEW query rows: the kernels line's case) and at the
+    merged cloud's normals shape (mesh_cloud(), k = 30, recall 0.99,
+    BINMIN_ROWS_NORMALS rows), held by ``binmin_case``; then the exact
+    arm on EXACT_ROWS rows of the view, scaled to it, beside the binned
+    arm's k-NN wall in (b). Returns the knn_binmin kernel line."""
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.config import Config
+    from structured_light_for_3d_model_replication_tpu_torch.io import images as imio
+    from structured_light_for_3d_model_replication_tpu_torch.io import matfile, ply
+    from structured_light_for_3d_model_replication_tpu_torch.models import (
+        reconstruction as recon,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.ops import kernels
+    from structured_light_for_3d_model_replication_tpu_torch.ops import knn as knnlib
+    from structured_light_for_3d_model_replication_tpu_torch.ops import pointcloud as pc
+    from structured_light_for_3d_model_replication_tpu_torch.pipeline import stages
+    from structured_light_for_3d_model_replication_tpu_torch.utils import (
+        synthetic as syn,
+    )
+
+    check(FLAGSHIP_CLEAN_JAX is not None and
+          len(FLAGSHIP_CLEAN_JAX["clean_counts"]) >= FLAGSHIP_VIEWS,
+          "FLAGSHIP_CLEAN_JAX holds no reference for the flagship views")
+    scene = syn.sphere_on_background()
+    with tempfile.TemporaryDirectory(prefix="slscan_flagship_") as root:
+        data = os.path.join(root, "scans")
+        calib = os.path.join(root, "calib.npz")
+        matfile.save_calibration(calib, rig.calibration())
+        for i in range(FLAGSHIP_VIEWS):
+            imio.save_packed_stack(os.path.join(data, flagship_view_name(i)), stacks[i])
+        cfg = Config()
+        cfg.decode.n_cols, cfg.decode.n_rows = PROJ
+        cfg.pipeline.write_view_plys = True
+        out = os.path.join(root, "out")
+        per_view: list[dict] = []
+        real = pc.clean_chain
+
+        def recording(points, valid, clean_cfg, steps=pc.CLEAN_STEPS, samples=None,
+                      timings=None):
+            tm: dict = {}
+            res = real(points, valid, clean_cfg, steps, samples=samples, timings=tm)
+            per_view.append(tm)
+            if timings is not None:
+                for key, val in tm.items():
+                    timings[key] = timings.get(key, 0) + val
+            return res
+
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        pc.clean_chain = recording
+        try:
+            t0 = time.perf_counter()
+            report = stages.run_pipeline(calib, data, out, cfg=cfg, device=dev,
+                                         log=lambda m: None)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            pc.clean_chain = real
+        counts = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        check(report.failures == [] and report.views_computed == FLAGSHIP_VIEWS,
+              f"flagship pipeline: {report.views_computed} views computed, failures "
+              f"{[f.as_dict() for f in report.failures]}")
+        check(counts["knn_binmin"] > 0, f"flagship pipeline never launched knn_binmin: {counts}")
+        clean = [[c.get(k, 0) for k in PIPE_STEPS] for c in report.clean_counts]
+        views = read_clouds(os.path.join(out, "views"))
+        surf = []
+        for p, _ in views:
+            d = syn.sphere_surface_distance(p, scene)
+            surf.append([float(np.median(d)), float(np.percentile(d, 99))])
+        merged = ply.read_ply(report.merged_ply)["points"]
+        md = syn.sphere_surface_distance(merged, scene)
+        acc = stl_accuracy(report.stl_path, scene, merged)
+        print(json.dumps({"flagship_pipeline": "cold", "views": FLAGSHIP_VIEWS,
+                          "wall_s": wall, "walls_s": report.walls_s,
+                          "clean_walls_s_per_view": per_view, "clean_counts": clean,
+                          "clean_counts_jax": FLAGSHIP_CLEAN_JAX["clean_counts"][:FLAGSHIP_VIEWS],
+                          "surf_mm": surf,
+                          "surf_mm_jax": FLAGSHIP_CLEAN_JAX["surf_mm"][:FLAGSHIP_VIEWS],
+                          "merged_points": int(len(merged)),
+                          "merged_surf_median_mm": float(np.median(md)),
+                          "merged_surf_p99_mm": float(np.percentile(md, 99)), "stl": acc,
+                          "peak_device_bytes": int(peak), "launches": counts,
+                          "card": card, "clocks": clocks()}), flush=True)
+        for i, (mine, theirs) in enumerate(zip(clean, FLAGSHIP_CLEAN_JAX["clean_counts"])):
+            for step, a, b in zip(PIPE_STEPS, mine, theirs):
+                check(abs(a - b) <= FLAGSHIP_CLEAN_GATE * b,
+                      f"flagship view {i} {step} count {a} vs the JAX package's {b}")
+        for i, (mine, theirs) in enumerate(zip(surf, FLAGSHIP_CLEAN_JAX["surf_mm"])):
+            for what, a, b in zip(("median", "p99"), mine, theirs):
+                check(a <= GATE * b, f"flagship view {i}: cleaned points {a} mm from the "
+                                     f"sphere ({what}), > {GATE} x the JAX package's {b}")
+        # (a) the cluster step's input of view 0: its bucket, the background
+        # step's survivors valid, the rest parked
+        pts, _ = stages.reconstruct_source(os.path.join(data, flagship_view_name(0)),
+                                           matfile.load_calibration(calib), cfg, device=dev)
+        n = len(pts)
+        bucket = recon._bucket_pad(n)
+        padded = np.full((bucket, 3), knnlib.FAR, np.float32)
+        padded[:n] = pts
+        pts_t = torch.from_numpy(padded).to(dev)
+        valid = torch.arange(bucket, device=dev) < n
+        _, inl = pc.segment_plane(pts_t, valid, cfg.clean.plane_ransac_dist,
+                                  cfg.clean.plane_ransac_trials)
+        survivors = torch.nonzero(valid & ~inl).flatten()
+        parked = knnlib._parked(pts_t, valid & ~inl).contiguous()
+        del pts_t, inl
+        rows = survivors[torch.linspace(0, survivors.shape[0] - 1, BINMIN_ROWS_VIEW,
+                                        device=dev).long()].to(torch.int32)
+        line = binmin_case("cluster step, 1080p view", parked, rows, 16, 0.99, card,
+                           {"view_points": n, "survivors": int(survivors.shape[0])},
+                           timed=True)
+        # the exact arm on EXACT_ROWS survivor rows, scaled to the view's N
+        sub = survivors[torch.linspace(0, survivors.shape[0] - 1, EXACT_ROWS,
+                                       device=dev).long()]
+        _, ex_ms = _timed_once(lambda: exact_keys(parked, sub, 16))
+        knn_s = [tm.get("clean_cluster_knn_s") for tm in per_view]
+        print(json.dumps({"cluster_knn": "approx against exact", "n": bucket,
+                          "exact_rows": EXACT_ROWS, "exact_subset_ms": ex_ms,
+                          "exact_scaled_s": ex_ms / 1e3 * bucket / EXACT_ROWS,
+                          "binned_knn_s_per_view": knn_s, "card": card}), flush=True)
+        del parked, survivors, rows, sub
+        torch.cuda.empty_cache()
+    # the merged cloud's normals shape: mesh_cloud(), k = 30, recall 0.99
+    mc, _ = mesh_cloud()
+    pts = torch.from_numpy(np.ascontiguousarray(mc, np.float32)).to(dev)
+    rows = torch.linspace(0, len(mc) - 1, BINMIN_ROWS_NORMALS, device=dev).long()
+    binmin_case("merged cloud normals", pts, rows.to(torch.int32),
+                Config().mesh.normal_max_nn, 0.99, card, {})
+    del pts, rows
+    torch.cuda.empty_cache()
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
+    return [{k: line[k] for k in keys}]
+
+
+def feature_prep_phase(dev, cold: dict, card: str) -> None:
+    """Phase 15(a) at feature prep's shape and 15(c), after phase 7: every
+    cleaned view of phase 7's cold run prepped alone (``prep_view``, the
+    host-list arm); knn_binmin at the largest prep's shape (its bucket,
+    every row, k = FEAT_K, recall 0.95), held by ``binmin_case``; then the
+    ``feature_group_gate``: the smallest view's prep alone equals, bit for
+    bit on its valid rows (points, normals, features), the same view padded
+    into the device arm's shared bucket (``_preprocess_views_device``)
+    beside phase 7's merged cloud, and that arm launched knn_binmin."""
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.config import load_config
+    from structured_light_for_3d_model_replication_tpu_torch.io import ply
+    from structured_light_for_3d_model_replication_tpu_torch.models import (
+        reconstruction as recon,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.ops import kernels
+    from structured_light_for_3d_model_replication_tpu_torch.ops import knn as knnlib
+
+    voxel = load_config(None, PIPE_OVERRIDES).merge.voxel_size
+    views = read_clouds(os.path.join(cold["out"], "views"))
+    preps = [recon.prep_view(p, voxel, device=dev) for p, _ in views]
+    sizes = [int(p.valid.sum()) for p in preps]
+    big, small = int(np.argmax(sizes)), int(np.argmin(sizes))
+    p = preps[big]
+    binmin_case("feature prep, largest view", knnlib._parked(p.points, p.valid).contiguous(),
+                torch.arange(p.points.shape[0], dtype=torch.int32, device=dev),
+                recon.FEAT_K, 0.95, card,
+                {"view": big, "prep_points": sizes[big],
+                 "phase7_launches": cold["counts"].get("knn_binmin", 0)})
+    alone = preps[small]
+    # the shared bucket: phase 7's views all fit one 2048-row bucket, so the
+    # group's other member is its merged cloud, several buckets larger
+    merged = ply.read_ply(cold["report"].merged_ply)
+    kernels.reset_launch_counts()
+    dc = recon.stack_views_device([views[small], (merged["points"], merged["colors"])],
+                                  device=dev)
+    grouped, _ = recon._preprocess_views_device(dc, voxel)
+    launched = kernels.launch_counts()["knn_binmin"]
+    g = grouped[0]
+    n = sizes[small]
+    same = {"bucket_alone": int(alone.points.shape[0]), "bucket_grouped": int(g.points.shape[0]),
+            "valid": n == int(g.valid.sum()),
+            "points": bool(torch.equal(alone.points[:n], g.points[:n])),
+            "normals": bool(torch.equal(alone.normals[:n], g.normals[:n])),
+            "features": bool(torch.equal(alone.features[:n], g.features[:n]))}
+    print(json.dumps({"feature_group_gate": same, "view": small, "points": n,
+                      "knn_binmin_launches": launched, "card": card}), flush=True)
+    check(same["bucket_alone"] < same["bucket_grouped"],
+          f"feature_group_gate: view {small} alone and grouped share a bucket: {same}")
+    check(launched > 0, "feature_group_gate: the device arm's prep never launched knn_binmin")
+    check(all(same[k] for k in ("valid", "points", "normals", "features")),
+          f"feature_group_gate: view {small}'s features depend on its bucket: {same}")
+    del preps, grouped, dc
+    torch.cuda.empty_cache()
 
 
 def true_pose_arm(dev, view_dir: str, poses, scene, root: str, card: str) -> None:
@@ -4277,6 +4629,7 @@ def main() -> int:
     print(f"render: {frames_np.shape} in {time.perf_counter() - t0:.1f}s", flush=True)
     lines, stacks = kernel_phase(dev, rig, frames_np, gt)
     launches = reconstruct_phase(dev, rig, stacks, card)
+    lines += flagship_phase(dev, rig, stacks, card)
     calibration_phase(dev, rig, frames_np, stacks, card)
     del stacks
     executor_phase(dev, rig, frames_np, card)
@@ -4306,6 +4659,7 @@ def main() -> int:
         cold = pipeline_phase(dev, data, calib, scene, root, card)
         launches.update({k: (n, "pipeline (cold, streamed)")
                          for k, n in cold["counts"].items() if n})
+        feature_prep_phase(dev, cold, card)
         schedule_phase(dev, data, calib, root, cold, card)
         fused_phase(dev, data, calib, root, cold, card)
         report_phase(os.path.join(root, "pipeline_fused"), card)

@@ -34,6 +34,7 @@ pair's draws depend only on (seed, pair id).
 """
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass
 
@@ -185,8 +186,21 @@ def _compact_order_counts(valid: torch.Tensor):
     return order, valid.sum(dim=1)
 
 
+def _feat_knn_selector(device: torch.device) -> str:
+    """The k-NN selector of feature prep (the JAX package's): the binned
+    selection at 0.95 per-row recall on the card, where a missed neighbour
+    only swaps in a slightly farther one and FPFH's 11-bin histograms do not
+    resolve the difference; the exact top-k on the CPU. SLSCAN_FEAT_EXACT=1
+    forces the exact selector. M depends on k and the recall alone (capped
+    at the bucket), so a view's features do not depend on the bucket it is
+    padded into."""
+    if os.environ.get("SLSCAN_FEAT_EXACT") == "1":
+        return "topk"
+    return "topk" if device.type == "cpu" else "approx:0.95"
+
+
 def _prep_features(p: torch.Tensor, v: torch.Tensor, feat_radius: float):
-    idx, d2 = knnlib.knn(p, v, FEAT_K)
+    idx, d2 = knnlib.knn(p, v, FEAT_K, selector=_feat_knn_selector(p.device))
     nr = nrmlib.estimate_normals(p, v, k=NORMALS_K, idx_d2=(idx, d2))
     feat = reg.fpfh_features(p, nr, v, radius=feat_radius, k=FEAT_K, idx_d2=(idx, d2))
     return nr, feat

@@ -1,8 +1,9 @@
 // Point-cloud kernels of the merge path and the clean chain, for Hopper
 // (sm_90a).
 //
-// Seven kernels (Pallas originals in structured_light_for_3d_model_replication_
-// tpu/ops/pallas_kernels.py):
+// Eight kernels. Seven replace Pallas originals (in structured_light_for_3d_
+// model_replication_tpu/ops/pallas_kernels.py); knn_binmin_kernel, the last,
+// replaces no Pallas kernel:
 //
 //   radius_count_kernel   replaces _radius_kernel (call _radius_call, entry
 //                         radius_count_pallas): per point, the number of other
@@ -157,6 +158,41 @@
 //                         correction. 33 sweeps of every d2. The whole-cloud
 //                         kernel streams the cloud through a 16384-point
 //                         shared buffer, from L2, once per pass.
+//   knn_binmin_kernel     no Pallas original: the counterpart of XLA's
+//                         lax.approx_min_k (the TPU's PartialReduce), which
+//                         the JAX package runs outside any Pallas kernel in
+//                         knn_dense_approx (ops/knn.py:188), the brute
+//                         engine's "approx:<recall>" selector (:260) and the
+//                         slab engine's approx1 selector (ops/pointcloud.py:
+//                         418). For each (query row, bin b < M) the least d2
+//                         over the columns j = b, b + M, b + 2M, ... (j != the
+//                         row), and its index, ties to the lowest index; the
+//                         wrapper's top-k over the M winners is the selection
+//                         (kernels.knn_binmin). Strided bins, not contiguous
+//                         windows: in a pixel-ordered cloud a point's nearest
+//                         neighbours sit at nearby indices, which strided bins
+//                         spread over distinct bins. Bound by operations, ~10
+//                         issued instructions a (query, column) pair (the d2,
+//                         a compare, two selects), N^2 pairs a whole-cloud
+//                         call, and the [rows, M] winners never leave
+//                         registers until the end. Design:
+//                         - a thread carries kBmQ = 8 query rows and one bin
+//                           (lane l of a warp: bin b0 + l, so a warp step
+//                           reads 32 adjacent columns), every warp of a
+//                           block the same 32 bins and its own 8 rows, so one
+//                           shared-memory read of a column feeds 8 pairs and a
+//                           column leaves L2 once a block (64 rows);
+//                         - the block's columns stream through a two-slot
+//                           cp.async ring of kBmSteps bin steps, x/y/z planes
+//                           (conflict-free reads); slots past N or past M hold
+//                           +inf, whose distance never wins;
+//                         - a running (d2, j) by a strict '<' over rising j
+//                           from (+inf, b) is the lexicographic minimum, with
+//                           (+inf, b) where no column is finite;
+//                         - the self column (row mod M's bin, step row / M)
+//                           costs a compare a pair only in the ring slot that
+//                           holds it: a warp takes that slot's checked sweep
+//                           when any of its lanes needs it (__any_sync).
 //
 // Self-exclusion is by global index everywhere: a query's own slot is above
 // every cutoff (the bisection kernels give it bits 2^31 - 2; the selection
@@ -197,6 +233,11 @@ constexpr int kKnnThreads = kKnnWarps * 32;
 constexpr int kChunk = 16384;       // candidates resident in shared memory
 constexpr int kSelfBits = 0x7FFFFFFE;
 constexpr int kBisect = 31;
+constexpr int kBmWarps = 8;
+constexpr int kBmQ = 8;             // query rows a knn_binmin thread carries
+constexpr int kBmRows = kBmWarps * kBmQ;
+constexpr int kBmThreads = kBmWarps * 32;
+constexpr int kBmSteps = 32;        // bin steps a ring slot: 32 x 32 columns
 constexpr int kSelWarps = 16;
 constexpr int kSelQpw = 4;          // queries a selection warp carries
 constexpr int kSelTile = kSelWarps * kSelQpw;
@@ -920,6 +961,109 @@ knn_select_kernel(const float* __restrict__ pts, int L, int k, int r2b, float* _
   }
 }
 
+// ---------------------------------------------------------------------------
+// knn_binmin
+// ---------------------------------------------------------------------------
+
+// Columns b0 + c + m * (t0 + s), c < 32, s < kBmSteps, into a ring slot of
+// x, y, z planes [3][kBmSteps][32], 4 bytes a cp.async; columns at or past n,
+// and bins at or past m, hold +inf.
+__device__ __forceinline__ void bm_stage(float (*slot)[kBmSteps][32], const float* __restrict__ pts, int n, int m,
+                                         int b0, long long t0) {
+  for (int e = threadIdx.x; e < 96 * kBmSteps; e += kBmThreads) {
+    const int s = e / 96;
+    const int r = e - 96 * s;
+    const int c = r / 3;
+    const int comp = r - 3 * c;
+    const long long j = b0 + c + (long long)m * (t0 + s);
+    float* dst = &slot[comp][s][c];
+    if (b0 + c < m && j < n) {
+      cp_async4(dst, pts + 3 * j + comp);
+    } else {
+      *dst = __int_as_float(0x7f800000);
+    }
+  }
+  cp_async_commit();
+}
+
+// One ring slot's sweep: kBmSteps columns of this lane's bin against its
+// kBmQ rows. kSelf: the slot holds some lane's self column, checked a pair.
+template <bool kSelf>
+__device__ __forceinline__ void bm_sweep(const float (*slot)[kBmSteps][32], int lane, int col0, int m, int t0,
+                                         const float (&qx)[kBmQ], const float (&qy)[kBmQ],
+                                         const float (&qz)[kBmQ], const int (&self_t)[kBmQ],
+                                         float (&best)[kBmQ], int (&best_j)[kBmQ]) {
+#pragma unroll 4
+  for (int s = 0; s < kBmSteps; ++s) {
+    const float cx = slot[0][s][lane], cy = slot[1][s][lane], cz = slot[2][s][lane];
+    const int col = col0 + s * m;
+#pragma unroll
+    for (int j = 0; j < kBmQ; ++j) {
+      float d = d2_diff(qx[j], qy[j], qz[j], cx, cy, cz);
+      if (kSelf && t0 + s == self_t[j]) d = __int_as_float(0x7f800000);
+      if (d < best[j]) {
+        best[j] = d;
+        best_j[j] = col;
+      }
+    }
+  }
+}
+
+// Rows rows[blockIdx.x * kBmRows + w * kBmQ + i] (warp w), bins
+// blockIdx.y * 32 + lane. Rows past n_rows load clamped and write nothing.
+__global__ void __launch_bounds__(kBmThreads)
+knn_binmin_kernel(const float* __restrict__ pts, const int32_t* __restrict__ rows, int n_rows, int n, int m,
+                  int exclude_self, float* __restrict__ d2_out, int32_t* __restrict__ idx_out) {
+  __shared__ float ring[2][3][kBmSteps][32];
+  const int lane = threadIdx.x & 31;
+  const int b0 = blockIdx.y * 32;
+  const int b = b0 + lane;
+  const long long r0 = (long long)blockIdx.x * kBmRows + (threadIdx.x >> 5) * kBmQ;
+  float qx[kBmQ], qy[kBmQ], qz[kBmQ], best[kBmQ];
+  int best_j[kBmQ], self_t[kBmQ];
+#pragma unroll
+  for (int j = 0; j < kBmQ; ++j) {
+    const int row = rows[min(r0 + j, (long long)n_rows - 1)];
+    qx[j] = pts[3LL * row];
+    qy[j] = pts[3LL * row + 1];
+    qz[j] = pts[3LL * row + 2];
+    best[j] = __int_as_float(0x7f800000);  // +inf at the bin's first column
+    best_j[j] = b;
+    self_t[j] = (exclude_self && row % m == b) ? row / m : -1;
+  }
+  const int steps = (n - b0 + m - 1) / m;  // the block's first bin has the most columns
+  const int ntiles = (steps + kBmSteps - 1) / kBmSteps;
+  bm_stage(ring[0], pts, n, m, b0, 0);
+  for (int t = 0; t < ntiles; ++t) {
+    if (t + 1 < ntiles) {
+      bm_stage(ring[(t + 1) & 1], pts, n, m, b0, (long long)(t + 1) * kBmSteps);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int t0 = t * kBmSteps;
+    bool self_here = false;
+#pragma unroll
+    for (int j = 0; j < kBmQ; ++j) self_here |= self_t[j] >= t0 && self_t[j] < t0 + kBmSteps;
+    const int col0 = b + t0 * m;
+    if (__any_sync(kFull, self_here)) {
+      bm_sweep<true>(ring[t & 1], lane, col0, m, t0, qx, qy, qz, self_t, best, best_j);
+    } else {
+      bm_sweep<false>(ring[t & 1], lane, col0, m, t0, qx, qy, qz, self_t, best, best_j);
+    }
+    __syncthreads();
+  }
+  if (b >= m) return;
+#pragma unroll
+  for (int j = 0; j < kBmQ; ++j) {
+    if (r0 + j < n_rows) {
+      d2_out[(r0 + j) * m + b] = best[j];
+      idx_out[(r0 + j) * m + b] = best_j[j];
+    }
+  }
+}
+
 cudaError_t allow_smem(const void* fn) {
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, 3 * kChunk * (int)sizeof(float));
 }
@@ -1018,6 +1162,18 @@ int slscan_slab_mean_knn_bisect(const float* pts, int L, int k, int r2b, int wbl
   const size_t smem = 3 * sizeof(float) * (size_t)(2 * wblk < kChunk ? 2 * wblk : kChunk);
   slab_knn_mean_kernel<<<L / kKnnTile, kKnnThreads, smem, stream>>>(pts, L, k, r2b, wblk, tile, r, mean, cnt,
                                                                     win_end);
+  return (int)cudaGetLastError();
+}
+
+int slscan_knn_binmin(const float* pts, const int32_t* rows, int n_rows, int n, int m, int exclude_self, float* d2,
+                      int32_t* idx, cudaStream_t stream) {
+  // a column index b + M t, padding steps included, stays below 33 n < 2^31;
+  // bins on grid.y
+  if (n_rows < 1 || n < 1 || n > (1 << 25) || m < 1 || m > n || (m + 31) / 32 > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const dim3 grid((n_rows + kBmRows - 1) / kBmRows, (m + 31) / 32);
+  knn_binmin_kernel<<<grid, kBmThreads, 0, stream>>>(pts, rows, n_rows, n, m, exclude_self, d2, idx);
   return (int)cudaGetLastError();
 }
 

@@ -14,6 +14,8 @@ merge path's and the clean chain's in ``csrc/cloud.cu``:
   slab_mean_knn       the same over x-sorted windows (_slab_bisect_kernel;
                       one selection sweep for k <= 128, bisection above)
   radius_count        neighbours within r, self excluded (_radius_kernel)
+  knn_binmin          each bin's nearest column      (no Pallas original:
+                      the partial reduce of XLA's lax.approx_min_k)
 
 For tensors on the CPU a wrapper runs its plain PyTorch version
 (``*_plain``, the same function written with tensor ops, in the kernel's
@@ -30,6 +32,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import math
 import threading
 
 import torch
@@ -42,8 +45,8 @@ __all__ = ["decode_maps", "decode_maps_plain", "decode_packed_maps",
            "scan_scalars", "sqrt_f32", "nn1", "nn1_plain", "ransac_score",
            "ransac_score_plain", "knn_mean", "knn_mean_plain", "slab_mean_knn",
            "slab_mean_knn_plain", "SELECT_MAX_K", "radius_count",
-           "radius_count_plain", "KERNELS", "launch_counts",
-           "reset_launch_counts"]
+           "radius_count_plain", "binmin_bins", "bin_minima", "knn_binmin", "knn_binmin_plain",
+           "KERNELS", "launch_counts", "reset_launch_counts"]
 
 # ---------------------------------------------------------------------------
 # the C interface (csrc/decode.cu, csrc/cloud.cu)
@@ -61,6 +64,7 @@ _SIGNATURES = {
     "slscan_slab_mean_knn": [_P] + [_I] * 5 + [_F] + [_P] * 4,
     "slscan_slab_mean_knn_bisect": [_P] + [_I] * 5 + [_F] + [_P] * 4,
     "slscan_radius_count": [_P, _I, _F, _P, _P],
+    "slscan_knn_binmin": [_P, _P] + [_I] * 4 + [_P, _P],
 }
 _declared: set[int] = set()
 
@@ -707,8 +711,108 @@ def radius_count(pts: torch.Tensor, r: float) -> torch.Tensor:
     return counts
 
 
+# K9: knn_binmin ----------------------------------------------------------------
+
+BINMIN_MIN_BINS = 128     # XLA's ApproxTopK floor on its bin count (the TPU's tiling)
+_BINMIN_MAX_N = 1 << 25   # the entry's limit: column indices stay below 2^31
+_ROWS_CUDA = 1 << 26      # elements a chunk of knn_binmin_plain on the card
+
+
+def binmin_bins(n: int, k: int, recall: float) -> int:
+    """M, the bin count of the binned selection of the k nearest among n
+    columns at per-row ``recall``: the recall model of XLA's ApproxTopK,
+    (1 - 1/M)^(k-1) ~ exp(-(k-1)/M) = recall, so m = (k - 1) / -ln(recall),
+    rounded up to a power of two, at least BINMIN_MIN_BINS and k, and capped
+    at n. It depends on (k, recall) alone below the cap, so a cloud padded
+    with parked rows gets the bins of the same cloud unpadded wherever they
+    differ at all: with n <= M every column is its own bin and the selection
+    is exact, as it is at recall 1.0."""
+    if not 0.0 < recall <= 1.0:
+        raise ValueError(f"recall must lie in (0, 1], got {recall}")
+    if recall == 1.0:
+        return n
+    m = max((k - 1) / -math.log(recall), float(BINMIN_MIN_BINS), float(k))
+    return min(1 << math.ceil(math.log2(m)), n)
+
+
+def bin_minima(d2: torch.Tensor, m: int):
+    """[rows, N] distances -> (d2 f32 [rows, M], idx i32 [rows, M]): for
+    each bin b, the least value over the columns b, b + M, b + 2M, ... and
+    its column, the lowest on ties (+inf at column b where none is finite).
+    A running minimum by a strict '<' over the column blocks in rising
+    order, the kernel's own rule."""
+    ar = torch.arange(m, dtype=torch.int32, device=d2.device)
+    best = d2[:, :m].clone()
+    idx = ar.expand(d2.shape[0], m).clone()
+    for s in range(m, d2.shape[1], m):
+        blk = d2[:, s:s + m]
+        w = blk.shape[1]
+        better = blk < best[:, :w]
+        best[:, :w] = torch.where(better, blk, best[:, :w])
+        idx[:, :w] = torch.where(better, ar[:w] + s, idx[:, :w])
+    return best, idx
+
+
+def knn_binmin_plain(pts: torch.Tensor, rows: torch.Tensor, m: int,
+                     exclude_self: bool = True):
+    """pts f32 [N, 3] (invalid rows parked far away), rows i32 [R] in [0, N)
+    -> (d2 f32 [R, M], idx i32 [R, M]): for each query row and bin b < M, the
+    least ((dx*dx + dy*dy) + dz*dz) over the columns j = b, b + M, ... (j !=
+    the row where ``exclude_self``: its d2 is +inf) and its column, the
+    lowest on ties; (+inf, b) where no column of the bin is finite."""
+    n = pts.shape[0]
+    cols = torch.arange(n, device=pts.device)
+    step = max(1, (_ROWS_CUDA if pts.is_cuda else _ROWS) // max(1, n))
+    d2s, idxs = [], []
+    for s in range(0, rows.shape[0], step):
+        rr = rows[s:s + step].long()
+        d2 = sq_dist(pts[rr][:, None, :], pts[None, :, :])
+        if exclude_self:
+            d2.masked_fill_(rr[:, None] == cols[None, :], float("inf"))
+        d, i = bin_minima(d2, m)
+        d2s.append(d)
+        idxs.append(i)
+    if not d2s:
+        return (torch.zeros((0, m), dtype=torch.float32, device=pts.device),
+                torch.zeros((0, m), dtype=torch.int32, device=pts.device))
+    return torch.cat(d2s), torch.cat(idxs)
+
+
+def knn_binmin(pts: torch.Tensor, rows: torch.Tensor, m: int, exclude_self: bool = True):
+    """Each bin's nearest column for the query rows (see knn_binmin_plain):
+    the partial reduce of a binned k-NN selection; a top-k over the M
+    winners of a row (``knn._knn_binned``) is the selection.
+
+    No Pallas original: the JAX package selects with XLA's
+    ``lax.approx_min_k`` outside any Pallas kernel (ops/knn.py:188, 260;
+    ops/pointcloud.py:418), the TPU's PartialReduce beside the distance
+    math. ``knn_binmin_kernel`` does the same on the card: the distances and
+    the bin minima stay in registers, only the [R, M] winners are written.
+    Bound by operations, ~10 issued instructions a (row, column) pair, R x N
+    pairs. One launch; the row indices are checked against N first (one
+    host sync)."""
+    if _on_cpu(pts, rows):
+        return knn_binmin_plain(pts, rows, m, exclude_self)
+    n, r = pts.shape[0], rows.shape[0]
+    _check(pts, "pts", torch.float32, (n, 3))
+    _check(rows, "rows", torch.int32, (r,))
+    if not 1 <= m <= n or n > _BINMIN_MAX_N or -(-m // 32) > 65535:
+        raise ValueError(f"knn_binmin: M = {m} bins over N = {n} columns is outside "
+                         f"1 <= M <= N <= {_BINMIN_MAX_N}")
+    d2 = torch.empty((r, m), dtype=torch.float32, device=pts.device)
+    idx = torch.empty((r, m), dtype=torch.int32, device=pts.device)
+    if r:
+        lo, hi = (int(v) for v in torch.aminmax(rows))
+        if lo < 0 or hi >= n:
+            raise IndexError(f"knn_binmin: query rows span [{lo}, {hi}], outside [0, {n})")
+        _launch("slscan_knn_binmin", pts.device, pts.data_ptr(), rows.data_ptr(), r, n,
+                int(m), int(bool(exclude_self)), d2.data_ptr(), idx.data_ptr())
+        _count(knn_binmin)
+    return d2, idx
+
+
 KERNELS = (decode_maps, decode_packed_maps, scan_fused, nn1, ransac_score,
-           knn_mean, slab_mean_knn, radius_count)
+           knn_mean, slab_mean_knn, radius_count, knn_binmin)
 
 
 def reset_launch_counts() -> None:

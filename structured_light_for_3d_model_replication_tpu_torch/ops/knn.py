@@ -1,19 +1,41 @@
-"""Nearest-neighbour primitives of the merge path.
-
-The port's counterpart of the JAX package's ``ops/knn.py``, cut to what the
-merge reads:
+"""Nearest-neighbour primitives: the JAX package's ``ops/knn.py``.
 
   sq_dist           squared distances by coordinate differences
-  knn               exact k nearest valid neighbours, blocked ``torch.topk``
-                    over (difference distance, index) keys, at any N
-                    (feature prep, normals, the cluster step's k-NN graph)
-  radius_count      valid neighbours within a radius, the ``radius_count``
-                    kernel at any N (the clean chain's cluster and radius
-                    steps)
+  knn               k nearest valid neighbours, by the JAX package's engine
+                    for the device and the size (below)
+  knn_dense_approx  the large-N card engine: the binned selection at
+                    ``recall_target``
+  radius_count      valid neighbours within a radius: the ``radius_count``
+                    kernel on the card at every N, its plain version on the
+                    CPU up to _BRUTE_MAX rows, the host grid above
   kdtree_build,     scipy ``cKDTree`` on the host: the exact complement of
   kdtree_distances_rows  the outlier pass's uncertified rows
   knn_np,           the same on numpy arrays (cKDTree), the numpy backend's
   radius_count_np   clean chain (``pointcloud.clean_chain_np``)
+
+``knn`` takes the JAX package's engine (its ``ops/knn.py:91-142``):
+
+  N <= _BRUTE_MAX or exact=True, selector "topk"
+                    exact blocked ``torch.topk`` over (difference distance,
+                    index) keys, on either device;
+  the same with selector "approx:<recall>"
+                    the binned selection at that recall: the ``knn_binmin``
+                    kernel on the card, its plain version on the CPU;
+  N > _BRUTE_MAX, not exact
+                    on the card ``knn_dense_approx`` (the binned selection
+                    at ``recall_target``); on the CPU the grid hash
+                    (``ops/grid.py``), its cell sized from the mean density
+                    and searched 2 rings deep.
+
+The binned selection (``_knn_binned``) is XLA's ApproxTopK done by hand:
+``kernels.knn_binmin`` gives each row's nearest column in each of M strided
+bins (bin b: columns b, b + M, ...), then a top-k over the M winners keyed
+by (d2 bits, index) gives k neighbours ascending, lowest index first on
+ties. M comes from the ApproxTopK recall model (``kernels.binmin_bins``),
+so a row's recall is the model's over its whole column set in one pass; a
+miss swaps in a farther neighbour, so the k-th distance is never below the
+exact one. A row's result depends on its own distances and M alone, not on
+the chunk that computed it or on parked padding rows.
 
 Every selection here and in the kernels runs on difference distances, so
 the JAX package's recompute of the |q|^2+|b|^2-2q.b selection
@@ -25,12 +47,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["FAR", "sq_dist", "knn", "radius_count", "kdtree_build",
+__all__ = ["FAR", "sq_dist", "knn", "knn_dense_approx", "radius_count", "kdtree_build",
            "kdtree_distances_rows", "knn_np", "radius_count_np"]
 
 FAR = 1e9  # coordinate of invalid/padded points: far from everything
 _BLOCK = 1 << 22  # elements of one [queries, base] distance block
 _BLOCK_CUDA = 1 << 26  # on the card: fewer, larger launches, the same result
+_BRUTE_MAX = 65536  # above this many rows knn and radius_count leave the brute engines
+_BINNED = 1 << 22       # [rows, M] bin winners a binned chunk on the CPU
+_BINNED_CUDA = 1 << 26  # and on the card
 
 
 def _parked(points: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -82,18 +107,72 @@ def _smallest_keys(d2: torch.Tensor, kk: int):
     return key, v[:, kk] == v[:, kk - 1]
 
 
-def knn(points: torch.Tensor, valid: torch.Tensor, k: int,
-        exclude_self: bool = True):
+def knn(points: torch.Tensor, valid: torch.Tensor, k: int, exclude_self: bool = True,
+        exact: bool = False, recall_target: float = 0.99, selector: str = "topk"):
     """k nearest valid neighbours of every point: (idx i32 [N, k], d2 f32
-    [N, k]) ascending, exact at every size (the JAX package's ``"topk"``
-    selector). Query blocks against the whole cloud, ``torch.topk`` per
-    block: the distance block is [block, N], never [N, N]. Neighbours are
-    ordered by (d2, index): on exact ties the lowest index comes first, the
-    order of ``lax.top_k`` in the JAX package and of the ``nn1`` kernel.
-    Valid rows where a tie crosses the k-th place take a top-k over all
-    their (d2, index) keys, after one host sync for the whole call. Rows of
-    invalid points hold arbitrary (masked) results; fewer than k other rows
-    leave +inf slots."""
+    [N, k]) ascending. Rows of invalid points hold arbitrary (masked)
+    results; fewer than k other rows leave +inf slots.
+
+    The engine follows the JAX package's dispatch by device and size (see
+    the module notes): up to _BRUTE_MAX rows, or with ``exact``, the brute
+    engine with ``selector`` "topk" (exact) or "approx:<recall>" (the
+    binned selection at that per-row recall, re-sorted ascending); above,
+    ``knn_dense_approx`` at ``recall_target`` on the card and the 2-ring
+    grid hash on the CPU, which is exact wherever the k-th neighbour lies
+    within 2 cell rings and otherwise overestimates distances (never
+    underestimates)."""
+    engine = _knn_engine(points.device, points.shape[0], exact, selector)
+    if engine == "exact":
+        return _knn_exact(points, valid, k, exclude_self)
+    if engine == "binned":
+        return _knn_binned(points, valid, k, exclude_self, _selector_recall(selector))
+    if engine == "dense_approx":
+        return knn_dense_approx(points, valid, k, exclude_self, recall_target)
+    from structured_light_for_3d_model_replication_tpu_torch.ops import grid as gridlib
+
+    pts = points.to(torch.float32)
+    inf = torch.tensor(float("inf"), device=pts.device)
+    lo = torch.where(valid[:, None], pts, inf).amin(0)
+    hi = torch.where(valid[:, None], pts, -inf).amax(0)
+    ext = (hi - lo).numpy().astype(np.float64)
+    nv = max(int(valid.sum()), 1)
+    vol = float(np.prod(np.maximum(ext, 1e-6)))
+    # the cell from the mean density, searched 2 rings deep: covers the
+    # k-neighbourhood even where local density runs well below the mean
+    cell = 1.2 * (vol * max(k, 8) / nv) ** (1.0 / 3.0)
+    return gridlib.grid_knn(gridlib.build_grid(pts, valid, cell), k, exclude_self, rings=2)
+
+
+def _knn_engine(device: torch.device, n: int, exact: bool, selector: str) -> str:
+    """knn's engine for a tensor on ``device`` with n rows: "exact",
+    "binned", "dense_approx" (the card above _BRUTE_MAX) or "grid" (the CPU
+    above _BRUTE_MAX)."""
+    if n <= _BRUTE_MAX or exact:
+        return "exact" if selector == "topk" else "binned"
+    return "grid" if device.type == "cpu" else "dense_approx"
+
+
+def _radius_engine(device: torch.device, n: int) -> str:
+    """radius_count's engine: the "kernel" (its plain version on the CPU),
+    or the "grid" for a CPU tensor above _BRUTE_MAX rows."""
+    return "grid" if device.type == "cpu" and n > _BRUTE_MAX else "kernel"
+
+
+def _selector_recall(selector: str) -> float:
+    kind, _, recall = selector.partition(":")
+    if kind != "approx" or not recall:
+        raise ValueError(f"unknown selector {selector!r} (topk | approx:<recall>)")
+    return float(recall)
+
+
+def _knn_exact(points: torch.Tensor, valid: torch.Tensor, k: int, exclude_self: bool):
+    """The exact brute engine (the JAX package's "topk" selector). Query
+    blocks against the whole cloud, ``torch.topk`` per block: the distance
+    block is [block, N], never [N, N]. Neighbours are ordered by (d2,
+    index): on exact ties the lowest index comes first, the order of
+    ``lax.top_k`` in the JAX package and of the ``nn1`` kernel. Valid rows
+    where a tie crosses the k-th place take a top-k over all their (d2,
+    index) keys, after one host sync for the whole call."""
     n = points.shape[0]
     pts = _parked(points, valid)
     kk = min(k, n)
@@ -120,12 +199,60 @@ def knn(points: torch.Tensor, valid: torch.Tensor, k: int,
                                 sorted=True).values
     else:
         key = torch.zeros((0, kk), dtype=torch.int64, device=points.device)
+    return _unkey(key, k, n)
+
+
+def _unkey(key: torch.Tensor, k: int, n: int):
+    """(d2 bits << 32 | index) keys [N, kk] -> (idx i32 [N, k], d2 f32
+    [N, k]), slots past kk empty (index 0, +inf)."""
     idx = (key & 0xFFFFFFFF).to(torch.int32)
     d2 = (key >> 32).to(torch.int32).view(torch.float32)
+    kk = key.shape[1]
     if kk < k:  # fewer rows than k: pad with empty slots
         idx = torch.cat([idx, idx.new_zeros((n, k - kk))], 1)
         d2 = torch.cat([d2, d2.new_full((n, k - kk), float("inf"))], 1)
     return idx, d2
+
+
+def _knn_binned(points: torch.Tensor, valid: torch.Tensor, k: int, exclude_self: bool,
+                recall: float):
+    """The binned selection at per-row ``recall`` (module notes): row chunks
+    of [chunk, M] bin winners from ``kernels.knn_binmin``, then the k
+    smallest (d2 bits, index) keys of each row, ascending. Misses only
+    swap in a farther neighbour (the k-th distance never drops below the
+    exact one). With M = N (``recall`` 1.0, or N at most the model's M)
+    every column is its own bin and the exact engine computes the same
+    selection."""
+    from structured_light_for_3d_model_replication_tpu_torch.ops import kernels
+
+    n = points.shape[0]
+    if n == 0:
+        return (torch.zeros((0, k), dtype=torch.int32, device=points.device),
+                torch.zeros((0, k), dtype=torch.float32, device=points.device))
+    m = kernels.binmin_bins(n, k, recall)
+    if m == n:   # every column its own bin: the exact engine's selection
+        return _knn_exact(points, valid, k, exclude_self)
+    pts = _parked(points, valid).contiguous()
+    kk = min(k, m)
+    chunk = max(1, (_BINNED_CUDA if pts.is_cuda else _BINNED) // m)
+    rows = torch.arange(n, dtype=torch.int32, device=pts.device)
+    keys = []
+    for s in range(0, n, chunk):
+        d2, idx = kernels.knn_binmin(pts, rows[s:s + chunk], m, exclude_self)
+        keys.append(torch.topk(_keys(d2, idx.to(torch.int64)), kk, dim=1, largest=False,
+                               sorted=True).values)
+    return _unkey(torch.cat(keys), k, n)
+
+
+def knn_dense_approx(points: torch.Tensor, valid: torch.Tensor, k: int,
+                     exclude_self: bool = True, recall_target: float = 0.99):
+    """Large-N k-NN for the card (the JAX package's ``knn_dense_approx``):
+    every row against the whole cloud, selected by the binned selection at
+    ``recall_target`` per row (``_knn_binned``; the JAX package's
+    ``lax.approx_min_k``). Distances are exact difference distances; only
+    the selection is approximate, and a miss only overestimates the k-th
+    neighbour. No padding: a row's result does not depend on its chunk."""
+    return _knn_binned(points, valid, k, exclude_self, recall_target)
 
 
 def radius_count(points: torch.Tensor, valid: torch.Tensor, radius: float,
@@ -135,9 +262,25 @@ def radius_count(points: torch.Tensor, valid: torch.Tensor, radius: float,
     coordinate differences. Invalid rows are parked at ``FAR``, so they are
     nobody's neighbour; their own counts are meaningless. One
     ``kernels.radius_count`` launch on the card at every N, its plain
-    version on the CPU. ``exclude_self=False`` counts the point itself."""
+    version on the CPU up to _BRUTE_MAX rows; above, a CPU tensor takes the
+    grid hash with cell = radius, the cell halved and the rings doubled
+    while a cell holds more than 128 points (exact either way: rings * cell
+    >= radius). ``exclude_self=False`` counts the point itself."""
     from structured_light_for_3d_model_replication_tpu_torch.ops import kernels
 
+    if _radius_engine(points.device, points.shape[0]) == "grid":
+        from structured_light_for_3d_model_replication_tpu_torch.ops import grid as gridlib
+
+        pts = points.to(torch.float32)
+        cell, rings = float(radius), 1
+        for _ in range(4):
+            occ = gridlib.max_occupancy(pts, valid, cell)
+            if occ <= 128 or rings >= 8:
+                break
+            cell *= 0.5
+            rings *= 2
+        grid = gridlib.build_grid(pts, valid, cell, max_occ=min(occ, 128))
+        return gridlib.grid_radius_count(grid, radius, exclude_self, rings=rings)
     counts = kernels.radius_count(_parked(points, valid).contiguous(), float(radius))
     return counts if exclude_self else counts + 1
 

@@ -11,7 +11,12 @@ and the radius step) is a CUDA kernel on the card at every size.
 
 ``statistical_outlier_mask`` follows Open3D's statistics exactly: mean
 distance to the k nearest neighbours, keep rows within mu + std_ratio *
-sigma. Its engine is ``_voxelized_knn_mean_dist``:
+sigma. It routes as the JAX package does. A CPU tensor above DENSE_MAX rows
+takes the cKDTree twin (``statistical_outlier_mask_np``, the JAX package's
+host arm). ``approximate=True`` without a cell hint sends a card tensor
+above DENSE_MAX rows through ``knn.knn`` at recall 0.99 (above
+``knn._BRUTE_MAX`` rows the binned selection). Everything else takes
+``_voxelized_knn_mean_dist``:
 
   dense   clouds of <= 32768 rows: every row against every row, the
           ``knn_mean`` kernel;
@@ -24,8 +29,14 @@ Rows the engine leaves uncertified (+inf: cloud boundary, true outliers,
 fewer than k neighbours) get their exact value from a host cKDTree. Without
 a cell hint, a cloud above 32768 rows takes its cell from the median
 nearest-neighbour spacing (``_estimate_spacing``), as the JAX package's
-accelerator arm does, on either device. The JAX package's other selectors
-(the jnp top_k engines and their tuner arms) are not ported.
+accelerator arm does.
+
+``_voxelized_knn_mean_dist`` also keeps the JAX package's jnp top-k slab
+engine (``_slab_topk_engine``: each ``tile`` of sorted queries against one
+``window`` of sorted candidates, in plain torch) with its selectors topk,
+tournament, iter, approx1 and the diagnostic nosel. A caller reaches it with
+an explicit ``tile``/``window`` under the "auto" selector, or by naming one
+of those selectors.
 
 ``clean_chain_np`` is the numpy backend's chain: the same masked steps on
 the host over numpy arrays (cKDTree neighbours, a region-growing DBSCAN,
@@ -52,6 +63,8 @@ __all__ = ["voxel_downsample", "statistical_outlier_mask", "DENSE_MAX",
 DENSE_MAX = 32768     # the dense engine's largest cloud
 _SLAB_FAR = 3e9
 _SLAB_TILE, _SLAB_WBLK = 64, 8192
+_TOPK_TILE, _TOPK_WINDOW = 1024, 8192   # the top-k slab engine's defaults
+_TOPK_SELECTORS = ("topk", "tournament", "iter", "approx1", "nosel")
 
 
 # ---------------------------------------------------------------------------
@@ -73,13 +86,47 @@ def _stat_outlier_from_knn(mean_d: torch.Tensor, valid: torch.Tensor,
 
 def statistical_outlier_mask(points: torch.Tensor, valid: torch.Tensor,
                              nb_neighbors: int = 20, std_ratio: float = 2.0,
-                             voxelized_cell: float | None = None) -> torch.Tensor:
+                             voxelized_cell: float | None = None,
+                             approximate: bool = False) -> torch.Tensor:
     """Keep-mask [N] for statistical outlier removal (Open3D semantics).
     ``voxelized_cell``: the voxel size when ``points`` just came out of
-    voxel_downsample(cell); it sets the slab engine's certification radius."""
+    voxel_downsample(cell); it sets the slab engine's certification radius.
+    ``approximate``: on the card without a cell, above DENSE_MAX rows, the
+    neighbours come from ``knn.knn`` at recall 0.99 (a miss only
+    overestimates a row's mean).
+    A CPU tensor above DENSE_MAX rows takes the cKDTree twin, whatever the
+    options (the JAX package's host arm)."""
     n = points.shape[0]
     if n == 0:
         return torch.zeros(0, dtype=torch.bool, device=points.device)
+    engine = _stat_engine(points.device, n, approximate, voxelized_cell)
+    if engine == "host_twin":
+        return torch.from_numpy(statistical_outlier_mask_np(
+            points.detach().to(torch.float32).numpy(), valid.numpy(), nb_neighbors,
+            std_ratio))
+    if engine == "knn":
+        _, d2 = knnlib.knn(points, valid, nb_neighbors, recall_target=0.99)
+        mean_d = kernels.sqrt_f32(torch.clamp_min(d2, 0.0)).mean(1)
+        return _stat_outlier_from_knn(mean_d, valid, std_ratio)
+    return _engine_mask(points, valid, nb_neighbors, std_ratio, voxelized_cell)
+
+
+def _stat_engine(device: torch.device, n: int, approximate: bool,
+                 cell: float | None) -> str:
+    """statistical_outlier_mask's engine (the JAX package's routing):
+    "host_twin" for a CPU tensor above DENSE_MAX rows; "knn" for
+    ``approximate`` without a cell on the card above DENSE_MAX rows; else
+    "engine" (dense or bisect, and the host complement)."""
+    if device.type == "cpu":
+        return "host_twin" if n > DENSE_MAX else "engine"
+    return "knn" if approximate and cell is None and n > DENSE_MAX else "engine"
+
+
+def _engine_mask(points: torch.Tensor, valid: torch.Tensor, nb_neighbors: int,
+                 std_ratio: float, voxelized_cell: float | None) -> torch.Tensor:
+    """The mask from ``_voxelized_knn_mean_dist`` (dense or bisect) and the
+    host complement of its uncertified rows: the card's arm, on any device."""
+    n = points.shape[0]
     cell = voxelized_cell
     if cell is None:
         # 4 * (0.75 * spacing) = 3x the spacing covers the 20th neighbour of
@@ -144,12 +191,17 @@ def _voxelized_knn_mean_dist(points: torch.Tensor, valid: torch.Tensor,
                              window: int | None = None,
                              selector: str = "auto") -> torch.Tensor:
     """Mean distance to the k nearest neighbours, +inf on rows the engine
-    cannot certify. ``selector``: "dense", "bisect" or "auto" (dense up to
-    DENSE_MAX rows, else bisect at tile 64, window 8192)."""
+    cannot certify. ``selector``: "dense", "bisect", one of the top-k slab
+    engine's (_TOPK_SELECTORS), or "auto": with no ``tile``/``window``,
+    dense up to DENSE_MAX rows, else bisect at tile 64, window 8192; with
+    either given, the top-k slab engine (those are its geometry)."""
     pts = points.to(torch.float32)
     n = pts.shape[0]
     if selector == "auto":
-        selector = "dense" if n <= DENSE_MAX else "bisect"
+        if tile is None and window is None:
+            selector = "dense" if n <= DENSE_MAX else "bisect"
+        else:
+            selector = "topk"
     if selector == "dense":
         parked = torch.where(valid[:, None], pts,
                              torch.tensor(knnlib.FAR, dtype=torch.float32,
@@ -158,12 +210,100 @@ def _voxelized_knn_mean_dist(points: torch.Tensor, valid: torch.Tensor,
         cnt = torch.where(valid, cnt, torch.zeros_like(cnt))
         return torch.where(valid & (cnt >= k), md,
                            torch.tensor(float("inf"), device=pts.device))
+    if selector in _TOPK_SELECTORS:
+        return _slab_topk_engine(pts, valid, cell, k, tile or _TOPK_TILE,
+                                 window or _TOPK_WINDOW, selector)
     if selector != "bisect":
-        raise ValueError(f"unknown selector {selector!r} (dense|bisect|auto)")
+        raise ValueError(f"unknown selector {selector!r} "
+                         f"(auto|dense|bisect|{'|'.join(_TOPK_SELECTORS)})")
     tile, wblk = tile or _SLAB_TILE, window or _SLAB_WBLK
     pts_s, order, r = _slab_inputs(pts, valid, cell, wblk)
     md, cnt, win_end = kernels.slab_mean_knn(pts_s, r, k, tile=tile, wblk=wblk)
     return _slab_certify(pts_s, order, md, cnt, win_end, r, k)
+
+
+def _slab_topk_engine(pts: torch.Tensor, valid: torch.Tensor, cell: float, k: int,
+                      tile: int, window: int, selector: str) -> torch.Tensor:
+    """The JAX package's jnp top-k slab engine (``_slab_knn_mean_dist_jit``)
+    in plain torch: the widest axis first, rows sorted by it (invalid rows
+    at _SLAB_FAR), padded to L = max(tile multiple, window); tile t's
+    queries against the ``window`` sorted candidates from the searchsorted
+    start of its first x minus r (r = f32(4 * cell)), clipped to [0, L -
+    window). Self excluded by sorted index. A row is certified when its k
+    selected distances are <= r^2, the window reaches x + r (the left edge
+    holds by construction) and it is real; others get +inf.
+
+    Selection runs on difference distances (the JAX package selects on the
+    |q|^2+|b|^2-2q.b expansion and recomputes, so near-ties may pick other
+    columns there), by (d2, column) keys: "topk" a top-k; "tournament"
+    (window % 128 == 0, k <= 128; else topk) the k best of each 128-column
+    group, then the k best of those; "iter" k passes of min-extraction;
+    "approx1" the binned selection at recall 1.0 (each column its own bin:
+    exact). All four give the same columns. "nosel" is a DIAGNOSTIC ONLY:
+    it skips selection and takes the window's first k columns, WRONG by
+    construction, to isolate the selector's share of the engine's cost."""
+    dev = pts.device
+    lo, hi = _masked_extent(pts, valid)
+    ax = int(torch.argmax(torch.nan_to_num(hi - lo)))
+    pts = pts[:, [ax, (ax + 1) % 3, (ax + 2) % 3]]
+    n = pts.shape[0]
+    L = max(-(-n // tile) * tile, window)
+    r = torch.tensor(4.0 * float(cell), dtype=torch.float32, device=dev)
+    far = torch.tensor(_SLAB_FAR, dtype=torch.float32, device=dev)
+    x = torch.where(valid, pts[:, 0], torch.tensor(float("inf"), device=dev))
+    order = torch.sort(x, stable=True).indices
+    pts_s = torch.where(valid[order][:, None], pts[order], far)
+    if L > n:
+        pts_s = torch.cat([pts_s, far.expand(L - n, 3)])
+    x_s = pts_s[:, 0].contiguous()
+    n_tiles = L // tile
+    first_x = x_s[torch.arange(n_tiles, device=dev) * tile]
+    starts = torch.clamp(torch.searchsorted(x_s, first_x - r), 0, L - window).tolist()
+    rows = torch.arange(tile, device=dev)
+    cols = torch.arange(window, device=dev)
+    md_s = torch.empty(L, dtype=torch.float32, device=dev)
+    for t, start in enumerate(starts):
+        q = pts_s[t * tile:(t + 1) * tile]
+        cand = pts_s[start:start + window]
+        if selector == "nosel":
+            jidx = cols[:k].expand(tile, k)
+        else:
+            d2 = knnlib._sq_dist_block(q, cand)
+            d2.masked_fill_((t * tile + rows)[:, None] == (start + cols)[None, :],
+                            float("inf"))
+            key = knnlib._keys(d2, cols)
+            jidx = _slab_select(key, k, selector, window) & 0xFFFFFFFF
+        kd2 = knnlib.sq_dist(q[:, None, :], cand[jidx])
+        md = kernels.sqrt_f32(kd2).mean(1)
+        qx = q[:, 0]
+        right_ok = (start + window >= L) | (x_s[start + window - 1] >= qx + r)
+        cert = (kd2.amax(1) <= r * r) & right_ok & (qx < far)
+        md_s[t * tile:(t + 1) * tile] = torch.where(cert, md, torch.full_like(md, float("inf")))
+    out = torch.full((n,), float("inf"), dtype=torch.float32, device=dev)
+    out[order] = md_s[:n]
+    return out
+
+
+def _slab_select(key: torch.Tensor, k: int, selector: str, window: int) -> torch.Tensor:
+    """The k smallest (d2 bits << 32 | column) keys of each row of [tile,
+    window], ascending, by the named selector's method."""
+    if selector == "iter":
+        key = key.clone()
+        out = []
+        for _ in range(k):
+            i = torch.argmin(key, 1, keepdim=True)
+            out.append(torch.gather(key, 1, i))
+            key.scatter_(1, i, torch.iinfo(torch.int64).max)
+        return torch.cat(out, 1)
+    if selector == "approx1":
+        d2 = (key >> 32).to(torch.int32).view(torch.float32)
+        d, j = kernels.bin_minima(d2, kernels.binmin_bins(window, k, 1.0))
+        key = knnlib._keys(d, j.to(torch.int64))
+    if selector == "tournament" and window % 128 == 0 and k <= 128:
+        g = torch.topk(key.view(key.shape[0], window // 128, 128), k, dim=2, largest=False,
+                       sorted=True).values
+        key = g.reshape(key.shape[0], -1)
+    return torch.topk(key, k, dim=1, largest=False, sorted=True).values
 
 
 def _slab_inputs(points: torch.Tensor, valid: torch.Tensor, cell: float, wblk: int):
@@ -330,31 +470,50 @@ def segment_plane(points: torch.Tensor, valid: torch.Tensor,
 # Density clustering -> largest cluster
 # ---------------------------------------------------------------------------
 
+def _lap(timings: dict | None, key: str, t0: float, dev: torch.device) -> float:
+    """Add the wall since t0 to timings[key] (the device synchronized
+    first); returns the time now. No-op without timings."""
+    if timings is None:
+        return t0
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    now = time.perf_counter()
+    timings[key] = timings.get(key, 0.0) + now - t0
+    return now
+
+
 def cluster_labels(points: torch.Tensor, valid: torch.Tensor, eps: float = 5.0,
-                   min_points: int = 200, k: int = 16,
-                   max_iters: int = 200) -> torch.Tensor:
+                   min_points: int = 200, k: int = 16, max_iters: int = 200,
+                   timings: dict | None = None) -> torch.Tensor:
     """DBSCAN-style labels i32 [N] by min-label propagation on the k-NN
     graph: core points (>= min_points neighbours within eps) pass the
     minimum label across core-to-core edges shorter than eps until nothing
     changes (at most ``max_iters`` rounds, one host sync a round); border
     points take the least label among their in-eps core neighbours; the
     rest are noise (-1). The JAX package's fixed-shape formulation of
-    Open3D's cluster_dbscan, label for label."""
+    Open3D's cluster_dbscan, label for label. ``timings``: the k-NN graph's,
+    the core count's and the label rounds' walls are added to
+    ``clean_cluster_{knn,core,rounds}_s`` and the round count to
+    ``clean_cluster_rounds`` (the device synchronized at each)."""
     n = points.shape[0]
     dev = points.device
     if n == 0:
         return torch.zeros(0, dtype=torch.int32, device=dev)
+    t0 = time.perf_counter()
     idx, d2 = knnlib.knn(points, valid, k)
+    t0 = _lap(timings, "clean_cluster_knn_s", t0, dev)
     idx = idx.long()
     eps2 = kernels._sq_f32(eps).to(dev)
     core = valid & (knnlib.radius_count(points, valid, eps) >= min_points)
+    t0 = _lap(timings, "clean_cluster_core_s", t0, dev)
     edge_ok = (d2 <= eps2) & valid[idx] & valid[:, None]
     none = torch.tensor(n, dtype=torch.int64, device=dev)
     labels = torch.where(core, torch.arange(n, device=dev), none)
     cc_edge = edge_ok & core[idx] & core[:, None]
     flat_idx = idx.reshape(-1)
     push_ok = cc_edge.reshape(-1)
-    for _ in range(max_iters):
+    rounds = 0
+    for rounds in range(1, max_iters + 1):
         pulled = torch.minimum(labels, torch.where(cc_edge, labels[idx], none).min(1).values)
         push_val = torch.where(push_ok, labels.repeat_interleave(idx.shape[1]), none)
         pushed = torch.full((n,), n, dtype=torch.int64, device=dev).scatter_reduce(
@@ -367,17 +526,21 @@ def cluster_labels(points: torch.Tensor, valid: torch.Tensor, eps: float = 5.0,
     neigh_core = torch.where(edge_ok & core[idx], labels[idx], none)
     border = torch.where(valid & ~core, neigh_core.min(1).values, none)
     final = torch.where(core, labels, border)
-    return torch.where(final >= n, -1, final).to(torch.int32)
+    out = torch.where(final >= n, -1, final).to(torch.int32)
+    _lap(timings, "clean_cluster_rounds_s", t0, dev)
+    if timings is not None:
+        timings["clean_cluster_rounds"] = timings.get("clean_cluster_rounds", 0) + rounds
+    return out
 
 
 def largest_cluster_mask(points: torch.Tensor, valid: torch.Tensor,
                          eps: float = 5.0, min_points: int = 200,
-                         k: int = 16) -> torch.Tensor:
+                         k: int = 16, timings: dict | None = None) -> torch.Tensor:
     """Keep-mask of the most populated cluster (the lowest label on ties)."""
     n = points.shape[0]
     if n == 0:
         return torch.zeros(0, dtype=torch.bool, device=points.device)
-    labels = cluster_labels(points, valid, eps, min_points, k).long()
+    labels = cluster_labels(points, valid, eps, min_points, k, timings=timings).long()
     sizes = torch.bincount(labels[labels >= 0], minlength=n)
     return valid & (labels == torch.argmax(sizes))
 
@@ -415,7 +578,8 @@ def chain_params(cfg, steps=CLEAN_STEPS) -> tuple:
     return tuple(params)
 
 
-def _chain_step(points, valid, step: str, kw: dict, samples=None) -> torch.Tensor:
+def _chain_step(points, valid, step: str, kw: dict, samples=None,
+                timings: dict | None = None) -> torch.Tensor:
     """One masked step: the survivors stay where they are, the mask narrows."""
     if step == "background":
         _, inliers = segment_plane(points, valid, kw["dist"], kw["trials"],
@@ -423,7 +587,7 @@ def _chain_step(points, valid, step: str, kw: dict, samples=None) -> torch.Tenso
         return valid & ~inliers
     if step == "cluster":
         return largest_cluster_mask(points, valid, eps=kw["eps"],
-                                    min_points=kw["min_points"])
+                                    min_points=kw["min_points"], timings=timings)
     if step == "radius":
         return valid & radius_outlier_mask(points, valid, kw["radius"], kw["nb_points"])
     return valid & statistical_outlier_mask(points, valid, kw["nb"], kw["std"])
@@ -437,7 +601,8 @@ def clean_chain(points: torch.Tensor, valid: torch.Tensor, cfg,
     even after one empties the cloud (the caller aborts at a zero count).
     ``samples``: the background step's [T, 3] draws (tests inject the JAX
     package's). ``timings``: each step's host wall is added to
-    ``clean_<step>_s`` (its count read back after it, a host sync)."""
+    ``clean_<step>_s`` (its count read back after it, a host sync), and the
+    cluster step's split (``cluster_labels``)."""
     params = chain_params(cfg, steps)
     n = points.shape[0]
     if n == 0 or not params:
@@ -447,7 +612,7 @@ def clean_chain(points: torch.Tensor, valid: torch.Tensor, cfg,
     v = valid
     for step, kw in params:
         t0 = time.perf_counter()
-        v = _chain_step(points, v, step, dict(kw), samples)
+        v = _chain_step(points, v, step, dict(kw), samples, timings)
         masks.append(v)
         counts.append(v.sum())
         if timings is not None:

@@ -19,11 +19,12 @@ noise, made with numpy from a seed. Tolerances:
 - transform_views_batched against the numpy twin _transform_view_np:
   within 1e-4 mm (one f32 rounding of a ~100 mm coordinate is ~1e-5 mm; the
   port fixes its own summation order, numpy's matmul may fuse);
-- the outlier pass on a cloud above 32768 rows (the slab engine + cKDTree
-  complement) against the JAX package's statistical_outlier_mask_np: at most
-  2 rows differ (f32 vs f64 ties at the threshold, the JAX package's own
-  bound, tests/test_pointcloud_ops.py:342), with the voxel cell given and
-  with it estimated from the spacing;
+- the outlier pass on a cloud above 32768 rows against the JAX package's
+  statistical_outlier_mask_np: a CPU tensor takes that twin (equal bit for
+  bit); the card's arm (the slab engine + cKDTree complement, run on the
+  CPU) differs on at most 2 rows (f32 vs f64 ties at the threshold, the
+  JAX package's own bound, tests/test_pointcloud_ops.py:342), with the
+  voxel cell given and with it estimated from the spacing;
 - the spacing estimate against the JAX package's _estimate_spacing: rtol
   1e-5 (it selects on the expanded distance and recomputes, the port on
   exact differences).
@@ -243,20 +244,27 @@ def _large_voxelized_cloud():
 
 
 def test_outlier_mask_above_the_dense_limit_matches_jax():
+    """A CPU tensor takes the cKDTree twin (the JAX package's host arm): equal
+    bit for bit. The card's arm (the slab engine and its complement, run
+    here on the CPU) with the cell given: at most 2 rows differ."""
     cloud, n_in = _large_voxelized_cloud()
     valid = np.ones(len(cloud), bool)
     m = pc.statistical_outlier_mask(torch.from_numpy(cloud), torch.from_numpy(valid),
                                     20, 2.0, voxelized_cell=1.0).numpy()
     ref = jpc.statistical_outlier_mask_np(cloud, valid, 20, 2.0)
-    assert not m[n_in:].any()
-    assert (m != ref).sum() <= 2
+    np.testing.assert_array_equal(m, ref)
+    card = pc._engine_mask(torch.from_numpy(cloud), torch.from_numpy(valid), 20, 2.0,
+                           1.0).numpy()
+    assert not card[n_in:].any()
+    assert (card != ref).sum() <= 2
 
 
 def test_outlier_mask_without_a_cell_estimates_the_spacing(monkeypatch):
-    """No cell hint above the dense limit: the spacing estimate sets the
-    slab engine's cell (the JAX package's accelerator arm) and the slab
-    engine, not the cKDTree alone, computes the mask; at most 2 rows differ
-    from the JAX package's, as with the hint."""
+    """No cell hint above the dense limit on the card's arm (run here on the
+    CPU): the spacing estimate sets the slab engine's cell (the JAX
+    package's accelerator arm) and the slab engine, not the cKDTree alone,
+    computes the mask; at most 2 rows differ from the JAX package's, as
+    with the hint."""
     cloud, n_in = _large_voxelized_cloud()
     valid = np.ones(len(cloud), bool)
     slab_rows = []
@@ -267,8 +275,8 @@ def test_outlier_mask_without_a_cell_estimates_the_spacing(monkeypatch):
         return real(pts, *a, **kw)
 
     monkeypatch.setattr(kernels, "slab_mean_knn", spy)
-    m = pc.statistical_outlier_mask(torch.from_numpy(cloud), torch.from_numpy(valid),
-                                    20, 2.0).numpy()
+    m = pc._engine_mask(torch.from_numpy(cloud), torch.from_numpy(valid), 20, 2.0,
+                        None).numpy()
     ref = jpc.statistical_outlier_mask_np(cloud, valid, 20, 2.0)
     assert slab_rows and slab_rows[0] >= len(cloud)
     assert not m[n_in:].any()
