@@ -273,7 +273,17 @@ Imports nothing of JAX. Phases, each of which exits non-zero on failure:
    the background step's survivors valid, 4,096 rows, k = 16, recall 0.99),
    each row's recall against the exact arm printed, the mean at least the
    target and every miss one-sided; timed at the 1080p shape beside its
-   plain version and torch.cdist + torch.topk. (b) ``run_pipeline`` over
+   plain version and torch.cdist + torch.topk, and at the main path's own
+   call, a 32,768-row contiguous chunk of that view's parked cloud, each
+   with the share of pairs the tensor-core screen sent to the exact confirm
+   and the rows it sent to the exact sweep; and equal bit for bit on
+   ``binmin_edge_cases``: exact duplicates, near-ties inside the screen's
+   margin, a cloud 1e4 mm from the origin, a tile of parked query rows and
+   all-parked bins, N not a multiple of M, M = 128 and 4096, self-exclusion
+   on and off, non-finite points; before them the tensor cores'
+   accumulation error on the screen's own mma.sync, within the margin's
+   kernels.BINMIN_ACC (``binmin_accumulation_probe``); the bound from the
+   design's work (``binmin_bound``). (b) ``run_pipeline`` over
    FLAGSHIP_VIEWS of phase 3's 1080p .slbp views with the default Config()
    at the render's projector size, cold: knn_binmin launched, per-view
    clean counts within 1 % of the JAX package's on the same views and the
@@ -281,8 +291,11 @@ Imports nothing of JAX. Phases, each of which exits non-zero on failure:
    (``FLAGSHIP_CLEAN_JAX``, tools/torch_flagship_reference.py); each clean
    step's wall a view (the cluster step's k-NN apart from its label
    rounds), the merge and mesh walls, the peak device memory, the launches,
-   the merged cloud's and the STL's distance to the sphere, and the exact
-   arm's k-NN on 65,536 rows scaled to the view, printed. (c) phase 7 runs
+   the screen's counts (rows screened, rows on the exact sweep, the confirm
+   share), the merged cloud's and the STL's distance to the sphere, the
+   exact arm's k-NN on 65,536 rows scaled to the view, and view 0's cluster
+   k-NN split into its knn_binmin calls and their stage-2 keyed top-k,
+   printed. (c) phase 7 runs
    the binned selection in feature prep (approx:0.95) and in the merged
    cloud's normals: knn_binmin launched in both of its runs, and the
    ``feature_group_gate``: one view's features prepped alone equal the same
@@ -316,6 +329,19 @@ OPS_PER_S = 67e12           # H100 SXM 32-bit non-tensor rate
 # must not contract into FMAs issue one instruction an operation, so this
 # rate, not OPS_PER_S, is what the pair kernels can reach
 LANE_INSTR_PER_S = 132 * 128 * 1.98e9
+TC_BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bf16 tensor-core rate
+# knn_binmin's work a screened (row, column) pair: one mma.sync.m16n8k16
+# (4096 flops) a 128 pairs in each of its two passes; and the CUDA-core lane
+# instructions its design cannot do without: pass 1's FMNMX (1), pass 2's
+# OR of the sign bits by three-input LOP3 (0.5), the two passes' MMA issues
+# (2 x 32 lanes / 128 pairs = 0.5) and B-fragment loads (2 x 2 LDS a warp
+# step of 512 pairs = 0.25). A confirm or an exact-sweep pair: the 9
+# operations of the difference d2, one instruction each
+BINMIN_SCREEN_FLOPS = 2 * 4096 / 128
+BINMIN_SCREEN_INSTR = 1 + 0.5 + 0.5 + 0.25
+BINMIN_EXACT_INSTR = 9
+# Phase 15(a)'s accumulation probe: tiles a family of operands
+PROBE_TILES = 4096
 RECON_VIEWS = 8
 RECON_BATCH = 4
 EXEC_VIEWS = 10       # phase 9(a): two batches of 4 and a ragged tail of 2
@@ -490,6 +516,8 @@ FLAGSHIP_VIEWS = 4
 # the exact arm's query subset, its time scaled to the view
 BINMIN_ROWS_VIEW = 4096
 BINMIN_ROWS_NORMALS = 16384
+# Phase 15(a): the points of binmin_edge_cases' clouds (2048 query rows each)
+BINMIN_CASE_POINTS = 200_000
 EXACT_ROWS = 65536
 BINMIN_REPLACES = ("structured_light_for_3d_model_replication_tpu/ops/knn.py:188 "
                    "(not a pallas_call: lax.approx_min_k, also knn.py:260 and "
@@ -633,6 +661,27 @@ def bound(nbytes: int, ops: int) -> tuple[float, str]:
 def issue_ceiling(instructions: int) -> float:
     """ms for that many lane instructions at LANE_INSTR_PER_S (no FMA)."""
     return instructions / LANE_INSTR_PER_S * 1e3
+
+
+def binmin_bound(n: int, r: int, m: int, st: dict) -> dict:
+    """knn_binmin's least time for one call (ms) from the screen's counts
+    ``st`` of that call (binmin_stats): the bytes (the cloud and the rows
+    read once, the [r, m] winners written once) over the memory rate; the
+    tensor cores' screen, BINMIN_SCREEN_FLOPS a screened pair, over the
+    dense bf16 rate; the CUDA cores' instructions, BINMIN_SCREEN_INSTR a
+    screened pair and BINMIN_EXACT_INSTR a confirm or exact-sweep pair, at
+    the issue rate. ``bound_ms`` is the largest, ``bound_unit`` which; the
+    CUDA-core yardstick is the old sweep's work, 9 operations every pair at
+    the 32-bit rate, as rows 6-10 count."""
+    pairs = st["screened_rows"] * n
+    terms = {"bytes": (n * 12 + r * 4 + r * m * 8) / MEM_BYTES_PER_S * 1e3,
+             "tensor cores": pairs * BINMIN_SCREEN_FLOPS / TC_BF16_FLOPS_PER_S * 1e3,
+             "CUDA-core issue": issue_ceiling(pairs * BINMIN_SCREEN_INSTR + BINMIN_EXACT_INSTR
+                                              * (st["confirms"] + st["exact_pairs"]))}
+    unit = max(terms, key=terms.get)
+    return {"bound_ms": terms[unit], "bound_by": "bytes" if unit == "bytes" else "operations",
+            "bound_unit": unit, "bound_terms_ms": terms,
+            "cuda_core_yardstick_ms": r * n * 9 / OPS_PER_S * 1e3}
 
 
 def render_views(rng_seed: int = 0):
@@ -2833,18 +2882,39 @@ def exact_keys(pts, rows, k: int):
     return torch.cat(out)
 
 
+def binmin_stats_delta(before: dict) -> dict:
+    """knn_binmin's screen counts since ``before`` (kernels.binmin_stats)."""
+    from structured_light_for_3d_model_replication_tpu_torch.ops import kernels
+
+    now = kernels.binmin_stats()
+    return {k: now[k] - before.get(k, 0) for k in now}
+
+
+def _confirm_share(st: dict, n: int) -> float | None:
+    """Confirms over the (screened row, column) pairs, n columns a row."""
+    pairs = st["screened_rows"] * n
+    return st["confirms"] / pairs if pairs else None
+
+
 def binmin_case(what: str, pts, rows, k: int, recall: float, card: str, extra: dict,
-                timed: bool = False) -> dict:
+                timed: bool = False, chunk_rows=None) -> dict:
     """knn_binmin on parked points and query rows at M = kernels.binmin_bins(N,
     k, recall): d2 and idx equal to the plain version bit for bit; the
     binned selection (the k smallest (d2, index) keys of a row's M winners,
     as knn._knn_binned takes them) against the exact arm's on those rows:
     each row's recall (the mean at least ``recall``) and each rank's
-    distance at or above the exact one (misses only overestimate). With
-    ``timed``, the kernel line: CUDA events (ms), torch.profiler's device
-    time, the plain version and the yardstick (torch.cdist then torch.topk
-    over the same rows), the bound at the issue ceiling (10 instructions a
-    pair) and the whole view's."""
+    distance at or above the exact one (misses only overestimate). The
+    screen's counts of the call (rows screened, rows on the exact sweep,
+    confirms and their share of the screened pairs). With ``timed``, the
+    kernel line: CUDA events (ms) around the wrapper as the main path calls
+    it (the screen's terms taken once a cloud, as ``knn._knn_binned`` takes
+    them; ``terms_ms`` their own events), torch.profiler's device time (the
+    kernel and its prep pass), the plain version, the library call
+    (torch.cdist then torch.topk over the same rows) and ``binmin_bound``
+    from the call's screen counts; with
+    ``chunk_rows`` the same times, counts and bound for the main path's own
+    call on those rows (its plain version is left out: linear in the rows,
+    it would take 8x the 4,096-row case's seconds)."""
     import torch
 
     from structured_light_for_3d_model_replication_tpu_torch.ops import kernels
@@ -2852,7 +2922,9 @@ def binmin_case(what: str, pts, rows, k: int, recall: float, card: str, extra: d
 
     n, r = pts.shape[0], rows.shape[0]
     m = kernels.binmin_bins(n, k, recall)
+    before = kernels.binmin_stats()
     kd, ki = kernels.knn_binmin(pts, rows, m)
+    screen = binmin_stats_delta(before)
     (pd, pi), plain_ms = _timed_once(lambda: kernels.knn_binmin_plain(pts, rows, m))
     torch.cuda.synchronize()
     equal = bool(torch.equal(kd.view(torch.int32), pd.view(torch.int32))
@@ -2873,28 +2945,264 @@ def binmin_case(what: str, pts, rows, k: int, recall: float, card: str, extra: d
     out = {"knn_binmin": what, "n": n, "rows": r, "k": k, "recall_target": recall, "bins": m,
            "mean_recall": mean, "min_recall": float(rec.min()),
            "rows_below_target": float((rec < recall).double().mean()),
-           "bit_equal": equal, "one_sided": one_sided, "plain_ms": plain_ms}
+           "bit_equal": equal, "one_sided": one_sided, "plain_ms": plain_ms,
+           "screen": screen, "confirm_share": _confirm_share(screen, n)}
     del kd, ki, sel, ex, hit
+    terms = kernels.binmin_screen_terms(pts) if timed or chunk_rows is not None else None
     if timed:
-        fn = lambda: kernels.knn_binmin(pts, rows, m)  # noqa: E731
+        fn = lambda: kernels.knn_binmin(pts, rows, m, True, terms)  # noqa: E731
         ms = time_ms(fn, reps=5)
         dev_ms = device_ms(fn, 5, "knn_binmin_kernel")
+        prep_ms = device_ms(fn, 5, "binmin_prep_kernel")
         lib_ms = time_ms(lambda: torch.topk(torch.cdist(
             pts[rows.long()], pts, compute_mode="donot_use_mm_for_euclid_dist"), k, dim=1,
             largest=False), reps=2, warm=1)
         torch.cuda.empty_cache()
-        # bytes: the cloud and the rows once, the [rows, M] winners out;
-        # operations: 10 issued instructions a (row, column) pair (the d2's
-        # 8, the compare, acting on it), the issue ceiling
-        b_ms = max(bound(n * 12 + r * 4 + r * m * 8, 0)[0], issue_ceiling(r * n * 10))
         out.update({"name": "knn_binmin", "route": "cuda", "source": CLOUD_SOURCE,
                     "replaces": BINMIN_REPLACES, "launches": 0, "max_abs_err": 0.0,
-                    "ms": ms, "device_ms": dev_ms, "library_ms": lib_ms,
+                    "ms": ms, "device_ms": dev_ms, "prep_device_ms": prep_ms,
+                    "terms_ms": time_ms(lambda: kernels.binmin_screen_terms(pts), reps=5),
+                    "library_ms": lib_ms,
                     "library": "torch.cdist + torch.topk over the same rows",
-                    "bound_ms": b_ms, "bound_by": "operations",
-                    "view_bound_ms": issue_ceiling(n * n * 10), "clocks": clocks()})
+                    **binmin_bound(n, r, m, screen), "clocks": clocks()})
+    if chunk_rows is not None:
+        c = chunk_rows.shape[0]
+        before = kernels.binmin_stats()
+        kernels.knn_binmin(pts, chunk_rows, m)
+        chunk_screen = binmin_stats_delta(before)
+        fn = lambda: kernels.knn_binmin(pts, chunk_rows, m, True, terms)  # noqa: E731
+        cb = binmin_bound(n, c, m, chunk_screen)
+        out.update({"chunk_rows": c, "chunk_first_row": int(chunk_rows[0]),
+                    "chunk_ms": time_ms(fn, reps=5),
+                    "chunk_device_ms": device_ms(fn, 5, "knn_binmin_kernel"),
+                    "chunk_prep_device_ms": device_ms(fn, 5, "binmin_prep_kernel"),
+                    **{"chunk_" + k: v for k, v in cb.items()},
+                    "chunk_screen": chunk_screen,
+                    "chunk_confirm_share": _confirm_share(chunk_screen, n)})
+        torch.cuda.empty_cache()
     print(json.dumps(dict(out, **extra, card=card)), flush=True)
     return out
+
+
+def binmin_accumulation_probe(dev, card: str) -> dict:
+    """Phase 15(a): the tensor cores' f32 accumulation of bf16 products, on
+    the screen's own mma.sync (kernels.binmin_mma_probe), held against the
+    float64 sum. Each output's error over the sum's absolute terms (|c| +
+    sum |a_k b_k|), the worst of each family printed and gated at
+    kernels.BINMIN_ACC, the bound the screen's margin takes (cloud.cu's
+    note). Families of PROBE_TILES tiles, seeded: "random" (exponents in
+    [-12, 12], signs random), "wide" (exponents in [-40, 40]), "one large"
+    (a term near 1, the other 15 of one sign at 2^-24..2^-4 of it, full
+    mantissas: what alignment by truncation drops adds up), "cancelling"
+    (two terms that cancel exactly, beside 14 small ones of one sign), and
+    "screen" (pass 2's operands: a cloud's q' and -2c' in bf16 hi + lo, the
+    (1 - alpha) norm, rows and columns centred); each with c = 0 (pass
+    1), c = minus the f32 sum (pass 2's -tau' at the winner: the result
+    cancels to the error) and c = 2^12 of the products' size (a large
+    accumulator)."""
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.ops import kernels
+
+    g = torch.Generator().manual_seed(1517)
+    t = PROBE_TILES
+
+    def rand(shape, lo, hi, signed=True):
+        mant = 1 + torch.randint(0, 128, shape, generator=g).float() / 128   # exact in bf16
+        v = torch.ldexp(mant, torch.randint(lo, hi + 1, shape, generator=g).float())
+        if signed:
+            v = v * (torch.randint(0, 2, shape, generator=g) * 2 - 1)
+        return v
+
+    def split(v):
+        h = v.bfloat16().float()
+        return h, (v - h).bfloat16().float()
+
+    families = {"random": (rand((t, 16, 16), -12, 12), rand((t, 8, 16), -12, 12)),
+                "wide": (rand((t, 16, 16), -40, 40), rand((t, 8, 16), -40, 40))}
+    a = rand((t, 16, 16), -24, -4, signed=False)
+    a[:, :, 0] = rand((t, 16), 0, 0, signed=False)
+    families["one large"] = (a, rand((t, 8, 16), -1, 0, signed=False))
+    a = rand((t, 16, 16), -24, -4, signed=False)
+    a[:, :, 0] = rand((t, 16), -2, 2)
+    a[:, :, 1] = -a[:, :, 0]
+    b = rand((t, 8, 16), -1, 0, signed=False)
+    b[:, :, 1] = b[:, :, 0]
+    families["cancelling"] = (a, b)
+    # pass 2's operands: K slots 2kq, 2kq + 1 (hi) and 2kq + 8, 2kq + 9 (lo)
+    # of coordinate kq < 3, slots 14, 15 the (1 - alpha) norm's hi and lo
+    cloud = torch.randn((t, 24, 3), generator=g) * torch.ldexp(
+        torch.ones(t, 1, 1), torch.randint(-4, 12, (t, 1, 1), generator=g).float())
+    q, c = cloud[:, :16], cloud[:, 16:]
+    cn = (c * c).sum(2) * (1 - kernels.BINMIN_ALPHA)
+    a = torch.zeros((t, 16, 16))
+    b = torch.zeros((t, 8, 16))
+    for k in range(3):
+        qh, ql = split(q[:, :, k])
+        ch, cl = split(-2 * c[:, :, k])
+        a[:, :, 2 * k], a[:, :, 2 * k + 1], a[:, :, 2 * k + 8], a[:, :, 2 * k + 9] = qh, qh, ql, ql
+        b[:, :, 2 * k], b[:, :, 2 * k + 1], b[:, :, 2 * k + 8], b[:, :, 2 * k + 9] = ch, cl, ch, cl
+    a[:, :, 14] = a[:, :, 15] = 1.0
+    b[:, :, 14], b[:, :, 15] = split(cn)
+    families["screen"] = (a, b)
+    out, worst = {}, 0.0
+    for name, (a, b) in families.items():
+        a = a.bfloat16().to(dev)
+        b = b.bfloat16().to(dev)
+        prods = torch.einsum("tmk,tnk->tmnk", a.double(), b.double())
+        exact, size = prods.sum(3), prods.abs().sum(3)
+        for cname, cc in (("c = 0", torch.zeros_like(exact)),
+                          ("c = -sum", -exact),
+                          ("c large", size * 4096 * torch.sign(torch.randn(
+                              exact.shape, generator=g)).to(dev, torch.float64))):
+            cf = cc.float()
+            d = kernels.binmin_mma_probe(a, b, cf)
+            ref = exact + cf.double()
+            rel = ((d.double() - ref).abs() / (size + cf.double().abs()).clamp(min=1e-300))
+            w = float(rel.max())
+            out[f"{name}, {cname}"] = w
+            worst = max(worst, w)
+    res = {"binmin_accumulation_probe": out, "worst": worst,
+           "worst_log2": float(np.log2(worst)) if worst else None, "bound": kernels.BINMIN_ACC,
+           "outputs": len(out) * t * 128, "card": card}
+    print(json.dumps(res), flush=True)
+    check(worst <= kernels.BINMIN_ACC,
+          f"binmin_accumulation_probe: the tensor cores' accumulation error {worst} of the "
+          f"absolute sum exceeds the margin's BINMIN_ACC = {kernels.BINMIN_ACC}")
+    return res
+
+
+def binmin_edge_cases(dev, card: str) -> None:
+    """Phase 15(a)'s adversarial cases for the tensor-core screen: each
+    knn_binmin call equal to its plain version bit for bit (d2 and idx; a
+    NaN distance counts as equal to a NaN): exact duplicate points (ties
+    to the lowest index), near-ties inside the screen's margin (columns of
+    one bin at squared distances a fraction of the margin apart), a cloud
+    1e4 mm from the origin, a tile of parked query rows and bins whose
+    every column is parked (N not a multiple of M), M at BINMIN_MIN_BINS and
+    at 4096, self-exclusion on and off, and non-finite points (never a
+    winner; a NaN in a bin's first column stays, as the plain version keeps
+    it). Prints each case's screen counts and time."""
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.ops import kernels
+    from structured_light_for_3d_model_replication_tpu_torch.ops import knn as knnlib
+
+    rng = np.random.default_rng(1517)
+    n = BINMIN_CASE_POINTS
+    cloud = (rng.normal(size=(n, 3)) * 60.0).astype(np.float32)
+    cases = []
+    # duplicates: every point about three times, self-exclusion on and off
+    dup = cloud[:n // 3][rng.integers(0, n // 3, n)]
+    cases += [("duplicates", dup, rng.choice(len(dup), 2048, replace=False), 128, ex)
+              for ex in (True, False)]
+    # near-ties: 8 columns of one bin a fraction of the margin apart for each query
+    near = cloud.copy()
+    m_near = 1024
+    qrows = rng.choice(len(near), 2048, replace=False)
+    mx, my, mz, _ = kernels.binmin_screen_terms(torch.from_numpy(near)).tolist()
+    mu = np.array([mx, my, mz])
+    taken = set(qrows.tolist())
+    for r in qrows:
+        q = near[r].astype(np.float64)
+        eps = kernels.binmin_margin(float(((q - mu) ** 2).sum()), 2 * 60.0 ** 2 * 3)
+        b = int(rng.integers(m_near))
+        js = [j for j in b + m_near * rng.choice(len(near) // m_near, 8, replace=False)
+              if j not in taken]
+        taken.update(js)
+        for i, j in enumerate(js):
+            d = rng.normal(size=3)
+            near[j] = (q + d / np.linalg.norm(d) * np.sqrt(400.0 + (i % 4) * eps / 8)
+                       ).astype(np.float32)
+    cases.append(("near-ties", near, qrows, m_near, True))
+    cases.append(("offset 1e4 mm", cloud + np.float32(1e4),
+                  rng.choice(len(cloud), 2048, replace=False), 2048, True))
+    # parked: 30 % of the points and every column of bins 5, 6 and 300; N % M != 0
+    parked = cloud[:n // 2 + 3].copy()
+    m_park = 512
+    gone = rng.random(len(parked)) < 0.3
+    gone[np.isin(np.arange(len(parked)) % m_park, [5, 6, 300])] = True
+    parked[gone] = knnlib.FAR
+    prow = np.concatenate([np.flatnonzero(gone)[:256], np.flatnonzero(~gone)[:1792]])
+    cases += [("parked rows and bins", parked, prow, m_park, ex) for ex in (True, False)]
+    cases += [(f"M = {mm}", cloud, rng.choice(len(cloud), 2048, replace=False), mm, True)
+              for mm in (kernels.BINMIN_MIN_BINS, 4096)]
+    bad = cloud[:n // 4].copy()
+    bad[rng.choice(len(bad), 40, replace=False)] = np.inf
+    bad[rng.choice(len(bad), 40, replace=False), 1] = np.nan
+    bad[:128:7, 2] = np.nan                       # NaN in some bins' first column
+    cases.append(("non-finite", bad, np.concatenate([np.arange(0, 128), rng.choice(
+        len(bad), 1920, replace=False)]), 128, True))
+    t_all = time.perf_counter()
+    for what, pts_np, rows_np, m, ex in cases:
+        pts = torch.from_numpy(np.ascontiguousarray(pts_np, np.float32)).to(dev)
+        rows = torch.from_numpy(np.asarray(rows_np, np.int32)).to(dev)
+        before = kernels.binmin_stats()
+        (kd, ki), ms = _timed_once(lambda: kernels.knn_binmin(pts, rows, m, ex))
+        screen = binmin_stats_delta(before)
+        pd, pi = kernels.knn_binmin_plain(pts, rows, m, ex)
+        nan = torch.isnan(pd)
+        same = bool(torch.equal(torch.isnan(kd), nan)
+                    and torch.equal(kd.view(torch.int32)[~nan], pd.view(torch.int32)[~nan])
+                    and torch.equal(ki, pi))
+        diff = int(((kd.view(torch.int32) != pd.view(torch.int32)) & ~nan).sum()
+                   + (ki != pi).sum())
+        print(json.dumps({"knn_binmin_case": what, "n": len(pts_np), "rows": len(rows_np),
+                          "bins": m, "exclude_self": ex, "bit_equal": same, "ms": ms,
+                          "screen": screen, "confirm_share": _confirm_share(screen, len(pts_np)),
+                          "card": card}), flush=True)
+        check(same, f"knn_binmin ({what}, exclude_self={ex}): {diff} (row, bin) winners "
+                    f"differ from the plain version")
+        del pts, rows, kd, ki, pd, pi
+    torch.cuda.empty_cache()
+    print(json.dumps({"knn_binmin_cases": len(cases),
+                      "wall_s": time.perf_counter() - t_all, "card": card}), flush=True)
+
+
+def cluster_knn_split(parked, k: int, recall: float) -> dict:
+    """knn._knn_binned's loop over one view's parked cluster cloud, timed
+    apart by CUDA events: each chunk's knn_binmin call (the kernel, its prep
+    pass and the wrapper's host sync; the screen's terms once, as the
+    pipeline takes them) and the stage-2 keyed
+    torch.topk over its [chunk, M] winners; the result equal bit for bit to
+    knn_dense_approx's on the same cloud."""
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.ops import kernels
+    from structured_light_for_3d_model_replication_tpu_torch.ops import knn as knnlib
+
+    n = parked.shape[0]
+    m = kernels.binmin_bins(n, k, recall)
+    kk = min(k, m)
+    chunk = max(1, knnlib._BINNED_CUDA // m)
+    rows = torch.arange(n, dtype=torch.int32, device=parked.device)
+    marks, keys = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    terms = kernels.binmin_screen_terms(parked)
+    for s in range(0, n, chunk):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        d2, idx = kernels.knn_binmin(parked, rows[s:s + chunk], m, True, terms)
+        ev[1].record()
+        keys.append(torch.topk(knnlib._keys(d2, idx.to(torch.int64)), kk, dim=1, largest=False,
+                               sorted=True).values)
+        ev[2].record()
+        marks.append(ev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    kern = [a.elapsed_time(b) for a, b, _ in marks]
+    topk = [b.elapsed_time(c) for _, b, c in marks]
+    mine = knnlib._unkey(torch.cat(keys), k, n)
+    valid = parked[:, 0] < knnlib.FAR / 2
+    ref = knnlib.knn_dense_approx(parked, valid, k, recall_target=recall)
+    check(torch.equal(mine[0], ref[0]) and torch.equal(mine[1].view(torch.int32),
+                                                       ref[1].view(torch.int32)),
+          "cluster_knn_split: the timed loop differs from knn_dense_approx")
+    return {"chunks": len(marks), "chunk_rows": chunk, "wall_s": wall,
+            "knn_binmin_ms": sum(kern), "topk_ms": sum(topk),
+            "knn_binmin_chunk_ms_median": float(np.median(kern)),
+            "topk_chunk_ms_median": float(np.median(topk))}
 
 
 def flagship_phase(dev, rig, stacks, card: str) -> list[dict]:
@@ -2933,6 +3241,8 @@ def flagship_phase(dev, rig, stacks, card: str) -> list[dict]:
     check(FLAGSHIP_CLEAN_JAX is not None and
           len(FLAGSHIP_CLEAN_JAX["clean_counts"]) >= FLAGSHIP_VIEWS,
           "FLAGSHIP_CLEAN_JAX holds no reference for the flagship views")
+    binmin_accumulation_probe(dev, card)
+    binmin_edge_cases(dev, card)
     scene = syn.sphere_on_background()
     with tempfile.TemporaryDirectory(prefix="slscan_flagship_") as root:
         data = os.path.join(root, "scans")
@@ -2958,6 +3268,7 @@ def flagship_phase(dev, rig, stacks, card: str) -> list[dict]:
             return res
 
         kernels.reset_launch_counts()
+        screen0 = kernels.binmin_stats()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         pc.clean_chain = recording
@@ -2970,6 +3281,7 @@ def flagship_phase(dev, rig, stacks, card: str) -> list[dict]:
         finally:
             pc.clean_chain = real
         counts = kernels.launch_counts()
+        screen = binmin_stats_delta(screen0)
         peak = torch.cuda.max_memory_allocated()
         check(report.failures == [] and report.views_computed == FLAGSHIP_VIEWS,
               f"flagship pipeline: {report.views_computed} views computed, failures "
@@ -2994,7 +3306,8 @@ def flagship_phase(dev, rig, stacks, card: str) -> list[dict]:
                           "merged_surf_median_mm": float(np.median(md)),
                           "merged_surf_p99_mm": float(np.percentile(md, 99)), "stl": acc,
                           "peak_device_bytes": int(peak), "launches": counts,
-                          "card": card, "clocks": clocks()}), flush=True)
+                          "knn_binmin_screen": screen, "card": card,
+                          "clocks": clocks()}), flush=True)
         for i, (mine, theirs) in enumerate(zip(clean, FLAGSHIP_CLEAN_JAX["clean_counts"])):
             for step, a, b in zip(PIPE_STEPS, mine, theirs):
                 check(abs(a - b) <= FLAGSHIP_CLEAN_GATE * b,
@@ -3020,9 +3333,21 @@ def flagship_phase(dev, rig, stacks, card: str) -> list[dict]:
         del pts_t, inl
         rows = survivors[torch.linspace(0, survivors.shape[0] - 1, BINMIN_ROWS_VIEW,
                                         device=dev).long()].to(torch.int32)
+        # the main path's own call: the pipeline's contiguous chunk
+        # (knn._knn_binned) holding the most survivors
+        chunk = knnlib._BINNED_CUDA // kernels.binmin_bins(bucket, 16, 0.99)
+        per_chunk = torch.bincount(survivors // chunk)
+        c0 = int(torch.argmax(per_chunk)) * chunk
+        chunk_rows = torch.arange(c0, min(c0 + chunk, bucket), dtype=torch.int32, device=dev)
         line = binmin_case("cluster step, 1080p view", parked, rows, 16, 0.99, card,
-                           {"view_points": n, "survivors": int(survivors.shape[0])},
-                           timed=True)
+                           {"view_points": n, "survivors": int(survivors.shape[0]),
+                            "chunk_survivors": int(per_chunk.max())},
+                           timed=True, chunk_rows=chunk_rows)
+        split = cluster_knn_split(parked, 16, 0.99)
+        print(json.dumps({"cluster_knn_split": "view 0", "n": bucket, **split,
+                          "pipeline_knn_s_per_view": [tm.get("clean_cluster_knn_s")
+                                                      for tm in per_view],
+                          "card": card}), flush=True)
         # the exact arm on EXACT_ROWS survivor rows, scaled to the view's N
         sub = survivors[torch.linspace(0, survivors.shape[0] - 1, EXACT_ROWS,
                                        device=dev).long()]
@@ -3032,7 +3357,7 @@ def flagship_phase(dev, rig, stacks, card: str) -> list[dict]:
                           "exact_rows": EXACT_ROWS, "exact_subset_ms": ex_ms,
                           "exact_scaled_s": ex_ms / 1e3 * bucket / EXACT_ROWS,
                           "binned_knn_s_per_view": knn_s, "card": card}), flush=True)
-        del parked, survivors, rows, sub
+        del parked, survivors, rows, sub, chunk_rows
         torch.cuda.empty_cache()
     # the merged cloud's normals shape: mesh_cloud(), k = 30, recall 0.99
     mc, _ = mesh_cloud()
@@ -3043,7 +3368,9 @@ def flagship_phase(dev, rig, stacks, card: str) -> list[dict]:
     del pts, rows
     torch.cuda.empty_cache()
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms", "bound_unit",
+            "bound_terms_ms", "cuda_core_yardstick_ms", "chunk_ms", "chunk_device_ms",
+            "chunk_bound_ms")
     return [{k: line[k] for k in keys}]
 
 

@@ -1,9 +1,10 @@
 // Point-cloud kernels of the merge path and the clean chain, for Hopper
 // (sm_90a).
 //
-// Eight kernels. Seven replace Pallas originals (in structured_light_for_3d_
-// model_replication_tpu/ops/pallas_kernels.py); knn_binmin_kernel, the last,
-// replaces no Pallas kernel:
+// Eight kernels and a prep pass. Seven replace Pallas originals (in
+// structured_light_for_3d_model_replication_tpu/ops/pallas_kernels.py);
+// knn_binmin_kernel, the last, and its prep pass binmin_prep_kernel replace
+// no Pallas kernel:
 //
 //   radius_count_kernel   replaces _radius_kernel (call _radius_call, entry
 //                         radius_count_pallas): per point, the number of other
@@ -166,33 +167,107 @@
 //                         slab engine's approx1 selector (ops/pointcloud.py:
 //                         418). For each (query row, bin b < M) the least d2
 //                         over the columns j = b, b + M, b + 2M, ... (j != the
-//                         row), and its index, ties to the lowest index; the
-//                         wrapper's top-k over the M winners is the selection
+//                         row), and its index, ties to the lowest index;
+//                         (+inf, b) where no column is finite; the wrapper's
+//                         top-k over the M winners is the selection
 //                         (kernels.knn_binmin). Strided bins, not contiguous
 //                         windows: in a pixel-ordered cloud a point's nearest
 //                         neighbours sit at nearby indices, which strided bins
-//                         spread over distinct bins. Bound by operations, ~10
-//                         issued instructions a (query, column) pair (the d2,
-//                         a compare, two selects), N^2 pairs a whole-cloud
-//                         call, and the [rows, M] winners never leave
-//                         registers until the end. Design:
-//                         - a thread carries kBmQ = 8 query rows and one bin
-//                           (lane l of a warp: bin b0 + l, so a warp step
-//                           reads 32 adjacent columns), every warp of a
-//                           block the same 32 bins and its own 8 rows, so one
-//                           shared-memory read of a column feeds 8 pairs and a
-//                           column leaves L2 once a block (64 rows);
-//                         - the block's columns stream through a two-slot
-//                           cp.async ring of kBmSteps bin steps, x/y/z planes
-//                           (conflict-free reads); slots past N or past M hold
-//                           +inf, whose distance never wins;
-//                         - a running (d2, j) by a strict '<' over rising j
-//                           from (+inf, b) is the lexicographic minimum, with
-//                           (+inf, b) where no column is finite;
-//                         - the self column (row mod M's bin, step row / M)
-//                           costs a compare a pair only in the ring slot that
-//                           holds it: a warp takes that slot's checked sweep
-//                           when any of its lanes needs it (__any_sync).
+//                         spread over distinct bins. The JAX package takes the
+//                         distances on the matrix unit (|q|^2 + |b|^2 - 2q.b
+//                         by dot_general) and recomputes the winners; this
+//                         kernel screens on the tensor cores and confirms on
+//                         the CUDA cores, bit for bit against the plain
+//                         version. Design:
+//                         - binmin_prep_kernel writes every column once a
+//                           launch: its raw x, y, z (16-byte rows) and a
+//                           32-byte record of c' = c - mu (mu: the centroid of
+//                           the cloud's unparked points, read with route_r2
+//                           from a 4-float device buffer that kernels.
+//                           binmin_screen_terms fills): -2c' and (1 +- alpha)|c'|^2
+//                           in f32, each split into bf16 hi + lo (2^-16
+//                           relative);
+//                         - a block takes 256 query rows (8 warps, two m16
+//                           tiles each) and 16 bins (two n8 tiles); each bin
+//                           step is one mma.sync.m16n8k16 bf16 a tile, whose 16
+//                           K slots hold the four cross products (hh, hl, lh,
+//                           ll) of each coordinate and the hi + lo norm, so
+//                           u = q'.(-2c') + (1 + alpha)|c'|^2 and (pass 2,
+//                           the other norm slots) v = q'.(-2c') +
+//                           (1 - alpha)|c'|^2, with |q'|^2 added per row;
+//                         - the margin: |d2 - (|q'|^2 + q'.(-2c') + |c'|^2)|
+//                           <= alpha (|q'|^2 + |c'|^2) + beta for every pair.
+//                           With S = |q'|^2 + |c'|^2: the bf16 pairs hold q'
+//                           and -2c' to 2^-16, so the cross products to
+//                           2^-14 |q'||c'| <= 2^-15 S; the norm, its f32 sum
+//                           and the (1 +- alpha) scale to 1.02 * 2^-16 S; the
+//                           tensor cores' f32 accumulation of 16 exact bf16
+//                           products, taken as 2^-20 of their absolute sum
+//                           (<= 2.02 S), 2^-19 S (kernels.BINMIN_ACC; on the
+//                           card bm_probe_kernel, this mma.sync on cancelling,
+//                           wide-spread, large-accumulator and screen tiles,
+//                           erred by at most 3.67e-7 = 2^-21.4 of the sum's
+//                           absolute terms, chip_smoke.py phase 15(a), which
+//                           fails above 2^-20); centring (2^-22 S) and the
+//                           f32 difference d2 itself (5 * 2^-24 * 2S): 1.61 *
+//                           2^-15 S in all. alpha = 2^-12, five times that
+//                           (kernels.BINMIN_ALPHA); beta = 2^-60 mm^2 covers
+//                           bf16 products that underflow;
+//                         - pass 1: T = the least u over the bin's columns,
+//                           one FMNMX a pair (the row's own column left out);
+//                           pass 2: a column goes to the exact confirm iff
+//                           v <= tau = T + 2 alpha |q'|^2 + 2 beta (rounded
+//                           up), i.e. d2~ - margin <= the least d2~ + margin:
+//                           the exact winner and every column tied with it
+//                           pass. Two passes, because one running threshold
+//                           would confirm almost every column of a
+//                           pixel-ordered cloud, whose strided bins step
+//                           toward the query one image row at a time (the
+//                           margin holds for this sum too: |tau| <= ~2 S of
+//                           the winner);
+//                         - pass 2's MMA takes -tau' (the next float above
+//                           tau) as its accumulator, so a column passes iff
+//                           its sum is negative: a step's four MMAs issue
+//                           first, then one OR of the 16 sign bits; only a
+//                           step where a thread passes walks its tiles;
+//                         - the confirm: the difference d2 (d2_diff) of the
+//                           raw rows, kept by the lexicographic least (d2, j)
+//                           (an explicit index tie-break), in the registers
+//                           of the thread that owns the (row, bin). At the
+//                           1080p cluster shape a (row, bin) confirms 1.05
+//                           columns of its 519, 0.2 % of the pairs;
+//                         - columns stream through a three-slot ring of 16
+//                           bin steps (16-byte cp.async of whole records, one
+//                           barrier a slot), read as one 8-byte LDS a thread
+//                           and n8 tile, conflict-free; past N or M a finite
+//                           far record (norms 2^126, no cross terms: no
+//                           inf * 0 in an MMA), masked by index at the
+//                           confirm;
+//                         - rows the screen cannot narrow (|q'|^2 above
+//                           route_r2, 16x the unparked cloud's squared radius:
+//                           parked rows at FAR, whose margin would swallow
+//                           the cloud; NaN rows; every row when a coordinate
+//                           exceeds 2^60) take an exact CUDA-core sweep in the
+//                           same kernel: every column of the bin in rising
+//                           order by a strict '<' from the first (the plain
+//                           version's rule; a screened row takes a NaN first
+//                           column's distance the same way), ending once
+//                           every lane holds d2 = 0, which nothing after can
+//                           beat (a parked row meets a parked column within a
+//                           few steps).
+//                         Bound (chip_smoke.binmin_bound, from a call's
+//                         counts) by the screen's CUDA-core instructions, at
+//                         least 2.25 a screened pair (pass 1's FMNMX; pass
+//                         2's OR of the sign bits, 0.5 by three-input LOP3;
+//                         the two passes' MMA issues, 0.5, and B-fragment
+//                         loads, 0.25) at one a lane a clock, and nearly as
+//                         much by the tensor cores (two m16n8k16 a 128 pairs
+//                         at the dense bf16 rate); a confirm or exact-sweep
+//                         pair adds the 9 instructions of d2. It runs at
+//                         16 warps an SM (two 256-thread blocks, 128
+//                         registers a thread) and is held back by latency.
+//                         Counts (screened rows, exact-sweep rows, confirms,
+//                         exact-sweep pairs) go to a stats buffer.
 //
 // Self-exclusion is by global index everywhere: a query's own slot is above
 // every cutoff (the bisection kernels give it bits 2^31 - 2; the selection
@@ -205,6 +280,7 @@
 // cudaGetLastError().
 
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -234,10 +310,13 @@ constexpr int kChunk = 16384;       // candidates resident in shared memory
 constexpr int kSelfBits = 0x7FFFFFFE;
 constexpr int kBisect = 31;
 constexpr int kBmWarps = 8;
-constexpr int kBmQ = 8;             // query rows a knn_binmin thread carries
-constexpr int kBmRows = kBmWarps * kBmQ;
 constexpr int kBmThreads = kBmWarps * 32;
-constexpr int kBmSteps = 32;        // bin steps a ring slot: 32 x 32 columns
+constexpr int kBmMt = 2;            // m16 tiles a knn_binmin warp: 32 query rows
+constexpr int kBmRows = kBmWarps * 16 * kBmMt;
+constexpr int kBmNt = 2;            // n8 tiles a block: 16 bins
+constexpr int kBmBins = 8 * kBmNt;
+constexpr int kBmSteps = 16;        // bin steps a ring slot
+constexpr int kBmSlots = 3;
 constexpr int kSelWarps = 16;
 constexpr int kSelQpw = 4;          // queries a selection warp carries
 constexpr int kSelTile = kSelWarps * kSelQpw;
@@ -965,103 +1044,485 @@ knn_select_kernel(const float* __restrict__ pts, int L, int k, int r2b, float* _
 // knn_binmin
 // ---------------------------------------------------------------------------
 
-// Columns b0 + c + m * (t0 + s), c < 32, s < kBmSteps, into a ring slot of
-// x, y, z planes [3][kBmSteps][32], 4 bytes a cp.async; columns at or past n,
-// and bins at or past m, hold +inf.
-__device__ __forceinline__ void bm_stage(float (*slot)[kBmSteps][32], const float* __restrict__ pts, int n, int m,
-                                         int b0, long long t0) {
-  for (int e = threadIdx.x; e < 96 * kBmSteps; e += kBmThreads) {
-    const int s = e / 96;
-    const int r = e - 96 * s;
-    const int c = r / 3;
-    const int comp = r - 3 * c;
-    const long long j = b0 + c + (long long)m * (t0 + s);
-    float* dst = &slot[comp][s][c];
-    if (b0 + c < m && j < n) {
-      cp_async4(dst, pts + 3 * j + comp);
-    } else {
-      *dst = __int_as_float(0x7f800000);
+// A column's screen record, 32 bytes: the B registers of mma.m16n8k16 that
+// thread kq of a group of four loads (words 2kq, 2kq + 1), each a bf16 pair
+// (hi in the low half, lo in the high half): kq < 3 coordinate kq of -2c'
+// in both words, kq = 3 the norms (1 + alpha)|c'|^2 and (1 - alpha)|c'|^2.
+struct alignas(16) BmOp {
+  uint32_t w[8];
+};
+
+// The far record: no cross terms, both norms 2^126 (bf16 0x7E80). Its
+// screen value 2^126 is finite (no inf * 0 in an MMA) and above every real
+// column's (|u| < 2^124 within the screen's coordinate range), so it never
+// lowers a bin's threshold; the confirm masks it by index.
+constexpr uint32_t kBmFarNorm = 0x7E80u;
+constexpr uint32_t kBmOne2 = 0x3F803F80u;  // bf16 (1, 1)
+
+// v -> bf16 pair (RN(v) in the low half, RN(v - RN(v)) in the high half);
+// v - RN(v) is exact in f32, so hi + lo holds v to 2^-16 relative.
+__device__ __forceinline__ uint32_t bm_split(float v) {
+  const __nv_bfloat16 h = __float2bfloat16_rn(v);
+  const __nv_bfloat16 l = __float2bfloat16_rn(__fsub_rn(v, __bfloat162float(h)));
+  return (uint32_t)__bfloat16_as_ushort(h) | ((uint32_t)__bfloat16_as_ushort(l) << 16);
+}
+
+// v -> the bf16 pair (x, x) of one half of the split: lo = false hi, true lo.
+__device__ __forceinline__ uint32_t bm_dup(float v, bool lo) {
+  const uint32_t s = bm_split(v);
+  const uint32_t h = lo ? s >> 16 : s & 0xFFFFu;
+  return h | (h << 16);
+}
+
+// d = A B (+ 0): one 16 x 8 tile of screen values, K = 16 bf16 slots.
+__device__ __forceinline__ void bm_mma(float (&d)[4], const uint32_t (&a)[4], uint2 b) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y), "f"(0.0f));
+}
+
+// d = A B + c: pass 2's tile, c = -tau', so a value passes iff d < 0.
+__device__ __forceinline__ void bm_mma_c(float (&d)[4], const uint32_t (&a)[4], uint2 b, const float (&c)[4]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%10, %11, %12, %13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y), "f"(c[0]), "f"(c[1]), "f"(c[2]),
+        "f"(c[3]));
+}
+
+// Every column of the cloud once a launch: its raw x, y, z (16-byte rows for
+// the confirm and the exact sweep) and its screen record, c' = c - mu. A
+// column with a non-finite coordinate or norm gets the far record (its exact
+// distance is inf or NaN, which never wins).
+__global__ void __launch_bounds__(256)
+binmin_prep_kernel(const float* __restrict__ pts, int n, const float* __restrict__ terms, float alpha,
+                   BmOp* __restrict__ op, float4* __restrict__ raw) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= n) return;
+  const float x = pts[3LL * j], y = pts[3LL * j + 1], z = pts[3LL * j + 2];
+  raw[j] = make_float4(x, y, z, 0.0f);
+  const float cx = __fsub_rn(x, __ldg(terms)), cy = __fsub_rn(y, __ldg(terms + 1)), cz = __fsub_rn(z, __ldg(terms + 2));
+  const float cn = __fadd_rn(__fadd_rn(__fmul_rn(cx, cx), __fmul_rn(cy, cy)), __fmul_rn(cz, cz));
+  uint4* dst = reinterpret_cast<uint4*>(op + j);
+  if (isfinite(cn)) {
+    const uint32_t wx = bm_split(__fmul_rn(-2.0f, cx));
+    const uint32_t wy = bm_split(__fmul_rn(-2.0f, cy));
+    const uint32_t wz = bm_split(__fmul_rn(-2.0f, cz));
+    dst[0] = make_uint4(wx, wx, wy, wy);
+    dst[1] = make_uint4(wz, wz, bm_split(__fmul_rn(cn, 1.0f + alpha)), bm_split(__fmul_rn(cn, 1.0f - alpha)));
+  } else {
+    dst[0] = make_uint4(0u, 0u, 0u, 0u);
+    dst[1] = make_uint4(0u, 0u, kBmFarNorm, kBmFarNorm);
+  }
+}
+
+struct BmArgs {
+  const int32_t* rows;
+  int n_rows, n, m, exclude_self;
+  const float* terms;  // mu_x, mu_y, mu_z, route_r2 (kernels.binmin_screen_terms, on the device)
+  float alpha, beta;
+  const BmOp* op;
+  const float4* raw;
+  float* d2;
+  int32_t* idx;
+  unsigned long long* stats;  // [screened rows, exact-sweep rows, confirms, exact-sweep pairs]
+};
+
+struct BmShared {
+  BmOp op[kBmSlots][kBmSteps][kBmBins];
+  float4 raw[kBmSlots][kBmSteps][kBmBins];
+  float4 q[kBmRows];   // x, y, z, row index (bits)
+  float4 qc[kBmRows];  // q - mu and |q - mu|^2; w NaN: not screened (exact sweep or past n_rows)
+};
+
+// What a thread carries through both passes: its A registers of each pass,
+// and for each of its (row, bin) values (row g + 8 (i >> 1) of m16 tile mt,
+// bin nt * 8 + 2 kq + (i & 1)) the threshold (pass 1: the least u; pass 2:
+// -tau', the accumulator that turns the test into a sign) and the best
+// (d2, j) confirmed.
+struct BmThread {
+  uint32_t a[kBmMt][4], a2[kBmMt][4];
+  float tt[kBmMt][kBmNt][4];
+  float bd[kBmMt][kBmNt][4];
+  int bj[kBmMt][kBmNt][4];
+  int self_t[kBmMt][2], self_b[kBmMt][2];  // the row's self column: step and local bin (-1: none here)
+  unsigned confirms;
+};
+
+// Columns b0 + bb + m (t0 + s), bb < kBmBins, s < kBmSteps, into ring slot
+// `slot` by 16-byte cp.async: records, and with kRaw the raw rows. Columns at
+// or past n, and bins at or past m, get the far record (no raw row: masked).
+template <bool kRaw>
+__device__ __forceinline__ void bm_stage(BmShared& sh, int slot, const BmArgs& p, int b0, int t0) {
+  constexpr int kOps = kBmSteps * kBmBins * 2;
+  const int all = kRaw ? kOps + kBmSteps * kBmBins : kOps;
+#pragma unroll
+  for (int e0 = 0; e0 < all; e0 += kBmThreads) {
+    const int e = e0 + threadIdx.x;
+    const bool is_op = e < kOps;
+    const unsigned r = is_op ? e >> 1 : e - kOps;
+    const int s = r / kBmBins, bb = r % kBmBins;
+    const int b = b0 + bb;
+    const long long j = b + (long long)p.m * (t0 + s);
+    const bool ok = b < p.m && j < p.n;
+    if (is_op) {
+      uint4* dst = reinterpret_cast<uint4*>(&sh.op[slot][s][bb]) + (e & 1);
+      if (ok) {
+        cp_async16(dst, reinterpret_cast<const uint4*>(p.op + j) + (e & 1));
+      } else {
+        *dst = (e & 1) ? make_uint4(0u, 0u, kBmFarNorm, kBmFarNorm) : make_uint4(0u, 0u, 0u, 0u);
+      }
+    } else if (ok) {
+      cp_async16(&sh.raw[slot][s][bb], p.raw + j);
     }
   }
   cp_async_commit();
 }
 
-// One ring slot's sweep: kBmSteps columns of this lane's bin against its
-// kBmQ rows. kSelf: the slot holds some lane's self column, checked a pair.
-template <bool kSelf>
-__device__ __forceinline__ void bm_sweep(const float (*slot)[kBmSteps][32], int lane, int col0, int m, int t0,
-                                         const float (&qx)[kBmQ], const float (&qy)[kBmQ],
-                                         const float (&qz)[kBmQ], const int (&self_t)[kBmQ],
-                                         float (&best)[kBmQ], int (&best_j)[kBmQ]) {
+// The exact confirm of one (row, column) the screen passed: the difference
+// d2 (inf for the row itself under exclude_self), kept if it is the
+// lexicographic least (d2, j) so far.
+__device__ __forceinline__ void bm_confirm(const BmShared& sh, int slot, int s, int rl, int bb, int j,
+                                           const BmArgs& p, float& bd, int& bj, unsigned& confirms) {
+  const float4 q = sh.q[rl];
+  const float4 c = sh.raw[slot][s][bb];
+  float d = d2_diff(q.x, q.y, q.z, c.x, c.y, c.z);
+  if (p.exclude_self && j == __float_as_int(q.w)) d = __int_as_float(0x7f800000);
+  if (d < bd || (d == bd && j < bj)) {
+    bd = d;
+    bj = j;
+  }
+  ++confirms;
+}
+
+// One ring slot of one pass for a warp's 2 m16 tiles x the block's 2 n8
+// tiles. Pass 1 (!kPass2) keeps the least u of each value (kSelf: the slot
+// holds a row's self column, whose u is made +inf). Pass 2 takes a step's
+// four products with the accumulator -tau' first, so a value passes iff its
+// sum is negative: one OR of the 16 sign bits a step, and only a step with
+// a pass walks its tiles and values to the exact confirm.
+template <bool kPass2, bool kSelf>
+__device__ __forceinline__ void bm_slot(const BmShared& sh, int slot, int t0, int b0, int wrow, int g, int kq,
+                                        const BmArgs& p, BmThread& th) {
 #pragma unroll 4
   for (int s = 0; s < kBmSteps; ++s) {
-    const float cx = slot[0][s][lane], cy = slot[1][s][lane], cz = slot[2][s][lane];
-    const int col = col0 + s * m;
+    uint2 b[kBmNt];
 #pragma unroll
-    for (int j = 0; j < kBmQ; ++j) {
-      float d = d2_diff(qx[j], qy[j], qz[j], cx, cy, cz);
-      if (kSelf && t0 + s == self_t[j]) d = __int_as_float(0x7f800000);
-      if (d < best[j]) {
-        best[j] = d;
-        best_j[j] = col;
+    for (int nt = 0; nt < kBmNt; ++nt) b[nt] = *reinterpret_cast<const uint2*>(&sh.op[slot][s][nt * 8 + g].w[2 * kq]);
+    if (!kPass2) {
+#pragma unroll
+      for (int mt = 0; mt < kBmMt; ++mt) {
+#pragma unroll
+        for (int nt = 0; nt < kBmNt; ++nt) {
+          float c[4];
+          bm_mma(c, th.a[mt], b[nt]);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            if (kSelf && t0 + s == th.self_t[mt][i >> 1] && nt * 8 + 2 * kq + (i & 1) == th.self_b[mt][i >> 1]) {
+              c[i] = __int_as_float(0x7f800000);
+            }
+            th.tt[mt][nt][i] = fminf(th.tt[mt][nt][i], c[i]);
+          }
+        }
+      }
+    } else {
+      float d[kBmMt][kBmNt][4];
+      uint32_t any = 0u;
+#pragma unroll
+      for (int mt = 0; mt < kBmMt; ++mt) {
+#pragma unroll
+        for (int nt = 0; nt < kBmNt; ++nt) {
+          bm_mma_c(d[mt][nt], th.a2[mt], b[nt], th.tt[mt][nt]);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) any |= __float_as_uint(d[mt][nt][i]);
+        }
+      }
+      if (any >> 31) {
+#pragma unroll
+        for (int mt = 0; mt < kBmMt; ++mt) {
+#pragma unroll
+          for (int nt = 0; nt < kBmNt; ++nt) {
+            const uint32_t tile = __float_as_uint(d[mt][nt][0]) | __float_as_uint(d[mt][nt][1]) |
+                                  __float_as_uint(d[mt][nt][2]) | __float_as_uint(d[mt][nt][3]);
+            if (tile >> 31) {
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                const int bb = nt * 8 + 2 * kq + (i & 1);
+                const int j = b0 + bb + p.m * (t0 + s);
+                if ((__float_as_uint(d[mt][nt][i]) >> 31) && b0 + bb < p.m && j < p.n) {
+                  bm_confirm(sh, slot, s, wrow + mt * 16 + g + 8 * (i >> 1), bb, j, p, th.bd[mt][nt][i],
+                             th.bj[mt][nt][i], th.confirms);
+                }
+              }
+            }
+          }
+        }
       }
     }
   }
 }
 
-// Rows rows[blockIdx.x * kBmRows + w * kBmQ + i] (warp w), bins
-// blockIdx.y * 32 + lane. Rows past n_rows load clamped and write nothing.
-__global__ void __launch_bounds__(kBmThreads)
-knn_binmin_kernel(const float* __restrict__ pts, const int32_t* __restrict__ rows, int n_rows, int n, int m,
-                  int exclude_self, float* __restrict__ d2_out, int32_t* __restrict__ idx_out) {
-  __shared__ float ring[2][3][kBmSteps][32];
-  const int lane = threadIdx.x & 31;
-  const int b0 = blockIdx.y * 32;
-  const int b = b0 + lane;
-  const long long r0 = (long long)blockIdx.x * kBmRows + (threadIdx.x >> 5) * kBmQ;
-  float qx[kBmQ], qy[kBmQ], qz[kBmQ], best[kBmQ];
-  int best_j[kBmQ], self_t[kBmQ];
-#pragma unroll
-  for (int j = 0; j < kBmQ; ++j) {
-    const int row = rows[min(r0 + j, (long long)n_rows - 1)];
-    qx[j] = pts[3LL * row];
-    qy[j] = pts[3LL * row + 1];
-    qz[j] = pts[3LL * row + 2];
-    best[j] = __int_as_float(0x7f800000);  // +inf at the bin's first column
-    best_j[j] = b;
-    self_t[j] = (exclude_self && row % m == b) ? row / m : -1;
+// One pass over the bin group's steps: a three-slot cp.async ring, one
+// barrier a slot; warps without a screened row stage and wait, nothing else.
+template <bool kPass2>
+__device__ __forceinline__ void bm_pass(BmShared& sh, const BmArgs& p, int b0, int ntiles, int wrow, int g, int kq,
+                                        bool warp_screens, BmThread& th) {
+  bm_stage<kPass2>(sh, 0, p, b0, 0);
+  if (ntiles > 1) {
+    bm_stage<kPass2>(sh, 1, p, b0, kBmSteps);
+  } else {
+    cp_async_commit();
   }
-  const int steps = (n - b0 + m - 1) / m;  // the block's first bin has the most columns
-  const int ntiles = (steps + kBmSteps - 1) / kBmSteps;
-  bm_stage(ring[0], pts, n, m, b0, 0);
+  int slot = 0;
   for (int t = 0; t < ntiles; ++t) {
-    if (t + 1 < ntiles) {
-      bm_stage(ring[(t + 1) & 1], pts, n, m, b0, (long long)(t + 1) * kBmSteps);
-      cp_async_wait<1>();
+    cp_async_wait<1>();  // tile t is in (this thread's copies)
+    __syncthreads();     // everyone's copies of tile t, and everyone done with tile t - 1
+    if (t + 2 < ntiles) {
+      bm_stage<kPass2>(sh, slot == 0 ? 2 : slot - 1, p, b0, (t + 2) * kBmSteps);
     } else {
-      cp_async_wait<0>();
+      cp_async_commit();
     }
-    __syncthreads();
     const int t0 = t * kBmSteps;
-    bool self_here = false;
+    if (warp_screens) {
+      if (kPass2) {
+        bm_slot<true, false>(sh, slot, t0, b0, wrow, g, kq, p, th);
+      } else {
+        bool mine = false;
 #pragma unroll
-    for (int j = 0; j < kBmQ; ++j) self_here |= self_t[j] >= t0 && self_t[j] < t0 + kBmSteps;
-    const int col0 = b + t0 * m;
-    if (__any_sync(kFull, self_here)) {
-      bm_sweep<true>(ring[t & 1], lane, col0, m, t0, qx, qy, qz, self_t, best, best_j);
-    } else {
-      bm_sweep<false>(ring[t & 1], lane, col0, m, t0, qx, qy, qz, self_t, best, best_j);
-    }
-    __syncthreads();
-  }
-  if (b >= m) return;
+        for (int mt = 0; mt < kBmMt; ++mt) {
 #pragma unroll
-  for (int j = 0; j < kBmQ; ++j) {
-    if (r0 + j < n_rows) {
-      d2_out[(r0 + j) * m + b] = best[j];
-      idx_out[(r0 + j) * m + b] = best_j[j];
+          for (int h = 0; h < 2; ++h) mine |= th.self_t[mt][h] >= t0 && th.self_t[mt][h] < t0 + kBmSteps;
+        }
+        if (__any_sync(kFull, mine)) {
+          bm_slot<false, true>(sh, slot, t0, b0, wrow, g, kq, p, th);
+        } else {
+          bm_slot<false, false>(sh, slot, t0, b0, wrow, g, kq, p, th);
+        }
+      }
+    }
+    slot = slot == 2 ? 0 : slot + 1;
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the next pass restages slots 0 and 1
+}
+
+// Block: kBmRows query rows (rows[blockIdx.x * kBmRows + ...]; warp w the
+// 32 from w * 32, two m16 tiles) against bin groups of kBmBins bins (b0 =
+// (blockIdx.y + k gridDim.y) kBmBins). Rows near the cloud (|q - mu|^2 <=
+// route_r2) are screened: pass 1 gives each (row, bin) its T, pass 2 its
+// confirms. The others (parked rows, non-finite rows) take the exact sweep:
+// a warp's such rows two at a time, lane l on bin l % 16, every column of the
+// bin in rising order by a strict '<' from its first column (the plain
+// version's rule), ending early once every lane holds d2 = 0 (nothing after
+// it can win). Rows past n_rows load clamped and write nothing.
+__global__ void __launch_bounds__(kBmThreads, 2)
+knn_binmin_kernel(const float* __restrict__ pts, const __grid_constant__ BmArgs p) {
+  __shared__ BmShared sh;
+  const int lane = threadIdx.x & 31;
+  const int wrow = (threadIdx.x >> 5) * 32;
+  const int g = lane >> 2, kq = lane & 3;
+  const long long r0 = (long long)blockIdx.x * kBmRows;
+  bool scr;
+  {
+    const int rl = threadIdx.x;  // kBmRows == kBmThreads: a thread loads one row
+    const bool valid = r0 + rl < p.n_rows;
+    const int row = p.rows[valid ? r0 + rl : p.n_rows - 1];
+    const float x = pts[3LL * row], y = pts[3LL * row + 1], z = pts[3LL * row + 2];
+    const float qx = __fsub_rn(x, __ldg(p.terms)), qy = __fsub_rn(y, __ldg(p.terms + 1)),
+                qz = __fsub_rn(z, __ldg(p.terms + 2));
+    const float qn = __fadd_rn(__fadd_rn(__fmul_rn(qx, qx), __fmul_rn(qy, qy)), __fmul_rn(qz, qz));
+    scr = valid && qn <= __ldg(p.terms + 3);  // NaN: not screened
+    sh.q[rl] = make_float4(x, y, z, __int_as_float(row));
+    sh.qc[rl] = make_float4(qx, qy, qz, scr ? qn : __int_as_float(0x7fc00000));
+  }
+  const bool any_screened = __syncthreads_or(scr);
+  const unsigned screened = __ballot_sync(kFull, scr);
+  const unsigned exact = __ballot_sync(kFull, r0 + threadIdx.x < p.n_rows && !scr);
+  unsigned long long n_exact_pairs = 0;
+  BmThread th;
+  th.confirms = 0;
+  // A registers (K slots 2kq, 2kq + 1 and 2kq + 8, 2kq + 9 of rows g, g + 8):
+  // kq < 3 the hi / lo parts of coordinate kq of q'; kq = 3 the norm slots,
+  // (1, 1) on the (1 + alpha) norm in pass 1 and on the (1 - alpha) norm in
+  // pass 2. Rows that are not screened have A = 0.
+#pragma unroll
+  for (int mt = 0; mt < kBmMt; ++mt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float4 q = sh.qc[wrow + mt * 16 + g + 8 * h];
+      const bool on = q.w == q.w;
+      const float v = on ? (kq == 0 ? q.x : kq == 1 ? q.y : q.z) : 0.0f;
+      th.a[mt][h] = kq < 3 ? bm_dup(v, false) : (on ? kBmOne2 : 0u);
+      th.a[mt][2 + h] = kq < 3 ? bm_dup(v, true) : 0u;
+      th.a2[mt][h] = kq < 3 ? th.a[mt][h] : 0u;
+      th.a2[mt][2 + h] = kq < 3 ? th.a[mt][2 + h] : th.a[mt][h];
     }
   }
+  for (int bg = blockIdx.y; bg * kBmBins < p.m; bg += gridDim.y) {
+    const int b0 = bg * kBmBins;
+    if (any_screened) {
+      const int steps = (p.n - b0 + p.m - 1) / p.m;  // the group's first bin has the most columns
+      const int ntiles = (steps + kBmSteps - 1) / kBmSteps;
+#pragma unroll
+      for (int mt = 0; mt < kBmMt; ++mt) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int rl = wrow + mt * 16 + g + 8 * h;
+          const int row = __float_as_int(sh.q[rl].w);
+          const int bb = row % p.m - b0;
+          const bool here = p.exclude_self && sh.qc[rl].w == sh.qc[rl].w && bb >= 0 && bb < kBmBins;
+          th.self_t[mt][h] = here ? row / p.m : -1;
+          th.self_b[mt][h] = bb;
+        }
+#pragma unroll
+        for (int nt = 0; nt < kBmNt; ++nt) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            th.tt[mt][nt][i] = __int_as_float(0x7f800000);
+            th.bd[mt][nt][i] = __int_as_float(0x7f800000);  // (+inf, b) where nothing is confirmed
+            th.bj[mt][nt][i] = b0 + nt * 8 + 2 * kq + (i & 1);
+          }
+        }
+      }
+      const bool warp_screens = screened != 0u;
+      bm_pass<false>(sh, p, b0, ntiles, wrow, g, kq, warp_screens, th);
+      // tau = T + 2 alpha |q'|^2 + 2 beta, rounded up (a larger tau only
+      // confirms more), and tau' the next float above it: v <= tau iff
+      // v - tau' < 0. Pass 2's accumulator is -tau', +inf for rows that are
+      // not screened (no value passes)
+#pragma unroll
+      for (int mt = 0; mt < kBmMt; ++mt) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float qn = sh.qc[wrow + mt * 16 + g + 8 * h].w;
+          const float add = __fmaf_ru(2.0f * p.alpha, qn, 2.0f * p.beta);
+#pragma unroll
+          for (int nt = 0; nt < kBmNt; ++nt) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              float& t = th.tt[mt][nt][2 * h + e];
+              t = qn == qn ? -nextafterf(__fadd_ru(t, add), __int_as_float(0x7f800000))
+                           : __int_as_float(0x7f800000);
+            }
+          }
+        }
+      }
+      bm_pass<true>(sh, p, b0, ntiles, wrow, g, kq, warp_screens, th);
+      if (warp_screens) {
+#pragma unroll
+        for (int mt = 0; mt < kBmMt; ++mt) {
+#pragma unroll
+          for (int nt = 0; nt < kBmNt; ++nt) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int rl = wrow + mt * 16 + g + 8 * (i >> 1);
+              const int b = b0 + nt * 8 + 2 * kq + (i & 1);
+              if ((screened >> (rl - wrow)) & 1u && b < p.m) {
+                float d = th.bd[mt][nt][i];
+                int j = th.bj[mt][nt][i];
+                // the plain version starts a bin at its first column, so a
+                // NaN distance there (a NaN coordinate of column b) stays
+                const float4 c0 = __ldg(p.raw + b);
+                if (isnan(c0.x) || isnan(c0.y) || isnan(c0.z)) {
+                  const float4 q = sh.q[rl];
+                  if (!(p.exclude_self && b == __float_as_int(q.w))) {
+                    d = d2_diff(q.x, q.y, q.z, c0.x, c0.y, c0.z);
+                    j = b;
+                  }
+                }
+                p.d2[(r0 + rl) * p.m + b] = d;
+                p.idx[(r0 + rl) * p.m + b] = j;
+              }
+            }
+          }
+        }
+      }
+    }
+    // the exact sweep of the warp's rows the screen does not serve
+    const int bl = lane & (kBmBins - 1);
+    const int b = b0 + bl;
+    unsigned todo = exact;
+    while (todo) {
+      const int ra = __ffs(todo) - 1;
+      todo &= todo - 1;
+      int rb = -1;
+      if (todo) {
+        rb = __ffs(todo) - 1;
+        todo &= todo - 1;
+      }
+      const int rs = lane < kBmBins ? ra : rb;
+      const bool act = rs >= 0 && b < p.m;
+      const float4 q = sh.q[wrow + (rs >= 0 ? rs : ra)];
+      const int row = __float_as_int(q.w);
+      float bd = __int_as_float(0x7f800000);
+      int bj = b;
+      const int steps = act ? (p.n - b + p.m - 1) / p.m : 0;
+      for (int t = 0;; t += 4) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if (t + u < steps) {
+            const int j = b + p.m * (t + u);
+            const float4 c = __ldg(p.raw + j);
+            float d = d2_diff(q.x, q.y, q.z, c.x, c.y, c.z);
+            if (p.exclude_self && j == row) d = __int_as_float(0x7f800000);
+            if (d < bd || t + u == 0) {  // the first column starts the bin, as in the plain version
+              bd = d;
+              bj = j;
+            }
+          }
+        }
+        if (__all_sync(kFull, t + 4 >= steps || bd == 0.0f)) {
+          n_exact_pairs += (unsigned long long)min(t + 4, steps);
+          break;
+        }
+      }
+      if (act) {
+        p.d2[(r0 + wrow + rs) * p.m + b] = bd;
+        p.idx[(r0 + wrow + rs) * p.m + b] = bj;
+      }
+    }
+  }
+  // counts: rows once (the first bin group's blocks), confirms and exact pairs everywhere
+  const unsigned confirms = __reduce_add_sync(kFull, th.confirms);
+  const unsigned long long pairs = n_exact_pairs;
+  unsigned long long pairs_w = pairs;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) pairs_w += __shfl_xor_sync(kFull, pairs_w, o);
+  if (lane == 0) {
+    if (blockIdx.y == 0) {
+      atomicAdd(p.stats, (unsigned long long)__popc(screened));
+      atomicAdd(p.stats + 1, (unsigned long long)__popc(exact));
+    }
+    if (confirms) atomicAdd(p.stats + 2, (unsigned long long)confirms);
+    if (pairs_w) atomicAdd(p.stats + 3, pairs_w);
+  }
+}
+
+// The screen's accumulation, probed: d = a b + c for `tiles` 16 x 8 tiles
+// by bm_mma_c, the mma.sync of knn_binmin's pass 2 (pass 1's is the same
+// instruction with c = 0). a [tiles][16][16] and bt [tiles][8][16] (column
+// n's 16 K values in a row) as bf16 bit patterns, c and d [tiles][16][8]
+// f32; one warp a tile, fragments in the layout the kernel loads.
+__global__ void __launch_bounds__(256)
+bm_probe_kernel(const uint16_t* __restrict__ a, const uint16_t* __restrict__ bt, const float* __restrict__ c,
+                float* __restrict__ d, int tiles) {
+  const int t = blockIdx.x * 8 + (threadIdx.x >> 5);
+  if (t >= tiles) return;
+  const int lane = threadIdx.x & 31, g = lane >> 2, kq = lane & 3;
+  const uint16_t* at = a + 256LL * t + 2 * kq;
+  const uint16_t* bc = bt + 128LL * t + 16 * g + 2 * kq;
+  const auto pair = [](const uint16_t* v) { return (uint32_t)v[0] | ((uint32_t)v[1] << 16); };
+  const uint32_t fa[4] = {pair(at + 16 * g), pair(at + 16 * (g + 8)), pair(at + 16 * g + 8),
+                          pair(at + 16 * (g + 8) + 8)};
+  const long long o0 = 128LL * t + 8 * g + 2 * kq, o1 = o0 + 64;  // rows g and g + 8, columns 2kq, 2kq + 1
+  const float fc[4] = {c[o0], c[o0 + 1], c[o1], c[o1 + 1]};
+  float fd[4];
+  bm_mma_c(fd, fa, make_uint2(pair(bc), pair(bc + 8)), fc);
+  d[o0] = fd[0];
+  d[o0 + 1] = fd[1];
+  d[o1] = fd[2];
+  d[o1 + 1] = fd[3];
 }
 
 cudaError_t allow_smem(const void* fn) {
@@ -1165,15 +1626,28 @@ int slscan_slab_mean_knn_bisect(const float* pts, int L, int k, int r2b, int wbl
   return (int)cudaGetLastError();
 }
 
-int slscan_knn_binmin(const float* pts, const int32_t* rows, int n_rows, int n, int m, int exclude_self, float* d2,
-                      int32_t* idx, cudaStream_t stream) {
-  // a column index b + M t, padding steps included, stays below 33 n < 2^31;
-  // bins on grid.y
-  if (n_rows < 1 || n < 1 || n > (1 << 25) || m < 1 || m > n || (m + 31) / 32 > 65535) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const dim3 grid((n_rows + kBmRows - 1) / kBmRows, (m + 31) / 32);
-  knn_binmin_kernel<<<grid, kBmThreads, 0, stream>>>(pts, rows, n_rows, n, m, exclude_self, d2, idx);
+int slscan_knn_binmin(const float* pts, const int32_t* rows, int n_rows, int n, int m, int exclude_self,
+                      const float* terms, float alpha, float beta, void* op, void* raw, float* d2, int32_t* idx,
+                      unsigned long long* stats, cudaStream_t stream) {
+  // a column index b + M t, padding steps included, stays below 17 n < 2^31;
+  // op [n] 32-byte records and raw [n] 16-byte rows: the wrapper's scratch
+  if (n_rows < 1 || n < 1 || n > (1 << 25) || m < 1 || m > n) return (int)cudaErrorInvalidValue;
+  binmin_prep_kernel<<<(n + 255) / 256, 256, 0, stream>>>(pts, n, terms, alpha, static_cast<BmOp*>(op),
+                                                          static_cast<float4*>(raw));
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const BmArgs a{rows, n_rows, n, m, exclude_self, terms, alpha, beta, static_cast<const BmOp*>(op), static_cast<const float4*>(raw), d2, idx, stats};
+  // bin groups on grid.y (a block loops over groups beyond 65535)
+  const int groups = (m + kBmBins - 1) / kBmBins;
+  const dim3 grid((n_rows + kBmRows - 1) / kBmRows, groups < 65535 ? groups : 65535);
+  knn_binmin_kernel<<<grid, kBmThreads, 0, stream>>>(pts, a);
+  return (int)cudaGetLastError();
+}
+
+int slscan_bm_mma_probe(const uint16_t* a, const uint16_t* bt, const float* c, float* d, int tiles,
+                        cudaStream_t stream) {
+  if (tiles < 1) return (int)cudaErrorInvalidValue;
+  bm_probe_kernel<<<(tiles + 7) / 8, 256, 0, stream>>>(a, bt, c, d, tiles);
   return (int)cudaGetLastError();
 }
 

@@ -38,7 +38,7 @@ import threading
 import torch
 
 from structured_light_for_3d_model_replication_tpu_torch.ops import _build
-from structured_light_for_3d_model_replication_tpu_torch.ops.knn import sq_dist
+from structured_light_for_3d_model_replication_tpu_torch.ops.knn import FAR, sq_dist
 
 __all__ = ["decode_maps", "decode_maps_plain", "decode_packed_maps",
            "decode_packed_maps_plain", "scan_fused", "scan_fused_plain",
@@ -46,6 +46,8 @@ __all__ = ["decode_maps", "decode_maps_plain", "decode_packed_maps",
            "ransac_score_plain", "knn_mean", "knn_mean_plain", "slab_mean_knn",
            "slab_mean_knn_plain", "SELECT_MAX_K", "radius_count",
            "radius_count_plain", "binmin_bins", "bin_minima", "knn_binmin", "knn_binmin_plain",
+           "BINMIN_ALPHA", "BINMIN_BETA", "BINMIN_ACC", "binmin_screen_terms",
+           "binmin_margin", "binmin_stats", "binmin_mma_probe",
            "KERNELS", "launch_counts", "reset_launch_counts"]
 
 # ---------------------------------------------------------------------------
@@ -64,7 +66,8 @@ _SIGNATURES = {
     "slscan_slab_mean_knn": [_P] + [_I] * 5 + [_F] + [_P] * 4,
     "slscan_slab_mean_knn_bisect": [_P] + [_I] * 5 + [_F] + [_P] * 4,
     "slscan_radius_count": [_P, _I, _F, _P, _P],
-    "slscan_knn_binmin": [_P, _P] + [_I] * 4 + [_P, _P],
+    "slscan_knn_binmin": [_P, _P] + [_I] * 4 + [_P, _F, _F] + [_P] * 6,
+    "slscan_bm_mma_probe": [_P] * 4 + [_I, _P],
 }
 _declared: set[int] = set()
 
@@ -716,6 +719,78 @@ def radius_count(pts: torch.Tensor, r: float) -> torch.Tensor:
 BINMIN_MIN_BINS = 128     # XLA's ApproxTopK floor on its bin count (the TPU's tiling)
 _BINMIN_MAX_N = 1 << 25   # the entry's limit: column indices stay below 2^31
 _ROWS_CUDA = 1 << 26      # elements a chunk of knn_binmin_plain on the card
+# The tensor-core screen's margin (csrc/cloud.cu's note derives it):
+# |d2 - d2~| <= BINMIN_ALPHA * (|q'|^2 + |c'|^2) + BINMIN_BETA for every pair,
+# q' and c' centred on binmin_screen_terms' centroid.
+BINMIN_ALPHA = 2.0 ** -12
+BINMIN_BETA = 2.0 ** -60
+# The tensor cores' error in summing a tile's 16 bf16 products and its f32
+# accumulator, of the sum's absolute terms, that the margin's derivation
+# takes (csrc/cloud.cu's note); chip_smoke.py measures it on the card with
+# binmin_mma_probe and fails above it.
+BINMIN_ACC = 2.0 ** -20
+_BINMIN_HUGE = 2.0 ** 60  # a finite coordinate beyond this: every row takes the exact sweep
+_BINMIN_ROUTE = 16.0      # rows beyond 4x the unparked cloud's radius take the exact sweep
+
+
+def binmin_screen_terms(pts: torch.Tensor) -> torch.Tensor:
+    """The data terms of knn_binmin's screen, [mu_x, mu_y, mu_z, route_r2]
+    f32 on pts' device (no host sync): mu, the centroid of the unparked
+    points (every coordinate finite and below FAR / 2), on which the screen
+    centres rows and columns; route_r2, 16x the largest squared distance of
+    an unparked point from mu, rounded up to f32: a query row farther than
+    that from mu (a parked row, a non-finite row) takes the kernel's exact
+    sweep, since the margin (``binmin_margin``) grows with |q'|^2 and could
+    not narrow its bins. route_r2 is -1 (every row exact) where no point is
+    unparked or a finite coordinate exceeds 2^60, beyond which the screen's
+    f32 norms could overflow."""
+    p = pts.detach().to(torch.float32)
+    a = p.abs()
+    near = (a < FAR / 2).all(1)
+    pn = torch.where(near[:, None], p, 0.0)
+    cnt = near.sum()
+    mu = (pn.sum(0, dtype=torch.float64) / cnt.clamp(min=1)).float()
+    r2 = torch.where(near, ((pn - mu) ** 2).sum(1), 0.0).amax() if len(p) else p.new_zeros(())
+    route = _f32_up(_BINMIN_ROUTE * r2.double())
+    skip = ((a > _BINMIN_HUGE) & (a < math.inf)).any() | (cnt == 0)
+    return torch.cat([mu, torch.where(skip, -1.0, route)[None]])
+
+
+def _f32_up(v: torch.Tensor) -> torch.Tensor:
+    """The least f32 values >= the float64 values v."""
+    f = v.float()
+    return torch.where(f.double() < v, torch.nextafter(f, f.new_tensor(math.inf)), f)
+
+
+def binmin_margin(qn2, cn2):
+    """The screen's bound on |d2 - d2~| for a pair with centred squared norms
+    |q'|^2 = qn2 and |c'|^2 = cn2 (numbers or arrays)."""
+    return BINMIN_ALPHA * (qn2 + cn2) + BINMIN_BETA
+
+
+_stats: dict[torch.device, torch.Tensor] = {}
+
+
+def _binmin_stats_buffer(device: torch.device) -> torch.Tensor:
+    with _COUNT_LOCK:
+        buf = _stats.get(device)
+        if buf is None:
+            buf = _stats[device] = torch.zeros(4, dtype=torch.int64, device=device)
+        return buf
+
+
+def binmin_stats() -> dict[str, int]:
+    """What the knn_binmin kernel's launches in this process did, summed
+    over devices (a caller takes the difference of two readings): query rows
+    screened on the tensor cores, rows sent to the exact sweep, (row, column)
+    pairs confirmed exactly, pairs the exact sweep evaluated. One host sync a
+    device."""
+    with _COUNT_LOCK:
+        bufs = list(_stats.values())
+    tot = [0, 0, 0, 0]
+    for buf in bufs:
+        tot = [a + b for a, b in zip(tot, buf.tolist())]
+    return dict(zip(("screened_rows", "exact_rows", "confirms", "exact_pairs"), tot))
 
 
 def binmin_bins(n: int, k: int, recall: float) -> int:
@@ -778,25 +853,39 @@ def knn_binmin_plain(pts: torch.Tensor, rows: torch.Tensor, m: int,
     return torch.cat(d2s), torch.cat(idxs)
 
 
-def knn_binmin(pts: torch.Tensor, rows: torch.Tensor, m: int, exclude_self: bool = True):
+def knn_binmin(pts: torch.Tensor, rows: torch.Tensor, m: int, exclude_self: bool = True,
+               terms: torch.Tensor | None = None):
     """Each bin's nearest column for the query rows (see knn_binmin_plain):
     the partial reduce of a binned k-NN selection; a top-k over the M
     winners of a row (``knn._knn_binned``) is the selection.
 
     No Pallas original: the JAX package selects with XLA's
     ``lax.approx_min_k`` outside any Pallas kernel (ops/knn.py:188, 260;
-    ops/pointcloud.py:418), the TPU's PartialReduce beside the distance
-    math. ``knn_binmin_kernel`` does the same on the card: the distances and
-    the bin minima stay in registers, only the [R, M] winners are written.
-    Bound by operations, ~10 issued instructions a (row, column) pair, R x N
-    pairs. One launch; the row indices are checked against N first (one
-    host sync)."""
+    ops/pointcloud.py:418), the TPU's PartialReduce beside distances taken
+    on its matrix unit. ``knn_binmin_kernel`` screens on the tensor cores
+    and confirms on the CUDA cores (csrc/cloud.cu's note): a prep pass
+    writes each column's bf16 hi + lo record centred on
+    ``binmin_screen_terms``' centroid; pass 1 takes each (row, bin)'s least
+    upper bound d2~ + margin by mma.sync, pass 2 sends the columns whose
+    lower bound d2~ - margin reaches it to the exact difference d2, kept by
+    the lexicographic least (d2, j); rows the screen cannot narrow (parked,
+    non-finite) take an exact sweep that stops at d2 = 0. The result equals
+    the plain version bit for bit. Bound by the screen's CUDA-core
+    instructions (2.25 a (row, column) pair at least) and the tensor cores'
+    bf16 rate (two m16n8k16 a 128 pairs). ``terms`` is
+    ``binmin_screen_terms(pts)``, computed here where it is None: its
+    reductions over the cloud cost about a millisecond a call on the card
+    (``terms_ms``, chip_smoke.py phase 15(a)), so a caller that splits one
+    cloud's rows into chunks (``knn._knn_binned``) computes it once. One
+    launch of the entry (the prep pass and the kernel); the check of the
+    row indices is the one host sync. The counts of what it did add up in
+    ``binmin_stats``."""
     if _on_cpu(pts, rows):
         return knn_binmin_plain(pts, rows, m, exclude_self)
     n, r = pts.shape[0], rows.shape[0]
     _check(pts, "pts", torch.float32, (n, 3))
     _check(rows, "rows", torch.int32, (r,))
-    if not 1 <= m <= n or n > _BINMIN_MAX_N or -(-m // 32) > 65535:
+    if not 1 <= m <= n or n > _BINMIN_MAX_N:
         raise ValueError(f"knn_binmin: M = {m} bins over N = {n} columns is outside "
                          f"1 <= M <= N <= {_BINMIN_MAX_N}")
     d2 = torch.empty((r, m), dtype=torch.float32, device=pts.device)
@@ -805,10 +894,40 @@ def knn_binmin(pts: torch.Tensor, rows: torch.Tensor, m: int, exclude_self: bool
         lo, hi = (int(v) for v in torch.aminmax(rows))
         if lo < 0 or hi >= n:
             raise IndexError(f"knn_binmin: query rows span [{lo}, {hi}], outside [0, {n})")
+        if terms is None:
+            terms = binmin_screen_terms(pts)
+        _check(terms, "terms", torch.float32, (4,))
+        if terms.device != pts.device:
+            raise ValueError(f"terms on {terms.device}, points on {pts.device}")
+        op = torch.empty((n, 8), dtype=torch.int32, device=pts.device)    # 32-byte records
+        raw = torch.empty((n, 4), dtype=torch.float32, device=pts.device)  # 16-byte rows
         _launch("slscan_knn_binmin", pts.device, pts.data_ptr(), rows.data_ptr(), r, n,
-                int(m), int(bool(exclude_self)), d2.data_ptr(), idx.data_ptr())
+                int(m), int(bool(exclude_self)), terms.data_ptr(), BINMIN_ALPHA, BINMIN_BETA,
+                op.data_ptr(), raw.data_ptr(), d2.data_ptr(), idx.data_ptr(),
+                _binmin_stats_buffer(pts.device).data_ptr())
         _count(knn_binmin)
     return d2, idx
+
+
+def binmin_mma_probe(a: torch.Tensor, bt: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """d = a bt^T + c over tiles, by the mma.sync.m16n8k16 (bf16 products,
+    f32 accumulation) of knn_binmin's screen: a [T, 16, 16] and bt [T, 8,
+    16] bfloat16 (bt: each of the 8 columns' 16 K values in a row), c [T,
+    16, 8] f32 -> d [T, 16, 8] f32. No kernel of a path: it measures the
+    tensor cores' accumulation error, which the screen's margin takes as
+    BINMIN_ACC (chip_smoke.py). On the CPU the plain version: the sum in
+    float64, rounded once to f32."""
+    if _on_cpu(a, bt, c):
+        return (torch.einsum("tmk,tnk->tmn", a.double(), bt.double()) + c.double()).float()
+    t = a.shape[0]
+    _check(a, "a", torch.bfloat16, (t, 16, 16))
+    _check(bt, "bt", torch.bfloat16, (t, 8, 16))
+    _check(c, "c", torch.float32, (t, 16, 8))
+    d = torch.empty((t, 16, 8), dtype=torch.float32, device=a.device)
+    if t:
+        _launch("slscan_bm_mma_probe", a.device, a.data_ptr(), bt.data_ptr(), c.data_ptr(),
+                d.data_ptr(), t)
+    return d
 
 
 KERNELS = (decode_maps, decode_packed_maps, scan_fused, nn1, ransac_score,

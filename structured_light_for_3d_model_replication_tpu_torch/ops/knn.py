@@ -236,9 +236,10 @@ def _knn_binned(points: torch.Tensor, valid: torch.Tensor, k: int, exclude_self:
     kk = min(k, m)
     chunk = max(1, (_BINNED_CUDA if pts.is_cuda else _BINNED) // m)
     rows = torch.arange(n, dtype=torch.int32, device=pts.device)
+    terms = kernels.binmin_screen_terms(pts) if pts.is_cuda else None  # one cloud, every chunk
     keys = []
     for s in range(0, n, chunk):
-        d2, idx = kernels.knn_binmin(pts, rows[s:s + chunk], m, exclude_self)
+        d2, idx = kernels.knn_binmin(pts, rows[s:s + chunk], m, exclude_self, terms)
         keys.append(torch.topk(_keys(d2, idx.to(torch.int64)), kk, dim=1, largest=False,
                                sorted=True).values)
     return _unkey(torch.cat(keys), k, n)
