@@ -124,7 +124,7 @@ Imports nothing of JAX. Phases, each of which exits non-zero on failure:
    budget arm (``pipeline.run_budget_s=1``: the run aborts with a manifest
    and the register thread and every reconstruct-lane thread end). Every
    arm but the fault arm ends with no failure;
-9. the executor: (a) ``reconstruct`` over 10 views of the phase-2 render
+9. the executor: (a) ``reconstruct`` over 6 views of the phase-2 render
    (run right after phase 3, while the render is in memory), written once
    as PNG frame folders with libpng's adaptive row filters (loading
    decodes PNGs with the port's native stack decoder where it is built,
@@ -301,6 +301,26 @@ Imports nothing of JAX. Phases, each of which exits non-zero on failure:
    ``feature_group_gate``: one view's features prepped alone equal the same
    view padded into the device arm's shared bucket (beside phase 7's merged
    cloud: the views share one 2048-row bucket).
+16. the sharded arms (``sharded_phase``, after phase 14) on meshes of
+   SHARDS (4) repeated cuda:0 (one card: the pipeline's ``views_mesh`` and
+   ``merge_mesh`` stay None, so phases 1-15 ran unsharded): (a) phase 3's 8
+   views at 1080p through ``forward_views(mesh=)`` (table, quadratic) and
+   ``forward_views_packed(mesh=)``: the unsharded bytes, the arm's kernel
+   launched once a shard and nothing else; (b) the scan step at a (2, 2)
+   mesh: ``forward_views``' cloud byte for byte, n_valid and the bounding
+   box equal to numpy's, the centroid within 1e-6 of the extent; (c)
+   ``merge_360(mesh=)`` over phase 7's 24 cleaned views: the unsharded
+   host-list arm's transforms bit for bit, the slabs' voxel pass equal to
+   the single device's (cells equal, means within 1e-4 mm), every row kept
+   by one arm alone within 1e-5 of the threshold from it (exact k-NN), the
+   distance to the truth within 1.5x; the JAX test scene of (v) over 2 and
+   4 slabs with at most 4 rows unmatched; (d) Poisson on the mesh arm's
+   188,067 points: depth 9 on 4 slabs against the dense solve at 200 CG
+   steps (chi 1e-3, density 1e-4), depth 10 with 350 CG steps on 4 and on 2 slabs
+   (chi[::16]^3 within 1e-4, iso within 1e-5), each solve's wall, CG ms a
+   step and peak memory printed; (e) a child process joins a one-process
+   NCCL group: platform gpu, psum 1. Each arm prints its wall, peak device
+   memory and launches.
 
 Then one ``{"kernels": [...]}`` JSON line (times from phases 2, 4, 6 and 15,
 bounds from this run's shapes, and each kernel's launches from one run of
@@ -344,7 +364,7 @@ BINMIN_EXACT_INSTR = 9
 PROBE_TILES = 4096
 RECON_VIEWS = 8
 RECON_BATCH = 4
-EXEC_VIEWS = 10       # phase 9(a): two batches of 4 and a ragged tail of 2
+EXEC_VIEWS = 6        # phase 9(a): a batch of 4 and a ragged tail of 2 (cut from 10 for phase 16)
 EXEC_BATCH = 4
 # phase 10(a): the numpy arm decodes and triangulates each 1080p view on the
 # host (~1 s a view on one core) and writes ~1M points a view
@@ -510,7 +530,7 @@ SURFACE_JAX = {"faces": 511057, "surf_median_mm": 0.03402390588220783,
 # squares are 10 mm and the nearest board 400 mm away.
 # Phase 15(b): run_pipeline over the first FLAGSHIP_VIEWS of phase 3's 1080p
 # .slbp views (one render, per-view noise: the views share one pose).
-FLAGSHIP_VIEWS = 4
+FLAGSHIP_VIEWS = 3     # cut from 4 for phase 16's time
 # Phase 15(a): knn_binmin's query rows at the 1080p cluster shape and at the
 # merged cloud's normals shape (at the feature-prep shape every row); 15(b):
 # the exact arm's query subset, its time scaled to the view
@@ -1096,7 +1116,7 @@ def executor_phase(dev, rig, frames_np, card: str) -> None:
     filters (loading decodes them with cv2, else PIL, else the port's own
     reader; the phase prints which) and
     once as .slbp containers, in four arms: serial, pipelined, batched
-    (compute_batch 4: two full batches and a ragged tail of 2) and packed
+    (compute_batch 4: a full batch and a ragged tail of 2) and packed
     (the batched lane on the .slbp views). Gates: every arm's PLYs equal the
     serial arm's byte for byte; the decode kernel launches once a view in
     the per-view arms and once a batch in the batched arms, and nothing
@@ -4934,6 +4954,423 @@ def _ledger_events(path: str) -> list[dict]:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the sharded arms on a mesh of repeated cuda:0
+# ---------------------------------------------------------------------------
+
+SHARDS = 4                      # slots of the repeated-device mesh
+SHARD_DEPTH_DENSE = 9           # 16(d): the dense solve the sharded one is held to
+SHARD_DEPTH = 10                # 16(d): the slab-sharded depth-10 solve
+SHARD_CG = 350
+# 16(d): depth 9 against the dense solve at the JAX package's own test's CG
+# count (tests/test_poisson_sharded.py): at 350 steps the dense solve and the
+# sharded code on ONE slab already differ by 2.6e-3 in a few cells, the f32
+# reduction order amplified by the late CG steps
+# (tools/torch_sharded_poisson_noise.py; PERF.md section 6)
+SHARD_CG_DENSE = 200
+PP_CASE_POINTS = 11_940         # 16(c): the JAX test scene of (v), 60 far rows beside
+
+
+def _peak_gib() -> float:
+    import torch
+
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def _start_window() -> float:
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.ops import kernels
+
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return time.perf_counter()
+
+
+def _end_window(t0: float) -> tuple[float, dict, float]:
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.ops import kernels
+
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return wall, {k: n for k, n in kernels.launch_counts().items() if n}, _peak_gib()
+
+
+def _same(a, b) -> bool:
+    import torch
+
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def sharded_forward_phase(dev, rig, stacks, card: str) -> None:
+    """16(a) + (b). (a) phase 3's 8 views at 1080p through ``forward_views``
+    (table and quadratic) and ``forward_views_packed`` with ``mesh=`` a mesh
+    of SHARDS repeated cuda:0: the unsharded call's bytes, and the arm's
+    kernel launched once a shard and nothing else. (b) the scan step at a
+    (2, 2) mesh: the cloud equals ``forward_views`` (table, manual
+    thresholds) byte for byte, decode launched once a slot; its n_valid and
+    bounding box equal numpy's over that cloud, its centroid within 1e-6
+    of numpy's float64 mean (relative to the cloud's extent)."""
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.io import images as imio
+    from structured_light_for_3d_model_replication_tpu_torch.models.scanner import SLScanner
+    from structured_light_for_3d_model_replication_tpu_torch.parallel import mesh as meshlib
+    from structured_light_for_3d_model_replication_tpu_torch.parallel.scan import (
+        build_sharded_scan_step,
+    )
+
+    calib = rig.calibration()
+    mesh = meshlib.make_mesh(devices=[dev] * SHARDS)
+    frames = np.stack([imio.unpack_stack(s)[0] for s in stacks])
+    planes, white, black = (np.stack([getattr(s, k) for s in stacks])
+                            for k in ("planes", "white", "black"))
+    n_frames = stacks[0].n_frames
+    arms = [("table", {"plane_eval": "table"}, "decode_maps", False),
+            ("quadratic", {"plane_eval": "quadratic"}, "scan_fused", False),
+            ("packed", {"plane_eval": "table"}, "decode_packed_maps", True)]
+    for arm, kw, kernel, packed in arms:
+        scanner = SLScanner(calib, CAM, PROJ, device=dev, **kw)
+
+        def run(m):
+            if packed:
+                return scanner.forward_views_packed(planes, white, black, n_frames=n_frames,
+                                                    mesh=m)
+            return scanner.forward_views(frames, mesh=m)
+
+        whole = run(None)
+        t0 = _start_window()
+        sharded = run(mesh)
+        wall, counts, peak = _end_window(t0)
+        check(counts == {kernel: SHARDS},
+              f"16(a) {arm}: sharded forward launched {counts}, not {kernel} once for "
+              f"each of {SHARDS} shards")
+        check(_same(sharded, whole), f"16(a) {arm}: the sharded cloud differs from the "
+                                     f"unsharded call's")
+        print(json.dumps({"sharded": f"16(a) forward, {arm}", "views": int(frames.shape[0]),
+                          "shards": SHARDS, "wall_s": wall, "peak_gib": peak,
+                          "launches": counts, "valid": int(whole.valid.sum()),
+                          "card": card}), flush=True)
+        del whole, sharded
+    scanner = SLScanner(calib, CAM, PROJ, device=dev)
+    v = frames.shape[0]
+    cw, ch = CAM
+    step = build_sharded_scan_step(meshlib.make_mesh(2, 2, devices=[dev] * 4),
+                                   proj_size=PROJ, row_mode=1)
+    t0 = _start_window()
+    cloud, stats = step(frames, scanner.rays.reshape(ch, cw, 3), scanner.oc,
+                        scanner.plane_col, scanner.plane_row,
+                        np.full(v, 40.0, np.float32), np.full(v, 10.0, np.float32))
+    wall, counts, peak = _end_window(t0)
+    whole = scanner.forward_views(frames, thresh_mode="manual")
+    check(counts == {"decode_maps": 4}, f"16(b) scan step launched {counts}")
+    check(_same(cloud, whole), "16(b) the scan step's cloud differs from forward_views'")
+    valid = whole.valid.cpu().numpy().reshape(-1)
+    pts = whole.points.cpu().numpy().reshape(-1, 3)[valid]
+    ext = float((pts.max(0) - pts.min(0)).max())
+    got = {k: t.cpu().numpy() for k, t in stats.items()}
+    check(int(got["n_valid"]) == int(valid.sum()), f"16(b) n_valid {got['n_valid']}")
+    check(np.array_equal(got["bb_min"], pts.min(0)) and np.array_equal(got["bb_max"],
+                                                                       pts.max(0)),
+          f"16(b) bounding box {got['bb_min']} {got['bb_max']}")
+    cen = pts.astype(np.float64).mean(0)
+    check(np.abs(got["centroid"] - cen).max() <= 1e-6 * ext,
+          f"16(b) centroid {got['centroid']} vs numpy's {cen}")
+    print(json.dumps({"sharded": "16(b) scan step (2, 2)", "views": v, "wall_s": wall,
+                      "peak_gib": peak, "launches": counts, "n_valid": int(valid.sum()),
+                      "centroid_err_mm": float(np.abs(got["centroid"] - cen).max()),
+                      "card": card}), flush=True)
+
+
+def _cell_sorted(pts: np.ndarray, origin: np.ndarray, cell: float) -> np.ndarray:
+    """Voxel means sorted by their cell (a mean lies in its cell)."""
+    ijk = np.floor((pts - origin) / np.float32(cell)).astype(np.int64)
+    order = np.lexsort((ijk[:, 2], ijk[:, 1], ijk[:, 0]))
+    return pts[order], ijk[order]
+
+
+def _unmatched(a: np.ndarray, b: np.ndarray, tol: float = 1e-3):
+    """Rows of a with no row of b within tol, and the reverse."""
+    from scipy.spatial import cKDTree
+
+    a64, b64 = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return (a64[cKDTree(b64).query(a64, workers=-1)[0] > tol],
+            b64[cKDTree(a64).query(b64, workers=-1)[0] > tol])
+
+
+def sharded_merge_phase(dev, root: str, scene, card: str) -> None:
+    """16(c). ``merge_360(mesh=)`` over phase 7's 24 cleaned views with the
+    mesh of SHARDS repeated cuda:0, beside the unsharded host-list arm (the
+    arm a mesh takes) of the same views: the pair transforms bit-equal; the
+    final voxel pass slab by slab (``shard_points_by_slab`` + the slot's
+    voxelize) equal to the single-device one (the same cells, means within
+    1e-4 mm); every row kept by one arm alone (no row of the other within
+    1e-3 mm) has an exact mean k-NN distance (cKDTree over the voxelized
+    cloud) within 1e-5 x the threshold of the exact threshold; the merged
+    cloud's distance to the truth (median, p99) within 1.5x the unsharded
+    arm's. Then the JAX test scene of (v) (PP_CASE_POINTS points in an
+    80 mm cube and 60 far rows) over 2 and SHARDS slabs against the
+    single-device pass: at most 4 rows unmatched."""
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.config import (
+        MergeConfig,
+        load_config,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.models import (
+        reconstruction as recon,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.ops import pointcloud as pc
+    from structured_light_for_3d_model_replication_tpu_torch.ops import (
+        pointcloud_sharded as pcs,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.parallel import mesh as meshlib
+    from structured_light_for_3d_model_replication_tpu_torch.utils import (
+        synthetic as syn,
+    )
+    from scipy.spatial import cKDTree
+
+    cfg = load_config(None, PIPE_OVERRIDES).merge
+    clouds = read_clouds(os.path.join(root, "pipeline_cold", "views"))
+    mesh = meshlib.make_mesh(devices=[dev] * SHARDS)
+    quiet = lambda m: None  # noqa: E731
+    tm_u: dict = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p_u, _, T_u = recon.merge_360(clouds, cfg, log=quiet, timings=tm_u, device=dev,
+                                  step_callback=lambda *a: None)
+    torch.cuda.synchronize()
+    wall_u = time.perf_counter() - t0
+    tm_s: dict = {}
+    t0 = _start_window()
+    p_s, c_s, T_s = recon.merge_360(clouds, cfg, log=quiet, timings=tm_s, device=dev,
+                                    mesh=mesh)
+    wall, counts, peak = _end_window(t0)
+    check(tm_s["arm"] == "host-list" and tm_u["arm"] == "host-list",
+          f"16(c) arms {tm_s['arm']} / {tm_u['arm']}")
+    check(tm_s.get("postprocess_arm") == "slab-sharded",
+          f"16(c) the sharded merge's final pass: {tm_s.get('postprocess_arm')}")
+    check(len(T_s) == len(T_u) and all(np.array_equal(a, b) for a, b in zip(T_s, T_u)),
+          "16(c) the sharded merge's transforms differ from the unsharded arm's")
+    for k in ("nn1", "ransac_score"):
+        check(counts.get(k, 0) > 0, f"16(c) the sharded merge never launched {k}: {counts}")
+    check(len(p_s) == len(c_s) and len(p_s) > 0 and bool(np.isfinite(p_s).all()),
+          f"16(c) bad sharded merged cloud {p_s.shape}")
+    # the final voxel pass, slab by slab against the single device's
+    moved = recon.transform_views_batched([p for p, _ in clouds[1:]], T_s[1:], device=dev)
+    merged = np.concatenate([np.asarray(clouds[0][0], np.float32)] + moved)
+    cell = float(cfg.final_voxel)
+    pts_sh, cols_sh, val_sh, origin, _ = pcs.shard_points_by_slab(merged, None, None, SHARDS,
+                                                                  cell)
+    slabs = []
+    for d in range(SHARDS):
+        p, _, v = pcs._voxelize(*(torch.from_numpy(a[d]).to(dev)
+                                  for a in (pts_sh, cols_sh, val_sh)),
+                                cell, torch.from_numpy(origin))
+        slabs.append(p[v].cpu().numpy())
+    one = torch.from_numpy(merged).to(dev)
+    p1, _, v1 = pc.voxel_downsample(one, torch.zeros_like(one, dtype=torch.uint8),
+                                    torch.ones(len(one), dtype=torch.bool, device=dev), cell)
+    vox = p1[v1].cpu().numpy()
+    a, ka = _cell_sorted(np.concatenate(slabs), origin, cell)
+    b, kb = _cell_sorted(vox, origin, cell)
+    check(a.shape == b.shape and np.array_equal(ka, kb),
+          f"16(c) the slabs voxelize to {len(a)} cells, the single device to {len(b)}")
+    vox_err = float(np.abs(a - b).max())
+    check(vox_err <= 1e-4, f"16(c) voxel means differ by {vox_err} mm")
+    # rows kept by one arm alone sit on the threshold
+    only_s, only_u = _unmatched(p_s, p_u)
+    k = int(cfg.outlier_nb)
+    tree = cKDTree(vox.astype(np.float64))
+    md = tree.query(vox.astype(np.float64), k=k + 1, workers=-1)[0][:, 1:].mean(1)
+    thr = md.mean() + float(cfg.outlier_std) * md.std()
+    worst = 0.0
+    for rows in (only_s, only_u):
+        if len(rows):
+            mdr = tree.query(rows, k=k + 1, workers=-1)[0][:, 1:].mean(1)
+            worst = max(worst, float(np.abs(mdr - thr).max() / thr))
+    check(worst <= 1e-5, f"16(c) {len(only_s)} + {len(only_u)} rows kept by one arm alone, "
+                         f"up to {worst} x the threshold from it")
+    acc = {}
+    for name, pts in (("sharded", p_s), ("unsharded", p_u)):
+        surf = syn.surface_distance(pts, scene)
+        acc[name] = [float(np.median(surf)), float(np.percentile(surf, 99))]
+    for i, what in enumerate(("median", "p99")):
+        check(acc["sharded"][i] <= GATE * acc["unsharded"][i],
+              f"16(c) sharded merge {acc['sharded'][i]} mm from the truth ({what}), > "
+              f"{GATE} x the unsharded arm's {acc['unsharded'][i]}")
+    print(json.dumps({"sharded": "16(c) merge_360(mesh=)", "views": len(clouds),
+                      "shards": SHARDS, "wall_s": wall, "unsharded_wall_s": wall_u,
+                      "postprocess_arm": tm_s.get("postprocess_arm"),
+                      "walls_s": {k2: v2 for k2, v2 in tm_s.items()
+                                  if isinstance(v2, float)},
+                      "unsharded_walls_s": {k2: v2 for k2, v2 in tm_u.items()
+                                            if isinstance(v2, float)},
+                      "peak_gib": peak, "launches": counts, "merged_points": int(len(p_s)),
+                      "unsharded_points": int(len(p_u)), "voxel_cells": int(len(a)),
+                      "voxel_mean_err_mm": vox_err,
+                      "kept_by_one_arm": [int(len(only_s)), int(len(only_u))],
+                      "worst_share_from_threshold": worst, "truth_mm": acc,
+                      "card": card}), flush=True)
+    # the JAX test scene of (v)
+    rng = np.random.default_rng(31)
+    case = np.concatenate([rng.uniform(0, 80, (PP_CASE_POINTS, 3)),
+                           rng.uniform(200, 260, (60, 3))]).astype(np.float32)
+    cols = rng.integers(0, 256, (len(case), 3)).astype(np.uint8)
+    ref = recon._postprocess_merged(case, cols, MergeConfig(
+        final_voxel=2.0, outlier_nb=20, outlier_std=2.0), {}, device=dev)[0]
+    for n_dev in (2, SHARDS):
+        t0 = _start_window()
+        got = pcs.postprocess_merged_sharded([dev] * n_dev, case, cols, None, 2.0, 20, 2.0)[0]
+        wall, counts, peak = _end_window(t0)
+        a_only, b_only = _unmatched(got, ref)
+        check(len(a_only) + len(b_only) <= 4,
+              f"16(c) test scene over {n_dev} slabs: {len(a_only)} + {len(b_only)} rows "
+              f"unmatched")
+        print(json.dumps({"sharded": f"16(c) postprocess, test scene, {n_dev} slabs",
+                          "points": int(len(case)), "kept": int(len(got)),
+                          "unmatched": int(len(a_only) + len(b_only)), "wall_s": wall,
+                          "peak_gib": peak, "launches": counts, "card": card}), flush=True)
+
+
+def sharded_poisson_phase(dev, card: str) -> None:
+    """16(d). Poisson on the mesh arm's cloud (``mesh_cloud()``, normals as
+    ``mesh_cloud`` estimates them): depth SHARD_DEPTH_DENSE on SHARDS slabs
+    against the dense solve, both SHARD_CG_DENSE steps (chi within 1e-3,
+    density within 1e-4, the same grid frame), then depth SHARD_DEPTH with
+    SHARD_CG steps on SHARDS and on 2 slabs: ``chi[::16, ::16, ::16]``
+    within 1e-4, iso within 1e-5. Each solve's wall, CG ms a step and peak
+    device memory printed."""
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.config import MeshConfig
+    from structured_light_for_3d_model_replication_tpu_torch.ops import normals as nrmlib
+    from structured_light_for_3d_model_replication_tpu_torch.ops import poisson
+    from structured_light_for_3d_model_replication_tpu_torch.ops import (
+        poisson_sharded as ps,
+    )
+
+    cloud, _ = mesh_cloud()
+    mcfg = MeshConfig()
+    pts = torch.from_numpy(cloud).to(dev)
+    v = torch.ones(len(cloud), dtype=torch.bool, device=dev)
+    nr = nrmlib.orient_normals(pts, nrmlib.estimate_normals(
+        pts, v, k=mcfg.normal_max_nn, radius=mcfg.normal_radius or None), v, mode="radial")
+
+    def solve(depth, n, cg):
+        tm: dict = {}
+        t0 = _start_window()
+        res = (poisson.poisson_solve(pts, nr, v, depth=depth, cg_iters=cg) if n == 0
+               else ps.poisson_solve_sharded(pts, nr, v, depth=depth, devices=[dev] * n,
+                                             cg_iters=cg, timings=tm))
+        wall, counts, peak = _end_window(t0)
+        line = {"sharded": f"16(d) poisson depth {depth}",
+                "slabs": n or "dense", "points": int(len(cloud)), "cg_iters": cg,
+                "wall_s": wall, "peak_gib": peak, "launches": counts,
+                "iso": float(res.iso), "card": card}
+        if tm:
+            line.update(timings=tm, cg_ms_per_step=1e3 * tm["cg_s"] / cg)
+        print(json.dumps(line), flush=True)
+        check(peak < 78.0, f"16(d) depth {depth} on {n} slabs peaked at {peak} GiB")
+        return res
+
+    dense = solve(SHARD_DEPTH_DENSE, 0, SHARD_CG_DENSE)
+    sh = solve(SHARD_DEPTH_DENSE, SHARDS, SHARD_CG_DENSE)
+    d_chi = float((sh.chi - dense.chi).abs().max())
+    d_den = float((sh.density - dense.density).abs().max())
+    check(d_chi <= 1e-3 and d_den <= 1e-4,
+          f"16(d) depth {SHARD_DEPTH_DENSE}: chi {d_chi}, density {d_den} off the dense solve")
+    check(torch.equal(sh.origin, dense.origin) and float(sh.cell) == float(dense.cell),
+          f"16(d) depth {SHARD_DEPTH_DENSE}: another grid frame")
+    del dense, sh
+    torch.cuda.empty_cache()
+    r4 = solve(SHARD_DEPTH, SHARDS, SHARD_CG)
+    sub4, iso4 = r4.chi[::16, ::16, ::16].clone(), float(r4.iso)
+    check(bool(torch.isfinite(r4.chi).all()) and float(r4.chi.abs().sum()) > 0,
+          f"16(d) depth {SHARD_DEPTH}: chi not finite or all zero")
+    del r4
+    torch.cuda.empty_cache()
+    r2 = solve(SHARD_DEPTH, 2, SHARD_CG)
+    d_sub = float((r2.chi[::16, ::16, ::16] - sub4).abs().max())
+    d_iso = abs(float(r2.iso) - iso4)
+    del r2
+    torch.cuda.empty_cache()
+    check(d_sub <= 1e-4 and d_iso <= 1e-5,
+          f"16(d) depth {SHARD_DEPTH}: {SHARDS} against 2 slabs differ by chi {d_sub}, "
+          f"iso {d_iso}")
+    print(json.dumps({"sharded": f"16(d) depth {SHARD_DEPTH} split parity",
+                      "chi_sub16_max_diff": d_sub, "iso_diff": d_iso,
+                      "depth9_chi_max_diff": d_chi, "depth9_density_max_diff": d_den,
+                      "card": card}), flush=True)
+
+
+NCCL_CHILD = """
+import json, sys
+import torch
+from structured_light_for_3d_model_replication_tpu_torch.parallel import mesh as meshlib
+from structured_light_for_3d_model_replication_tpu_torch.parallel import multihost
+assert multihost.initialize(sys.argv[1], 1, 0, connect_timeout_s=120)
+s = multihost.process_summary()
+mesh = multihost.global_mesh()
+out = meshlib.psum(mesh, [torch.ones((), device="cuda")])
+s["psum"] = float(out[0])
+s["backend"] = torch.distributed.get_backend()
+torch.distributed.destroy_process_group()
+print(json.dumps(s), flush=True)
+"""
+
+
+def nccl_phase(card: str) -> None:
+    """16(e). A child process joins a one-process NCCL group on cuda:0
+    (``multihost.initialize("127.0.0.1:<free>", 1, 0)``): its summary says
+    platform gpu, and a psum over ``global_mesh()`` is 1."""
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.dirname(os.path.abspath(__file__)) + os.pathsep + env.get(
+        "PYTHONPATH", "")
+    t0 = time.perf_counter()
+    try:
+        out = subprocess.run([sys.executable, "-c", NCCL_CHILD, f"127.0.0.1:{port}"],
+                             env=env, capture_output=True, text=True, timeout=300)
+    except subprocess.TimeoutExpired:
+        fail("16(e) the NCCL child did not end within 300 s")
+    wall = time.perf_counter() - t0
+    check(out.returncode == 0, f"16(e) NCCL child exited {out.returncode}: "
+                               f"{out.stderr[-2000:]}")
+    summary = json.loads(out.stdout.strip().splitlines()[-1])
+    check(summary["platform"] == "gpu" and summary["psum"] == 1.0
+          and summary["backend"] == "nccl" and summary["process_count"] == 1,
+          f"16(e) NCCL child reported {summary}")
+    print(json.dumps({"sharded": "16(e) nccl", "wall_s": wall, "summary": summary,
+                      "card": card}), flush=True)
+
+
+def sharded_phase(dev, rig, stacks, root: str, scene, card: str) -> None:
+    """Phase 16: the sharded arms on meshes of repeated cuda:0 (one card
+    has one distinct device, so the pipeline's own ``views_mesh`` and
+    ``merge_mesh`` stay None and phases 1-15 run unsharded)."""
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.parallel import mesh as meshlib
+
+    check(meshlib.views_mesh() is None and meshlib.merge_mesh(None) is None,
+          "16: one card, yet a views or merge mesh resolved")
+    t0 = time.perf_counter()
+    sharded_forward_phase(dev, rig, stacks, card)
+    sharded_merge_phase(dev, root, scene, card)
+    sharded_poisson_phase(dev, card)
+    torch.cuda.empty_cache()
+    nccl_phase(card)
+    print(f"sharded: phase 16 took {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -4958,7 +5395,6 @@ def main() -> int:
     launches = reconstruct_phase(dev, rig, stacks, card)
     lines += flagship_phase(dev, rig, stacks, card)
     calibration_phase(dev, rig, frames_np, stacks, card)
-    del stacks
     executor_phase(dev, rig, frames_np, card)
     bitexact_phase(dev, rig, frames_np, card)
     del frames_np
@@ -4998,6 +5434,8 @@ def main() -> int:
         subset = subset_reference(dev, data, calib, root, card)
         coordinated_phase(dev, data, calib, root, cold, subset, card)
         serving_phase(dev, data, calib, root, cold, subset, card)
+        sharded_phase(dev, rig, stacks, root, scene, card)
+    del stacks
     for line in lines:
         line["launches"], line["launches_run"] = launches[line["name"]]
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f}s "

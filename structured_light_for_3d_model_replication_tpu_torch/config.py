@@ -8,13 +8,10 @@ JSON config file loads in both packages:
     ``clean``, ``merge``, ``mesh``, ``acquire``, ``faults``, ``deadlines``
     and ``observability`` are whole copies (with their env overrides); an
     unknown key there is an error, as in the JAX package;
-  - ``parallel`` carries ``backend``, ``force_bf16_features``,
-    ``compute_batch``, ``io_workers`` and ``prefetch_depth``; ``pipeline``,
-    ``coordinator`` and ``serving`` carry every key, and ``scan_root`` is
-    carried too. The other keys of ``parallel`` configure the JAX
-    package's device mesh, which the port does not have: they load without
-    effect, and the loader logs each one set away from the JAX package's
-    default, once a process (``_DROPPED``).
+  - ``parallel``, ``pipeline``, ``coordinator`` and ``serving`` carry
+    every key, and ``scan_root`` is carried too. ``_DROPPED`` is the table
+    of keys the port would load without effect (logged once a process when
+    set away from the JAX package's default); it is empty now.
 """
 from __future__ import annotations
 
@@ -185,9 +182,13 @@ class AcquireConfig:
 
 @dataclass
 class ParallelConfig:
-    """Execution knobs: the backend, the merge's feature precision and the
-    reconstruct lanes."""
+    """Execution knobs: the device mesh, the backend, the merge's feature
+    precision and the reconstruct lanes."""
 
+    # the mesh's axes, carried for the JAX package's config files (its code
+    # reads neither outside config.py): views, and pixel rows / point blocks
+    data_axis: int = 0
+    model_axis: int = 1
     # 'jax': the port's device path (the name is the JAX package's, so one
     # JSON config serves both packages); 'numpy': the host reference path,
     # decode and triangulate through the NumPy twins (no scanner, no batch)
@@ -196,6 +197,11 @@ class ParallelConfig:
     # the card); geometry stays f32. Off by default: the JAX package
     # measured global fitness 0.818 -> 0.608 with it on a TPU
     force_bf16_features: bool = False
+    # run the 360 merge over a device mesh (parallel/mesh.merge_mesh): the
+    # pairs shard over the devices, the accumulate over the views and the
+    # final voxel + outlier pass over z-slabs, whenever >= 2 distinct cards
+    # are attached; one card or the CPU is unaffected
+    merge_mesh: bool = False
     # host I/O threads for frame decode and the reconstruct lanes' prefetch
     # pool; <=1 (with compute_batch <= 1) runs the serial lane. Env
     # override: SL3D_IO_WORKERS.
@@ -210,6 +216,10 @@ class ParallelConfig:
     # launch. Env override: SL3D_COMPUTE_BATCH.
     compute_batch: int = field(
         default_factory=lambda: int(os.environ.get("SL3D_COMPUTE_BATCH", "8")))
+    # shard each view batch over every attached card (parallel/mesh.views_mesh)
+    # whenever >= 2 distinct cards are attached; one card or the CPU is
+    # unaffected. Not stage-cache key material: the bytes are the same.
+    shard_views: bool = True
 
 
 @dataclass
@@ -464,10 +474,7 @@ class Config:
 # The JAX package's keys the port loads without effect, with the JAX
 # package's defaults: a section name maps to its dropped keys; a name
 # mapping to a plain value is a dropped top-level key.
-_DROPPED: dict[str, Any] = {
-    "parallel": {"data_axis": 0, "model_axis": 1, "merge_mesh": False,
-                 "shard_views": True},
-}
+_DROPPED: dict[str, Any] = {}
 _SECTIONS = {"Config": None, "ParallelConfig": "parallel", "PipelineConfig": "pipeline"}
 _logged: set[str] = set()
 
@@ -587,8 +594,8 @@ def load_config(path: str | None = None,
     return cfg
 
 
-# The JAX package's key order where the port's differs: the top-level
-# sections and ``parallel``, whose dropped keys sit between the port's.
+# The JAX package's key order: the top-level sections, and ``parallel``
+# (the port's field order is the same; ``jax_dict`` checks both).
 _JAX_ORDER: dict[str, tuple[str, ...]] = {
     "": ("projector", "checkerboard", "decode", "triangulate", "clean", "merge",
          "mesh", "acquire", "parallel", "pipeline", "faults", "coordinator",
@@ -608,7 +615,7 @@ def jax_dict(cfg: Config) -> dict[str, Any]:
     ours = cfg.to_dict()
     out: dict[str, Any] = {}
     for top, order in _JAX_ORDER.items():   # a key missing here would drop silently
-        keys = set(ours) if top == "" else set(ours[top]) | set(_DROPPED[top])
+        keys = set(ours) if top == "" else set(ours[top]) | set(_DROPPED.get(top, {}))
         if not keys <= set(order):
             raise AssertionError(f"_JAX_ORDER[{top!r}] lacks {sorted(keys - set(order))}")
     for top in _JAX_ORDER[""]:

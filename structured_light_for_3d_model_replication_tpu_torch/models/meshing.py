@@ -1,6 +1,7 @@
 """Point cloud -> printable mesh (the JAX package's ``models/meshing.py``):
 normals, then either the watertight mode — screened Poisson
-(``ops/poisson.py`` dense up to depth 9, ``ops/poisson_bricks.py`` above),
+(``ops/poisson.py`` dense up to depth 9; depth 10 over two or more cards
+slab-sharded by ``ops/poisson_sharded.py``; ``ops/poisson_bricks.py`` above),
 Surface Nets extraction and the low-density trim — or the surface mode,
 the ball-pivoting analog of ``ops/surface_recon.py``; then the optional
 host post-ops of ``ops/meshproc.py``.
@@ -128,11 +129,12 @@ def _post_ops(verts, faces, cfg: MeshConfig, log):
 
 def _poisson_dispatch(pts: torch.Tensor, nr: torch.Tensor, v: torch.Tensor, depth: int,
                       log, density_cap: bool = True, timings: dict | None = None):
-    """Dense Poisson up to depth 9; above, the brick-refined solver on a
-    depth-9-at-most dense base. Depth 10 on the CPU steps down to dense 9
-    unless ``density_cap`` is false. The density cap first lowers the depth
-    to ~log2(sqrt(N)) + 1. (The JAX package's slab-sharded depth-10 solve
-    over several devices is not ported: one card takes the bricks.)"""
+    """Dense Poisson up to depth 9; depth 10 with two or more cards attached
+    (the grid divisible by their count) slab-sharded over them
+    (``poisson_sharded``); above, or on one card, the brick-refined solver
+    on a depth-9-at-most dense base. Depth 10 on the CPU steps down to dense
+    9 unless ``density_cap`` is false. The density cap first lowers the
+    depth to ~log2(sqrt(N)) + 1."""
     tm = timings if timings is not None else {}
     n = int(v.sum())
     cap = max(4, int(np.ceil(np.log2(max(n, 2)) / 2)) + 1)
@@ -154,6 +156,19 @@ def _poisson_dispatch(pts: torch.Tensor, nr: torch.Tensor, v: torch.Tensor, dept
         res = poisson.poisson_solve(pts, nr, v, depth=depth)
         log(f"[mesh] poisson depth={depth} iso={float(res.iso):.4f}")
         tm["poisson_base_s"] = time.perf_counter() - t0
+        return res
+    n_cards = torch.cuda.device_count() if pts.device.type == "cuda" else 0
+    if depth == 10 and n_cards >= 2 and (1 << depth) % n_cards == 0:
+        from structured_light_for_3d_model_replication_tpu_torch.ops import (
+            poisson_sharded,
+        )
+
+        res = poisson_sharded.poisson_solve_sharded(
+            pts, nr, v, depth=depth,
+            devices=[torch.device("cuda", i) for i in range(n_cards)])
+        tm["poisson_sharded_s"] = time.perf_counter() - t0
+        log(f"[mesh] poisson depth={depth} sharded over {n_cards} devices "
+            f"iso={float(res.iso):.4f}")
         return res
     res = poisson_bricks.poisson_solve_bricks(
         pts, nr, v, depth=depth, base_depth=min(9, cap, depth - 1), log=log,

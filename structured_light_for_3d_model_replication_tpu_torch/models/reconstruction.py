@@ -25,6 +25,13 @@ package:
 loop closure in one ``_register_chain_batched`` call and solves the pose
 graph (``ops/posegraph.py``).
 
+``mesh=`` (a ``parallel/mesh.DeviceMesh``, ``parallel.merge_mesh``) takes
+the host-list arm, as in the JAX package: the pairs shard over the mesh
+(``registration.register_pairs_sharded``, each pair at the lane count of
+the unsharded arm, so the same transforms), the accumulate over the views
+(``transform_views_batched``) and the final voxel + outlier pass over
+z-slabs (``ops/pointcloud_sharded``, ``_postprocess_dispatch``).
+
 Shapes follow the JAX package so the two index spaces agree: a view's raw
 points pad to a multiple of 8192, its voxel survivors to a multiple of 2048
 (its bucket), and a pair runs at the larger of its two buckets (the shared
@@ -274,7 +281,7 @@ def _prep_to_bucket(prep: _Prep, bucket: int):
 
 
 def register_prep_pairs(pairs, pair_ids, cfg: MergeConfig, voxel: float,
-                        samples=None, feat_bf16: bool | None = None):
+                        samples=None, feat_bf16: bool | None = None, mesh=None):
     """Register (prep_src, prep_dst) pairs: grouped by pair bucket (the
     larger of the two views' buckets), ``cfg.pair_batch`` pairs a launch
     group, whose ICP always runs on ``cfg.pair_batch`` lanes (a short group,
@@ -282,10 +289,14 @@ def register_prep_pairs(pairs, pair_ids, cfg: MergeConfig, voxel: float,
     pair), so a pair gives the same bytes in every group. ``pair_ids`` are
     each pair's global chain position, the seed of its draws; ``samples``
     an optional {pair index: [trials, 3]} of given draws; ``feat_bf16`` as
-    in ``registration.register_pairs``.
+    in ``registration.register_pairs``. ``mesh``: a group holds
+    ``pair_batch`` pairs per mesh slot and shards over the mesh
+    (``register_pairs_sharded``), each slot's ICP still on ``pair_batch``
+    lanes: the same bytes.
     Returns host (T [P, 4, 4], gfit, ifit, irmse) in input order."""
     n_pairs = len(pairs)
     batch = max(1, int(cfg.pair_batch))
+    group = batch * (mesh.size if mesh is not None else 1)
     T = np.zeros((n_pairs, 4, 4), np.float32)
     gf, fi, ir = (np.zeros(n_pairs, np.float32) for _ in range(3))
     kw = dict(max_dist=voxel * 1.5, icp_max_dist=voxel * float(cfg.icp_dist_ratio),
@@ -295,18 +306,19 @@ def register_prep_pairs(pairs, pair_ids, cfg: MergeConfig, voxel: float,
         by_bucket.setdefault(max(s.points.shape[0], d.points.shape[0]), []).append(i)
     for bucket in sorted(by_bucket):
         idxs = by_bucket[bucket]
-        for s0 in range(0, len(idxs), batch):
-            chunk = idxs[s0:s0 + batch]
+        for s0 in range(0, len(idxs), group):
+            chunk = idxs[s0:s0 + group]
             stacks = [[] for _ in range(7)]
             for i in chunk:
                 sp, sv, _, sf = _prep_to_bucket(pairs[i][0], bucket)
                 dp, dv, dn, df = _prep_to_bucket(pairs[i][1], bucket)
                 for k, a in enumerate((sp, sv, sf, dp, dv, df, dn)):
                     stacks[k].append(a)
-            out = reg.register_pairs(
-                *(torch.stack(s) for s in stacks), pair_ids=[pair_ids[i] for i in chunk],
-                samples=None if samples is None else [samples[i] for i in chunk],
-                icp_lanes=batch, **kw)
+            args = [torch.stack(s) for s in stacks]
+            ckw = dict(kw, pair_ids=[pair_ids[i] for i in chunk], icp_lanes=batch,
+                       samples=None if samples is None else [samples[i] for i in chunk])
+            out = (reg.register_pairs(*args, **ckw) if mesh is None
+                   else reg.register_pairs_sharded(mesh, *args, **ckw))
             T_l, gf_l, fi_l, ir_l = (o.detach().cpu().numpy() for o in out)
             for j, i in enumerate(chunk):
                 T[i], gf[i], fi[i], ir[i] = T_l[j], gf_l[j], fi_l[j], ir_l[j]
@@ -393,22 +405,25 @@ def _preprocess_views_device(dc: DeviceClouds, voxel: float):
 
 
 def _register_chain_batched(preps, cfg: MergeConfig, voxel: float, loop_closure: bool,
-                            feat_bf16: bool | None = None, samples=None):
+                            feat_bf16: bool | None = None, samples=None, mesh=None):
     """Every chain pair (i-1 <- i), and with ``loop_closure`` (0 <- n-1) as
     the last row, in ONE ``registration.register_pairs`` call on the preps'
     shared bucket: pair ids are positions in that batch (0..P-1), the
     JAX package's position keys. ``samples`` [P, trials, 3]: given draws.
+    ``mesh``: the call shards over the mesh, every slot's ICP on P lanes
+    (the unsharded call's), so the same transforms.
     Returns host (T [P, 4, 4], gfit [P], ifit [P], irmse [P])."""
     srcs = preps[1:] + ([preps[-1]] if loop_closure else [])
     dsts = preps[:-1] + ([preps[0]] if loop_closure else [])
-    out = reg.register_pairs(
-        torch.stack([p.points for p in srcs]), torch.stack([p.valid for p in srcs]),
-        torch.stack([p.features for p in srcs]), torch.stack([p.points for p in dsts]),
-        torch.stack([p.valid for p in dsts]), torch.stack([p.features for p in dsts]),
-        torch.stack([p.normals for p in dsts]),
-        max_dist=voxel * 1.5, icp_max_dist=voxel * float(cfg.icp_dist_ratio),
-        trials=cfg.ransac_trials, icp_iters=cfg.icp_iters, samples=samples,
-        feat_bf16=feat_bf16)
+    args = (torch.stack([p.points for p in srcs]), torch.stack([p.valid for p in srcs]),
+            torch.stack([p.features for p in srcs]), torch.stack([p.points for p in dsts]),
+            torch.stack([p.valid for p in dsts]), torch.stack([p.features for p in dsts]),
+            torch.stack([p.normals for p in dsts]))
+    kw = dict(max_dist=voxel * 1.5, icp_max_dist=voxel * float(cfg.icp_dist_ratio),
+              trials=cfg.ransac_trials, icp_iters=cfg.icp_iters, samples=samples,
+              feat_bf16=feat_bf16)
+    out = (reg.register_pairs(*args, **kw) if mesh is None
+           else reg.register_pairs_sharded(mesh, *args, icp_lanes=len(srcs), **kw))
     return tuple(o.detach().cpu().numpy().astype(np.float32) for o in out)
 
 
@@ -482,27 +497,41 @@ def _chain(T_pairs, gfit_all, ifit_all, irmse_all, log, seed=None):
     return transforms
 
 
-def transform_views_batched(points_list, transforms, device=None):
+def transform_views_batched(points_list, transforms, device=None, mesh=None):
     """Apply per-view transforms as one padded [V, S, 3] batch on
     ``device``: x' = ((r0 x + r1 y) + r2 z) + t per row, in that order on
-    every device. Returns the moved f32 arrays in input order."""
+    every device. ``mesh``: the view axis (padded to a multiple of the
+    slot count with empty views) shards over the mesh, each slot moving
+    its views on its device: the same bytes. Returns the moved f32 arrays
+    in input order."""
     n = len(points_list)
     if n == 0:
         return []
-    dev = resolve_device(device)
+    vb = n if mesh is None else -(-n // mesh.size) * mesh.size
     slots = _bucket_pad(max(len(p) for p in points_list))
-    P = np.zeros((n, slots, 3), np.float32)
+    P = np.zeros((vb, slots, 3), np.float32)
     for i, p in enumerate(points_list):
         P[i, :len(p)] = np.asarray(p, np.float32)
-    T = torch.from_numpy(np.stack([np.asarray(t, np.float32) for t in transforms]))
-    out = _apply_transforms(torch.from_numpy(P).to(dev), T.to(dev)).cpu().numpy()
+    T = torch.from_numpy(np.stack([np.asarray(transforms[min(i, n - 1)], np.float32)
+                                   for i in range(vb)]))
+    if mesh is None:
+        dev = resolve_device(device)
+        out = _apply_transforms(torch.from_numpy(P).to(dev), T.to(dev)).cpu().numpy()
+    else:
+        from structured_light_for_3d_model_replication_tpu_torch.parallel import (
+            mesh as meshlib,
+        )
+
+        moved = [_apply_transforms(p, t) for p, t in
+                 zip(meshlib.batch_sharding(mesh, P), meshlib.batch_sharding(mesh, T))]
+        out = meshlib.gather_shards(moved, "cpu").numpy()
     return [out[i, :len(points_list[i])] for i in range(n)]
 
 
 def finalize_chain(clouds, T_pairs, gfit_all, ifit_all, irmse_all,
                    cfg: MergeConfig | None = None, log=print,
                    timings: dict | None = None, device=None, step_callback=None,
-                   prefold=None):
+                   prefold=None, mesh=None):
     """Chain-accumulate the pair transforms (host f32 matmuls), move views
     1..n-1 into view 0's frame in one batch, concatenate, and run the final
     voxel/outlier pass. Returns (points, colors, transforms).
@@ -516,7 +545,9 @@ def finalize_chain(clouds, T_pairs, gfit_all, ifit_all, irmse_all,
     views stand for the first ``len(prefold.transforms)`` views and only
     the suffix is chained and moved here; the fold moved its views with
     ``_apply_transforms`` on the CPU, bit-equal to this batch on any
-    device, so the merged bytes do not depend on how much was folded."""
+    device, so the merged bytes do not depend on how much was folded.
+    ``mesh``: the move shards over the views and the final pass over
+    z-slabs (``_postprocess_dispatch``)."""
     cfg = cfg or MergeConfig()
     tm = timings if timings is not None else {}
     n = len(clouds)
@@ -530,7 +561,7 @@ def finalize_chain(clouds, T_pairs, gfit_all, ifit_all, irmse_all,
     moved = ([np.asarray(p, np.float32) for p in prefold.merged_p[1:start]]
              if seed is not None else [])
     moved += transform_views_batched([clouds[i][0] for i in range(start, n)],
-                                     transforms[start:], device=device)
+                                     transforms[start:], device=device, mesh=mesh)
     if step_callback is not None:
         total = len(clouds[0][0])
         step_callback(0, np.asarray(clouds[0][0], np.float32),
@@ -542,9 +573,36 @@ def finalize_chain(clouds, T_pairs, gfit_all, ifit_all, irmse_all,
     colors = np.concatenate([np.asarray(c, np.uint8) for _, c in clouds])
     tm["accumulate_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    points, colors = _postprocess_merged(points, colors, cfg, tm, device=device)
+    points, colors = _postprocess_dispatch(points, colors, cfg, tm, mesh, log, device)
     tm["postprocess_s"] = time.perf_counter() - t0
     return points, colors, transforms
+
+
+def _postprocess_dispatch(points, colors, cfg: MergeConfig, tm: dict, mesh, log,
+                          device=None, valid=None):
+    """The slab-sharded final pass over ``mesh`` when the config runs the
+    full voxel -> outlier chain (``ops/pointcloud_sharded``), else the
+    single-device pass; also that pass, logged, where the cloud cannot be
+    slabbed (``SlabRefused``: too thin, too wide, or too many uncertified
+    rows). Any other error propagates. ``tm["postprocess_arm"]`` says which
+    ran ("slab-sharded", "single-device" or "single-device (refused: ...)")."""
+    if mesh is not None and _full_postprocess(cfg):
+        from structured_light_for_3d_model_replication_tpu_torch.ops import (
+            pointcloud_sharded as pcs,
+        )
+
+        try:
+            out = pcs.postprocess_merged_sharded(
+                mesh, points, colors, valid, float(cfg.final_voxel), cfg.outlier_nb,
+                cfg.outlier_std)
+            tm["postprocess_arm"] = "slab-sharded"
+            return out
+        except pcs.SlabRefused as e:
+            log(f"[merge] sharded postprocess unavailable ({e}); single-device pass")
+            tm["postprocess_arm"] = f"single-device (refused: {e})"
+    else:
+        tm["postprocess_arm"] = "single-device"
+    return _postprocess_merged(points, colors, cfg, tm, device=device, valid=valid)
 
 
 def _postprocess_merged(points, colors, cfg: MergeConfig, tm: dict | None = None,
@@ -581,7 +639,7 @@ def _postprocess_merged(points, colors, cfg: MergeConfig, tm: dict | None = None
 
 
 def _merge_host_list(clouds, cfg: MergeConfig, log, tm: dict, dev: torch.device,
-                     step_callback=None, feat_bf16: bool | None = None):
+                     step_callback=None, feat_bf16: bool | None = None, mesh=None):
     """The host-list arm: per-view ``prep_view``, ``register_prep_pairs``
     with chain-position ids, ``finalize_chain`` — the computation the
     streamed pipeline runs in another schedule, byte for byte."""
@@ -593,15 +651,15 @@ def _merge_host_list(clouds, cfg: MergeConfig, log, tm: dict, dev: torch.device,
     t0 = time.perf_counter()
     T_all, gfit, ifit, irmse = register_prep_pairs(
         [(preps[i], preps[i - 1]) for i in range(1, n)], list(range(n - 1)), cfg, voxel,
-        feat_bf16=feat_bf16)
+        feat_bf16=feat_bf16, mesh=mesh)
     tm["register_s"] = time.perf_counter() - t0
     return finalize_chain(clouds, T_all, gfit, ifit, irmse, cfg, log=log,
-                          timings=tm, device=dev, step_callback=step_callback)
+                          timings=tm, device=dev, step_callback=step_callback, mesh=mesh)
 
 
 def merge_360(clouds, cfg: MergeConfig | None = None, log=print,
               timings: dict | None = None, device=None, step_callback=None,
-              feat_bf16: bool | None = None):
+              feat_bf16: bool | None = None, mesh=None):
     """Merge ordered per-view clouds [(points [N, 3] f32, colors [N, 3] u8),
     ...], or a ``DeviceClouds`` stack, into one 360-degree cloud on
     ``device`` (None -> cuda; a DeviceClouds stack stays on its own
@@ -616,26 +674,29 @@ def merge_360(clouds, cfg: MergeConfig | None = None, log=print,
     wall, synchronized by the host transfers that end each stage), ``arm``
     ('device' or 'host-list') and, where the gate refused, ``refused``.
     ``step_callback``: as in ``finalize_chain`` (it closes the gate).
-    ``feat_bf16``: as in ``registration.register_pairs``."""
+    ``feat_bf16``: as in ``registration.register_pairs``. ``mesh``: a
+    DeviceMesh shards the merge (module docstring; it closes the gate)."""
     cfg = cfg or MergeConfig()
     voxel = float(cfg.voxel_size)
     tm = timings if timings is not None else {}
-    why: list[str] = []
+    # a mesh refuses the device arm first (the JAX package's gate)
+    why = [] if mesh is None else [f"a {mesh.size}-slot mesh shards the merge"]
     dc = clouds if isinstance(clouds, DeviceClouds) else None
     if dc is not None:
         dev = dc.points.device if device is None else resolve_device(device)
         v_cnt, slots = dc.points.shape[0], dc.points.shape[1]
         cnts = (dc.counts if dc.counts is not None
                 else dc.valid.sum(1).cpu().numpy().astype(int))
-        if not (v_cnt > 1 and _device_accumulate_ok(cfg, step_callback, v_cnt, slots,
-                                                   int(np.sum(cnts)), dev, why)):
+        if why or not (v_cnt > 1 and _device_accumulate_ok(cfg, step_callback, v_cnt, slots,
+                                                           int(np.sum(cnts)), dev, why)):
             clouds, dc = dc.to_host_list(), None
     else:
         dev = resolve_device(device)
     n = dc.points.shape[0] if dc is not None else len(clouds)
     if n == 1:
         tm["arm"] = "host-list"
-        points, colors = _postprocess_merged(clouds[0][0], clouds[0][1], cfg, tm, dev)
+        points, colors = _postprocess_dispatch(clouds[0][0], clouds[0][1], cfg, tm, mesh,
+                                               log, dev)
         return points, colors, [np.eye(4, dtype=np.float32)]
     if dc is None and not why:
         n_raw_est = -(-max(len(p) for p, _ in clouds) // 8192) * 8192
@@ -643,7 +704,7 @@ def merge_360(clouds, cfg: MergeConfig | None = None, log=print,
                               sum(len(p) for p, _ in clouds), dev, why)
     if why:
         tm["arm"], tm["refused"] = "host-list", why[0]
-        return _merge_host_list(clouds, cfg, log, tm, dev, step_callback, feat_bf16)
+        return _merge_host_list(clouds, cfg, log, tm, dev, step_callback, feat_bf16, mesh)
     tm["arm"] = "device"
     t0 = time.perf_counter()
     if dc is not None:
@@ -676,7 +737,8 @@ def merge_360(clouds, cfg: MergeConfig | None = None, log=print,
 
 def merge_360_posegraph(clouds, cfg: MergeConfig | None = None, log=print,
                         pg_iters: int = 20, step_callback=None, device=None,
-                        feat_bf16: bool | None = None, timings: dict | None = None):
+                        feat_bf16: bool | None = None, timings: dict | None = None,
+                        mesh=None):
     """Multiway pose-graph merge (the JAX package's): every view prepped at
     one shared bucket (``_preprocess_views``); the n - 1 odometry edges
     (i-1 <- i) and the loop closure (0 <- n-1) registered in one
@@ -687,7 +749,8 @@ def merge_360_posegraph(clouds, cfg: MergeConfig | None = None, log=print,
     colors, total)`` gets each moved view, then the final voxel / outlier
     pass. Fewer than 3 views: ``merge_360``. Returns host (points, colors,
     transforms), transforms[i] world-from-view-i (world = view 0's
-    frame before the solve)."""
+    frame before the solve). ``mesh``: the edges, the move and the final
+    pass shard over it, as in ``merge_360``."""
     from structured_light_for_3d_model_replication_tpu_torch.ops import posegraph as pglib
 
     cfg = cfg or MergeConfig()
@@ -695,7 +758,7 @@ def merge_360_posegraph(clouds, cfg: MergeConfig | None = None, log=print,
     n = len(clouds)
     if n < 3:
         return merge_360(clouds, cfg, log=log, timings=tm, device=device,
-                         step_callback=step_callback, feat_bf16=feat_bf16)
+                         step_callback=step_callback, feat_bf16=feat_bf16, mesh=mesh)
     dev = resolve_device(device)
     voxel = float(cfg.voxel_size)
     t0 = time.perf_counter()
@@ -703,7 +766,7 @@ def merge_360_posegraph(clouds, cfg: MergeConfig | None = None, log=print,
     tm["preprocess_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     T_all, gfit, ifit, irmse = _register_chain_batched(preps, cfg, voxel, True,
-                                                       feat_bf16=feat_bf16)
+                                                       feat_bf16=feat_bf16, mesh=mesh)
     tm["register_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     ei, ej, edge_T, edge_w = [], [], [], []
@@ -735,7 +798,8 @@ def merge_360_posegraph(clouds, cfg: MergeConfig | None = None, log=print,
     transforms = list(res.poses.cpu().numpy().astype(np.float32))
     tm["solve_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    moved = transform_views_batched([p for p, _ in clouds], transforms, device=dev)
+    moved = transform_views_batched([p for p, _ in clouds], transforms, device=dev,
+                                    mesh=mesh)
     cols = [np.asarray(c, np.uint8) for _, c in clouds]
     if step_callback is not None:
         total = 0
@@ -744,8 +808,8 @@ def merge_360_posegraph(clouds, cfg: MergeConfig | None = None, log=print,
             step_callback(i, moved[i], cols[i], total)
     tm["accumulate_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    points, colors = _postprocess_merged(np.concatenate(moved), np.concatenate(cols),
-                                         cfg, tm, dev)
+    points, colors = _postprocess_dispatch(np.concatenate(moved), np.concatenate(cols),
+                                           cfg, tm, mesh, log, dev)
     tm["postprocess_s"] = time.perf_counter() - t0
     return points, colors, transforms
 

@@ -15,8 +15,15 @@ Three device routes, each through a CUDA kernel of ``ops/kernels.py``:
     then the same triangulation as the table route.
 
 Texture is one gray channel (frame 0), replicated to RGB at compaction.
+
+``mesh=`` (a ``parallel/mesh.DeviceMesh``) shards the view axis over every
+mesh slot: each shard runs the same route on its device (a replica of the
+calibration buffers there) and the clouds are gathered on the scanner's
+device, so a sharded call returns the unsharded call's bytes.
 """
 from __future__ import annotations
+
+import copy
 
 import numpy as np
 import torch
@@ -145,15 +152,53 @@ class SLScanner(nn.Module):
                                  shadow_val, contrast_val)
         return tri.CloudResult(out.points[0], out.colors[0], out.valid[0])
 
+    def _replica(self, dev: torch.device) -> "SLScanner":
+        """This scanner with its buffers on ``dev`` (itself on its own
+        device); rebuilt when a buffer was replaced or changed in place."""
+        if dev == self.device:
+            return self
+        key = (str(dev),) + tuple((b.data_ptr(), b._version) for b in self.buffers())
+        # {key: replica}, kept out of the replicas themselves
+        reps = self.__dict__.setdefault("_replicas", {})
+        if key not in reps:
+            for stale in [k for k in reps if k[0] == key[0]]:
+                del reps[stale]
+            reps[key] = copy.deepcopy(self, {id(reps): {}}).to(dev)
+        return reps[key]
+
+    def _sharded(self, mesh, inputs, run) -> tri.CloudResult:
+        """``run(replica, *shards)`` on each of this process's mesh slots,
+        the inputs' view axis split over every slot, the clouds gathered on
+        this scanner's device."""
+        from structured_light_for_3d_model_replication_tpu_torch.parallel import (
+            mesh as meshlib,
+        )
+
+        v, n_dev = int(inputs[0].shape[0]), mesh.size
+        if v % n_dev:
+            raise ValueError(
+                f"sharded view batch: {v} views not a multiple of the {n_dev}-device "
+                f"mesh (the executor's bucket padding must round to the device count)")
+        shards = [meshlib.batch_sharding(mesh, x) for x in inputs]
+        outs = [run(self._replica(dev), *(s[k] for s in shards))
+                for k, dev in enumerate(mesh.local_devices())]
+        return tri.CloudResult(*(meshlib.gather_shards(list(parts), self.device)
+                                 for parts in zip(*outs)))
+
     def forward_views(self, frames_v, thresh_mode: str = "otsu",
                       shadow_val: float = 40.0, contrast_val: float = 10.0,
-                      use_fused: bool | None = None) -> tri.CloudResult:
+                      use_fused: bool | None = None, mesh=None) -> tri.CloudResult:
         """Views: uint8 [V, F, H, W] -> CloudResult with a leading V axis.
 
         ``use_fused``: None takes the fused kernel wherever ``_fuse_capable``
         holds; False forces decode + triangulate; True requires the fused
-        kernel (raises if the configuration cannot take it).
+        kernel (raises if the configuration cannot take it). ``mesh``: a
+        DeviceMesh shards the views over its slots (V a multiple of its
+        size), the same bytes as the unsharded call.
         """
+        if mesh is not None:
+            return self._sharded(mesh, [frames_v], lambda rep, f: rep.forward_views(
+                f, thresh_mode, shadow_val, contrast_val, use_fused=use_fused))
         frames_v = self._on_device(frames_v)
         if use_fused and not self._fuse_capable(frames_v):
             raise ValueError("use_fused=True but this configuration cannot "
@@ -170,12 +215,19 @@ class SLScanner(nn.Module):
     def forward_views_packed(self, planes_v, white_v, black_v, *,
                              n_frames: int, thresh_mode: str = "otsu",
                              shadow_val: float = 40.0,
-                             contrast_val: float = 10.0) -> tri.CloudResult:
+                             contrast_val: float = 10.0, mesh=None) -> tri.CloudResult:
         """Packed ingest: bit-planes u8 [V, ceil(P/8), H, W] plus the
         verbatim white/black frames [V, H, W] of stacks with ``n_frames``
         frames. Bit-identical to ``forward_views(use_fused=False)`` on the
         raw stacks: thresholds read only white/black, the texture is the
-        white frame, and the planes hold decode's comparison bits."""
+        white frame, and the planes hold decode's comparison bits. ``mesh``:
+        as in ``forward_views``."""
+        if mesh is not None:
+            return self._sharded(
+                mesh, [planes_v, white_v, black_v],
+                lambda rep, p, w, b: rep.forward_views_packed(
+                    p, w, b, n_frames=n_frames, thresh_mode=thresh_mode,
+                    shadow_val=shadow_val, contrast_val=contrast_val))
         planes_v = self._on_device(planes_v)
         white_v = self._on_device(white_v)
         black_v = self._on_device(black_v)

@@ -352,10 +352,13 @@ def _slab_certify(pts_s, order, md, cnt, win_end, r: float, k: int) -> torch.Ten
 # ---------------------------------------------------------------------------
 
 def voxel_downsample(points: torch.Tensor, colors: torch.Tensor,
-                     valid: torch.Tensor, voxel_size: float):
+                     valid: torch.Tensor, voxel_size: float,
+                     origin: torch.Tensor | None = None):
     """Average points (and colors) per voxel. Fixed shape: returns
     (points [N, 3] f32, colors [N, 3] u8, valid [N]), one slot a surviving
     voxel in ascending (i, j, k) cell order; survivors fill a slot prefix.
+    ``origin`` [3]: the grid's corner (default: the valid points' minimum),
+    so that pieces of one cloud voxelize on one grid.
 
     Grids under 2^10 cells per axis group on one packed int32 key (the JAX
     package's packed arm), larger ones on an int64 key of three 21-bit
@@ -364,10 +367,13 @@ def voxel_downsample(points: torch.Tensor, colors: torch.Tensor,
     depend on the device's atomic order."""
     vs = torch.tensor(voxel_size, dtype=torch.float32, device=points.device)
     lo, hi = _masked_extent(points, valid)
+    if origin is not None:
+        lo = origin = origin.to(points.device, torch.float32)
     packed = bool(torch.all(torch.floor((hi - lo) / vs) < 1023))
     n = points.shape[0]
     inf = torch.tensor(float("inf"), dtype=torch.float32, device=points.device)
-    origin = torch.where(valid[:, None], points, inf).amin(0)
+    if origin is None:
+        origin = torch.where(valid[:, None], points, inf).amin(0)
     ijk = torch.floor((points - origin) / vs)
     if packed:
         ijk = torch.clamp(ijk, 0, 1023).to(torch.int32)

@@ -1,6 +1,6 @@
 """Rigid registration: FPFH features, batched-hypothesis RANSAC, point-to-plane
 ICP (the JAX package's ``ops/registration.py``; its hash-grid ICP arm, a
-host-only engine there, and its sharded pair batch are not ported).
+host-only engine there, is not ported).
 
   - Correspondences: a dense feature-distance product, chunked over source
     rows, with Open3D's mutual filter; ``feat_bf16``
@@ -17,6 +17,10 @@ host-only engine there, and its sharded pair batch are not ported).
     group, at a fixed lane count (``lanes``, padded with copies), with the
     converged pairs masked, so a pair's transform never depends on the
     pairs it is launched with either.
+  - ``register_pairs_sharded`` spreads a group of pairs over a device
+    mesh: each slot runs ``register_pairs`` on its share, on its device, at
+    the lane count the caller gives, so a pair's transform is the one the
+    unsharded call at that lane count returns.
   - ``icp_point_to_plane`` and ``ransac_global_registration`` are the
     standalone one-pair entry points; on the card they launch ``nn1`` (and
     ``ransac_score``) at every size.
@@ -40,7 +44,7 @@ from structured_light_for_3d_model_replication_tpu_torch.utils.device import (
 
 __all__ = ["RegistrationResult", "exact_f32_products", "transform_points", "compose",
            "kabsch", "fpfh_features", "pair_generator", "icp_point_to_plane",
-           "ransac_global_registration", "register_pairs"]
+           "ransac_global_registration", "register_pairs", "register_pairs_sharded"]
 
 
 class RegistrationResult(NamedTuple):
@@ -499,3 +503,53 @@ def register_pairs(src_pts, src_valid, src_feat, dst_pts, dst_valid, dst_feat,
     T, fit, rmse = _icp_core(src_pts, src_valid, dst_pts, dst_valid, dst_normals,
                              torch.stack(T0), icp_max_dist, icp_iters, lanes=icp_lanes)
     return T, torch.stack(gfit), fit, rmse
+
+
+def register_pairs_sharded(mesh, src_pts, src_valid, src_feat, dst_pts, dst_valid,
+                           dst_feat, dst_normals, max_dist: float, icp_max_dist: float,
+                           trials: int = 4096, icp_iters: int = 30, edge_sim: float = 0.9,
+                           seed: int = 0, mutual: bool = True, refine_iters: int = 3,
+                           pair_ids=None, samples=None, feat_bf16: bool | None = None,
+                           icp_lanes: int | None = None):
+    """``register_pairs`` spread over a device mesh (``parallel/mesh``): the
+    P pairs split into runs of ceil(P / slots), data-major over the slots,
+    each slot registering its run on its own device with no collective on
+    the way (a slot past the last pair idles). Each pair keeps its
+    ``pair_generator(seed, pair_id)`` draws and every slot's ICP runs at
+    ``icp_lanes`` lanes (default: the run's length), so a pair's transform
+    equals the unsharded call's at the same lane count. Returns (T [P, 4,
+    4], global fitness [P], icp fitness [P], icp rmse [P]) on this
+    process's first device; over a mesh spanning processes every slot's
+    results are gathered through its group (its runs padded with copies of
+    the last pair to one shape, as the JAX package pads)."""
+    from structured_light_for_3d_model_replication_tpu_torch.parallel import (
+        mesh as meshlib,
+    )
+
+    p = int(src_pts.shape[0])
+    per = -(-p // mesh.size)
+    ids = list(range(p)) if pair_ids is None else [int(i) for i in pair_ids]
+    arrays = [a if isinstance(a, torch.Tensor) else torch.from_numpy(np.asarray(a))
+              for a in (src_pts, src_valid, src_feat, dst_pts, dst_valid, dst_feat,
+                        dst_normals)]
+    pad = mesh.distributed()
+    outs = []
+    for slot, dev in zip(mesh.local_slots(), mesh.local_devices()):
+        rows = list(range(slot * per, min((slot + 1) * per, p)))
+        if pad:
+            rows += [rows[-1] if rows else p - 1] * (per - len(rows))
+        if not rows:
+            continue
+        sel = torch.tensor(rows)
+        shard = [a.index_select(0, sel.to(a.device)).to(dev) for a in arrays]
+        outs.append(register_pairs(
+            *shard, max_dist=max_dist, icp_max_dist=icp_max_dist, trials=trials,
+            icp_iters=icp_iters, edge_sim=edge_sim, seed=seed, mutual=mutual,
+            refine_iters=refine_iters, pair_ids=[ids[i] for i in rows],
+            samples=None if samples is None else [samples[i] for i in rows],
+            feat_bf16=feat_bf16, icp_lanes=icp_lanes))
+    dev0 = mesh.local_devices()[0]
+    if pad:
+        full = [meshlib.all_gather(mesh, [o[k] for o in outs])[0] for k in range(4)]
+        return tuple(f.reshape(-1, *f.shape[2:])[:p].to(dev0) for f in full)
+    return tuple(meshlib.gather_shards([o[k] for o in outs], dev0) for k in range(4))

@@ -38,7 +38,14 @@ warmed cache, so the bytes are the single-process run's. With
 ``merge.incremental`` the coordinator folds settled views and pairs into
 the merge while the workers still run (``pipeline/assembly.py``); the
 assembly pass re-validates that ``prefold`` and seeds ``finalize_chain``
-with the prefix that holds. Not ported: ``parallel.merge_mesh``.
+with the prefix that holds.
+
+``parallel.merge_mesh`` with two or more cards attached
+(``parallel/mesh.merge_mesh``) shards the merge's pairs, accumulate and
+final pass over the cards, in every arm (the streamed register lane, the
+barrier merge, ``merge_views``); ``parallel.shard_views`` (on by default)
+shards each batch of the batched lane over them (``views_mesh``), padded to
+a multiple of the card count. One card or the CPU runs unsharded.
 
 ``clean_cloud`` / ``clean_batch`` (``sl3d clean``), ``merge_views``
 (``sl3d merge-360``) and ``mesh_cloud`` (``sl3d mesh``) are the file-level
@@ -115,6 +122,7 @@ from structured_light_for_3d_model_replication_tpu_torch.ops import pointcloud a
 from structured_light_for_3d_model_replication_tpu_torch.ops import (
     triangulate as tri,
 )
+from structured_light_for_3d_model_replication_tpu_torch.parallel import mesh as meshlib
 from structured_light_for_3d_model_replication_tpu_torch.pipeline.stagecache import (
     StageCache,
     config_subtree,
@@ -896,6 +904,17 @@ def _reconstruct_pipelined(sources, cfg, scanner, report, log, stats, tail: _Tai
     return {"transfer_bytes_pinned": staging.pinned_bytes if staging else 0}
 
 
+def _pad_views(a, bucket: int):
+    """A batch [V, ...] (host array or tensor) padded to ``bucket`` views
+    with copies of its last view."""
+    pad = bucket - a.shape[0]
+    if pad <= 0:
+        return a
+    if isinstance(a, torch.Tensor):
+        return torch.cat([a, a[-1:].expand(pad, *a.shape[1:])])
+    return np.concatenate([a, np.repeat(a[-1:], pad, axis=0)])
+
+
 def _reconstruct_batched(sources, cfg, scanner, report, log, stats, tail: _Tail,
                          packed: bool) -> dict:
     """The view-batched lane (``compute_batch > 1``), the JAX package's
@@ -921,7 +940,10 @@ def _reconstruct_batched(sources, cfg, scanner, report, log, stats, tail: _Tail,
                 host in one copy
 
     Stacks of one batch share a shape: a change of shape closes the batch
-    early. The kernels take any V, so the view axis is not padded.
+    early. The kernels take any V, so the view axis is not padded, except
+    over a views mesh (``parallel.shard_views`` with >= 2 cards): the batch
+    pads to a multiple of the card count with copies of its last view,
+    shards over the cards (``forward_views(mesh=)``) and drops the copies.
     ``compute.view`` fires per view at assembly; a fault there, or a fault
     injected at the fused drain's ``clean.fused`` site, re-runs the batch's
     views one at a time under the retry budget (a packed stack unpacks for
@@ -937,6 +959,11 @@ def _reconstruct_batched(sources, cfg, scanner, report, log, stats, tail: _Tail,
     staging = _Staging(scanner.device, depth) if card else None
     drain_stream = torch.cuda.Stream(device=scanner.device) if card else None
     use_fused = bool(cfg.pipeline.fused_clean)
+    mesh = meshlib.views_mesh(cfg.parallel)
+    n_dev = mesh.size if mesh is not None else 1
+    if mesh is not None:
+        log(f"[reconstruct] sharding view batches over {n_dev} devices "
+            f"(parallel.shard_views)")
     load_pool = ThreadPoolExecutor(max_workers=max(1, cfg.parallel.io_workers),
                                    thread_name_prefix="sl3d-prefetch")
     drain_pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="sl3d-drain")
@@ -1080,6 +1107,7 @@ def _reconstruct_batched(sources, cfg, scanner, report, log, stats, tail: _Tail,
                 try:
                     t0 = time.perf_counter()
                     v = len(items)
+                    bucket = -(-v // n_dev) * n_dev
                     cur = torch.cuda.current_stream() if staging is not None else None
                     if packed:
                         if staging is not None:
@@ -1095,8 +1123,8 @@ def _reconstruct_batched(sources, cfg, scanner, report, log, stats, tail: _Tail,
                         stats.add("transfer", time.perf_counter() - t0)
                         t0 = time.perf_counter()
                         cloud = scanner.forward_views_packed(
-                            planes, white, black, n_frames=items[0][2].n_frames,
-                            **_forward_kw(cfg))
+                            *(_pad_views(a, bucket) for a in (planes, white, black)),
+                            n_frames=items[0][2].n_frames, mesh=mesh, **_forward_kw(cfg))
                     else:
                         if staging is not None:
                             frames, ev = staging.upload([it[3][0] for it in items],
@@ -1107,9 +1135,12 @@ def _reconstruct_batched(sources, cfg, scanner, report, log, stats, tail: _Tail,
                         stats.add("transfer", time.perf_counter() - t0)
                         stats.add_transfer(frames=sum(int(it[2].nbytes) for it in items))
                         t0 = time.perf_counter()
-                        cloud = scanner.forward_views(frames, **_forward_kw(cfg))
+                        cloud = scanner.forward_views(_pad_views(frames, bucket), mesh=mesh,
+                                                      **_forward_kw(cfg))
+                    if bucket > v:
+                        cloud = tri.CloudResult(*(a[:v] for a in cloud))
                     count_launch()
-                    stats.add_launch(v, v, time.perf_counter() - t0)
+                    stats.add_launch(v, bucket, time.perf_counter() - t0)
                     done = None
                     if cur is not None:
                         done = torch.cuda.Event()
@@ -1341,10 +1372,12 @@ def merge_views(input_folder: str, output_ply: str, cfg: Config | None = None,
             c = np.zeros_like(d["points"], dtype=np.uint8)
         clouds.append((np.asarray(d["points"], np.float32), np.asarray(c, np.uint8)))
     merge = recon.merge_360_posegraph if cfg.merge.method == "posegraph" else recon.merge_360
+    mesh = _merge_mesh_grid(cfg, log)
     with prof.trace():
         points, colors, transforms = merge(clouds, cfg.merge, log=log, timings=timings,
                                            device=dev, step_callback=step_callback,
-                                           feat_bf16=cfg.parallel.force_bf16_features)
+                                           feat_bf16=cfg.parallel.force_bf16_features,
+                                           mesh=mesh)
     ply.write_ply(output_ply, points, colors)
     log(f"[merge] wrote {output_ply} ({len(points):,} points)")
     return points, colors, transforms
@@ -1651,6 +1684,15 @@ def _engine_json(cfg: Config, dev: torch.device) -> str:
                        "device": dev.type})
 
 
+def _merge_mesh_grid(cfg: Config, log=None):
+    """The merge's mesh (``parallel.merge_mesh`` over >= 2 cards), else
+    None; resolved here for every merge arm."""
+    mesh = meshlib.merge_mesh(cfg.parallel)
+    if mesh is not None and log is not None:
+        log(f"[merge] sharding the chain over {mesh.size} devices (parallel.merge_mesh)")
+    return mesh
+
+
 def _merge_numeric_json(cfg: Config) -> str:
     """The merge config subtree minus its schedule knobs, and
     ``parallel.force_bf16_features`` (it changes the correspondences), as
@@ -1718,8 +1760,9 @@ class _StreamRegistrar:
     """
 
     def __init__(self, cfg: Config, cache: StageCache, stats: prof.OverlapStats,
-                 device: torch.device, log):
+                 device: torch.device, log, mesh=None):
         self.cfg = cfg
+        self.mesh = mesh   # parallel.merge_mesh: the pair groups shard over it
         self.cache = cache
         self.stats = stats
         self.device = device
@@ -1913,7 +1956,7 @@ class _StreamRegistrar:
             T, gf, fi, ir = faults.retry_call(
                 lambda: recon.register_prep_pairs(
                     pairs, ids, self.cfg.merge, self.voxel,
-                    feat_bf16=self.cfg.parallel.force_bf16_features),
+                    feat_bf16=self.cfg.parallel.force_bf16_features, mesh=self.mesh),
                 self.policy, on_retry=on_retry)
         except faults.InjectedCrash:
             raise
@@ -2095,7 +2138,7 @@ def _run_pipeline_impl(calib_path, target, out_dir, cfg: Config, steps, merged_n
 
     def arm_stream() -> _StreamRegistrar:
         nonlocal stream
-        stream = _StreamRegistrar(cfg, cache, stats, dev, log)
+        stream = _StreamRegistrar(cfg, cache, stats, dev, log, _merge_mesh_grid(cfg, log))
         log(f"[pipeline] merge: streaming register lane armed "
             f"(pair_batch={cfg.merge.pair_batch})")
         for i in sorted(collected):
@@ -2279,8 +2322,11 @@ def _merge_stage(order, collected, cfg, cache, stream, arm_stream, stats, t_stre
     (points, colors); sets the report's merge fields and transforms."""
     digests = [StageCache.digest_arrays(points=collected[i][0], colors=collected[i][1])
                for i in order]
+    # merge_mesh changes the final pass's arithmetic (slab-sharded), so it
+    # keys the merge (not the pairs: a sharded pair gives the same bytes)
     merge_key = cache.key("merge", digests=digests,
-                          config_json=_merge_numeric_json(cfg) + _engine_json(cfg, dev))
+                          config_json=_merge_numeric_json(cfg) + _engine_json(cfg, dev)
+                          + json.dumps({"merge_mesh": cfg.parallel.merge_mesh}))
     hit = cache.get("merge", merge_key)
     if hit is not None:
         if stream is not None:
@@ -2323,7 +2369,7 @@ def _merge_stage(order, collected, cfg, cache, stream, arm_stream, stats, t_stre
             report.overlap = stats.as_dict()
             points, colors, transforms = recon.finalize_chain(
                 clouds, T, gf, fi, ir, cfg.merge, log=log, timings=tm, device=dev,
-                prefold=pf)
+                prefold=pf, mesh=stream.mesh)
             if stream.failures:
                 report.failures.extend(stream.failures)
                 report.degraded = True
@@ -2335,12 +2381,14 @@ def _merge_stage(order, collected, cfg, cache, stream, arm_stream, stats, t_stre
             # merge has only one arm): byte-identical to the streamed arm, as
             # the merge key (no merge.stream in it) promises
             fb16 = cfg.parallel.force_bf16_features
+            mesh = _merge_mesh_grid(cfg, log)
             if report.merge_mode == "posegraph":
                 points, colors, transforms = recon.merge_360_posegraph(
-                    clouds, cfg.merge, log=log, timings=tm, device=dev, feat_bf16=fb16)
+                    clouds, cfg.merge, log=log, timings=tm, device=dev, feat_bf16=fb16,
+                    mesh=mesh)
             else:
                 points, colors, transforms = recon._merge_host_list(
-                    clouds, cfg.merge, log, tm, dev, feat_bf16=fb16)
+                    clouds, cfg.merge, log, tm, dev, feat_bf16=fb16, mesh=mesh)
     report.walls_s.update({f"merge_{k}": v for k, v in tm.items()
                            if isinstance(v, float)})
     points = np.asarray(points, np.float32)

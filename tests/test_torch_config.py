@@ -52,10 +52,16 @@ def test_the_dropped_table_holds_the_jax_defaults():
 
 
 def test_a_dropped_key_away_from_its_default_is_logged_once(tmp_path, capsys):
+    """The mesh keys ``parallel.{data_axis, model_axis, merge_mesh,
+    shard_views}`` were the last dropped keys: they now load as port fields
+    from a JAX-package file and from overrides (nothing is logged), save
+    and load back in both packages, and ``jax_dict`` gives the JAX
+    package's values in its order. The table of dropped keys is empty and
+    an unknown key is still an error."""
     jcfg = jconfig.Config()
     jcfg.parallel.merge_mesh = True
     jcfg.parallel.shard_views = False
-    jcfg.pipeline.fused_clean = True   # a carried key: it loads and is not logged
+    jcfg.pipeline.fused_clean = True
     jcfg.parallel.data_axis = 3
     jcfg.pipeline.max_retries = 5
     jcfg.save(str(tmp_path / "jax.json"))
@@ -64,14 +70,21 @@ def test_a_dropped_key_away_from_its_default_is_logged_once(tmp_path, capsys):
     cfg2 = config.load_config(None, {"parallel.model_axis": "2",
                                      "pipeline.ascii_output": "false",
                                      "parallel.merge_mesh": "true"})
-    err = capsys.readouterr().err.splitlines()
-    assert sorted(err) == sorted([
-        "[config] parallel.merge_mesh=True is not ported; the port ignores it "
-        "(default False)",
-        "[config] parallel.shard_views=False is not ported; the port ignores it "
-        "(default True)",
-        "[config] parallel.data_axis=3 is not ported; the port ignores it (default 0)",
-        "[config] parallel.model_axis=2 is not ported; the port ignores it (default 1)"])
+    assert capsys.readouterr().err == ""
+    assert config._DROPPED == {}
+    p = cfg.parallel
+    assert (p.data_axis, p.model_axis, p.merge_mesh, p.shard_views) == (3, 1, True, False)
+    p2 = cfg2.parallel
+    assert (p2.data_axis, p2.model_axis, p2.merge_mesh, p2.shard_views) == (0, 2, True, True)
+    parallel = config.jax_dict(cfg)["parallel"]
+    assert parallel == jcfg.to_dict()["parallel"]
+    assert list(parallel) == list(jcfg.to_dict()["parallel"])
+    assert config.jax_dict(cfg2)["parallel"] == jconfig.load_config(
+        None, {"parallel.model_axis": "2", "parallel.merge_mesh": "true"}).to_dict()["parallel"]
+    cfg.save(str(tmp_path / "port.json"))
+    assert config.load_config(str(tmp_path / "port.json")).parallel == cfg.parallel
+    assert jconfig.load_config(str(tmp_path / "port.json")).to_dict()["parallel"] \
+        == jcfg.to_dict()["parallel"]
     assert cfg.pipeline.max_retries == 5 and cfg2.pipeline.max_retries == 2
     assert cfg.pipeline.fused_clean is True and cfg2.pipeline.ascii_output is False
     with open(tmp_path / "bad.json", "w") as f:
@@ -95,7 +108,7 @@ def test_force_bf16_features_is_carried_and_round_trips(tmp_path, capsys):
     assert config.load_config(None, {"parallel.force_bf16_features": "true"}) \
         .parallel.force_bf16_features is True
     assert config.Config().parallel.force_bf16_features is False
-    assert "force_bf16_features" not in config._DROPPED["parallel"]
+    assert "force_bf16_features" not in config._DROPPED.get("parallel", {})
     assert capsys.readouterr().err == ""
     parallel = config.jax_dict(cfg)["parallel"]
     assert parallel == jcfg.to_dict()["parallel"]

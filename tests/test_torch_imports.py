@@ -47,7 +47,9 @@ def test_importing_every_port_module_leaves_jax_unloaded():
               "acquire.android", "parallel", "parallel.netutil", "parallel.lease",
               "parallel.coordinator", "parallel.worker", "pipeline.blobstore",
               "pipeline.assembly", "parallel.admission", "parallel.election",
-              "parallel.fleet", "pipeline.serving", "utils.preflight", "utils.gpulock"):
+              "parallel.fleet", "pipeline.serving", "utils.preflight", "utils.gpulock",
+              "parallel.mesh", "parallel.scan", "parallel.multihost",
+              "ops.pointcloud_sharded", "ops.poisson_sharded"):
         assert f"{PKG}.{m}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
