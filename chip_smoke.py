@@ -321,6 +321,24 @@ Imports nothing of JAX. Phases, each of which exits non-zero on failure:
    step and peak memory printed; (e) a child process joins a one-process
    NCCL group: platform gpu, psum 1. Each arm prints its wall, peak device
    memory and launches.
+17. the rest of the public API (``api_phase``, right after phase 5, on
+   phase 2's packed stacks and phase 5's flagship PLYs): (a)
+   ``forward_async`` of a 1080p view, pageable numpy on the table and the
+   quadratic arm, pinned and card frames on the table arm, each under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no host sync raised), one
+   decode_maps or scan_fused launched, ``forward``'s bytes after a
+   synchronize; (b) ``forward_views_batched`` over phase 3's 8 views in
+   batches of 4 on both arms: ``forward_views``' bytes, a launch a batch;
+   a mesh of 3 repeated cuda:0 on the 8 views refused with ValueError
+   before any launch; (c) ``decode_packed_np`` of one packed view equal to
+   the packed decode kernel bit for bit, the numpy time printed beside the
+   kernel's, and the kernel's device time over API_PACKED_REPS warm
+   launches at phase 2's 8-view shape (median, spread, share of its bytes
+   bound); (d) ``preprocess_for_registration`` of two flagship views equal
+   to ``prep_view`` of the same points bit for bit on the valid rows
+   (points, normals, features), knn_binmin launched. Phase 15(a)'s main-
+   path chunk also times the library expression over it in 4,096-row
+   calls (``chunk_library_ms``).
 
 Then one ``{"kernels": [...]}`` JSON line (times from phases 2, 4, 6 and 15,
 bounds from this run's shapes, and each kernel's launches from one run of
@@ -2999,6 +3017,18 @@ def binmin_case(what: str, pts, rows, k: int, recall: float, card: str, extra: d
                     **{"chunk_" + k: v for k, v in cb.items()},
                     "chunk_screen": chunk_screen,
                     "chunk_confirm_share": _confirm_share(chunk_screen, n)})
+
+        def chunk_library():
+            # the timed case's library expression, 4,096 rows at a time
+            # (one call over the whole chunk would hold c x n distances)
+            for s0 in range(0, c, BINMIN_ROWS_VIEW):
+                torch.topk(torch.cdist(pts[chunk_rows[s0:s0 + BINMIN_ROWS_VIEW].long()], pts,
+                                       compute_mode="donot_use_mm_for_euclid_dist"),
+                           k, dim=1, largest=False)
+
+        out.update({"chunk_library_ms": time_ms(chunk_library, reps=1, warm=1),
+                    "chunk_library": f"torch.cdist + torch.topk, {-(-c // BINMIN_ROWS_VIEW)} "
+                                     f"calls of {BINMIN_ROWS_VIEW} rows"})
         torch.cuda.empty_cache()
     print(json.dumps(dict(out, **extra, card=card)), flush=True)
     return out
@@ -5371,6 +5401,226 @@ def sharded_phase(dev, rig, stacks, root: str, scene, card: str) -> None:
     print(f"sharded: phase 16 took {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# Phase 17: at least this many warm launches of decode_packed at phase 2's
+# 8-view 1080p shape, for the median and spread of its device time
+API_PACKED_REPS = 30
+API_BATCH = 4          # views a forward_views_batched launch in 17(b)
+API_PREP_VIEWS = 2     # flagship views through preprocess_for_registration
+
+
+def device_times_ms(fn, reps: int, kernel: str, tries: int = 3) -> list[float]:
+    """Device time (ms) of each launch of the CUDA kernel whose name holds
+    ``kernel`` over reps calls of fn, from torch.profiler's kernel records
+    (a window opens with 16 launches of a small other kernel, as in
+    ``device_ms``; a window that kept fewer than half the launches is
+    profiled again, up to ``tries``)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    pad = torch.zeros(1024, device="cuda")
+    torch.cuda.synchronize()
+    times: list[float] = []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(16):
+                pad.add_(1.0)
+            torch.cuda.synchronize()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+                 if kernel in e.name and e.device_type == DeviceType.CUDA]
+        if 2 * len(times) >= reps:
+            break
+    check(reps // 2 <= len(times) <= reps,
+          f"profiler kept {len(times)} launches of {kernel} in {reps} calls, {tries} windows")
+    return times
+
+
+def api_phase(dev, rig, stacks, ply_dir: str, card: str) -> None:
+    """Phase 17, after phase 5: the rest of the JAX package's public API on
+    the card. (a) ``forward_async`` of one of phase 2's 1080p views (pageable
+    numpy, manual thresholds) on the table and the quadratic arm under
+    ``torch.cuda.set_sync_debug_mode("error")``: no host sync raised, one
+    decode_maps or one scan_fused launched, and after a synchronize the
+    points, colours and valid of ``forward`` bit for bit; (b)
+    ``forward_views_batched`` over phase 3's 8 views, API_BATCH a call, on
+    both arms: ``forward_views``' bytes, one launch a batch; a mesh of 3
+    repeated cuda:0 on the 8 views raises ValueError before any launch;
+    (c) ``decode_packed_np`` of one packed view against the packed decode
+    kernel, col, row and mask bit for bit, the numpy time beside the
+    kernel's; the kernel's device time over API_PACKED_REPS warm launches at
+    phase 2's 8-view shape (median, spread, share of its bytes bound); (d)
+    ``preprocess_for_registration`` of API_PREP_VIEWS of phase 5's flagship
+    views against ``prep_view`` of the same points, bit for bit on the
+    valid rows (points, normals, features), knn_binmin launched. Each step
+    prints one JSON line with the card's name and power limit."""
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.config import Config
+    from structured_light_for_3d_model_replication_tpu_torch.io import images as imio
+    from structured_light_for_3d_model_replication_tpu_torch.models import (
+        reconstruction as recon,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.models.scanner import SLScanner
+    from structured_light_for_3d_model_replication_tpu_torch.ops import (
+        graycode as gc,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.ops import kernels
+    from structured_light_for_3d_model_replication_tpu_torch.parallel import mesh as meshlib
+
+    t_phase = time.perf_counter()
+    calib = rig.calibration()
+    manual = dict(thresh_mode="manual", shadow_val=40.0, contrast_val=10.0)
+    frames = np.stack([imio.unpack_stack(st)[0] for st in stacks])
+    arms = [("table", "decode_maps"), ("quadratic", "scan_fused")]
+    scanners = {arm: SLScanner(calib, CAM, PROJ, plane_eval=arm, device=dev) for arm, _ in arms}
+
+    # (a) forward_async: no host sync, forward's bytes; pageable numpy on
+    # both arms, a pinned and a card tensor on the table arm
+    view = frames[0]
+    inputs = [("table", "pageable", view), ("quadratic", "pageable", view),
+              ("table", "pinned", torch.from_numpy(view).pin_memory()),
+              ("table", "cuda", torch.from_numpy(view).to(dev))]
+    kernel_of = dict(arms)
+    for arm, kind, x in inputs:
+        sc = scanners[arm]
+        want = sc.forward(view, **manual)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = sc.forward_async(x, **manual)
+            t_return = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        t_done = time.perf_counter() - t0
+        counts = {k: n for k, n in kernels.launch_counts().items() if n}
+        same = _same(got, want)
+        print(json.dumps({"api": "17(a) forward_async", "arm": arm, "frames": kind,
+                          "launches": counts, "bit_equal": same, "return_ms": t_return * 1e3,
+                          "done_ms": t_done * 1e3, "valid": int(got.valid.sum()),
+                          "card": card}), flush=True)
+        check(counts == {kernel_of[arm]: 1}, f"17(a) {arm}, {kind}: forward_async launched "
+                                             f"{counts}, not {kernel_of[arm]} once")
+        check(same, f"17(a) {arm}, {kind}: forward_async differs from forward")
+        del got, want
+    del inputs
+
+    # (b) forward_views_batched: forward_views' bytes, one launch a batch
+    n_batches = -(-len(frames) // API_BATCH)
+    for arm, kernel in arms:
+        sc = scanners[arm]
+        outs = []
+        t0 = _start_window()
+        for b in range(n_batches):
+            outs.append(sc.forward_views_batched(frames[b * API_BATCH:(b + 1) * API_BATCH],
+                                                 **manual))
+        wall, counts, peak = _end_window(t0)
+        same = all(_same(o, sc.forward_views(frames[b * API_BATCH:(b + 1) * API_BATCH],
+                                             **manual)) for b, o in enumerate(outs))
+        print(json.dumps({"api": "17(b) forward_views_batched", "arm": arm,
+                          "views": len(frames), "batch": API_BATCH, "launches": counts,
+                          "bit_equal": same, "wall_s": wall, "peak_gib": peak,
+                          "card": card}), flush=True)
+        check(counts == {kernel: n_batches},
+              f"17(b) {arm}: launched {counts}, not {kernel} once for each of {n_batches} "
+              f"batches")
+        check(same, f"17(b) {arm}: forward_views_batched differs from forward_views")
+        del outs
+    kernels.reset_launch_counts()
+    refused = ""
+    try:
+        scanners["table"].forward_views_batched(
+            frames, mesh=meshlib.make_mesh(devices=[dev] * 3), **manual)
+    except ValueError as e:
+        refused = str(e)
+    counts = {k: n for k, n in kernels.launch_counts().items() if n}
+    print(json.dumps({"api": "17(b) mesh of 3 on 8 views", "refused": refused,
+                      "launches": counts, "card": card}), flush=True)
+    check(bool(refused) and not counts,
+          f"17(b) a 3-slot mesh on 8 views: refused {refused!r}, launched {counts}")
+
+    # (c) decode_packed_np against the packed decode kernel; its device time
+    st = stacks[0]
+    dkw = dict(n_frames=st.n_frames, n_cols=PROJ[0], n_rows=PROJ[1], **manual)
+    t0 = time.perf_counter()
+    host = gc.decode_packed_np(st.planes, st.white, st.black, **dkw)
+    np_s = time.perf_counter() - t0
+    planes, white, black = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                            for a in (st.planes, st.white, st.black))
+    kernels.reset_launch_counts()
+    card_out = gc.decode_packed(planes, white, black, device=dev, **dkw)
+    torch.cuda.synchronize()
+    counts = {k: n for k, n in kernels.launch_counts().items() if n}
+    same = all(np.array_equal(a, b.cpu().numpy()) for a, b in zip(host[:3], card_out[:3]))
+    one_ms = time_ms(lambda: gc.decode_packed(planes, white, black, device=dev, **dkw), reps=10)
+    # the kernel alone at phase 2's shape: 8 views, their own thresholds
+    pl8, wh8, bl8 = (torch.from_numpy(np.stack([getattr(x, k) for x in stacks])).to(dev)
+                     for k in ("planes", "white", "black"))
+    v = pl8.shape[0]
+    thr = torch.tensor([[40.0 + i, 10.0 + (i % 3)] for i in range(v)], dtype=torch.float32,
+                       device=dev)
+    plan = gc.decode_plan(st.n_frames, n_cols=PROJ[0], n_rows=PROJ[1], n_sets_col=11,
+                          n_sets_row=11, downsample=1)
+    pkw = dict(plan._asdict(), n_pairs=st.n_pairs)
+    hw = CAM[0] * CAM[1]
+    b_ms, b_by = bound(v * (pl8.shape[1] + 2) * hw + thr.numel() * 4 + v * hw * 9,
+                       v * hw * (2 + 3 * (plan.n_use_col + plan.n_use_row) + 4))
+    times = device_times_ms(lambda: kernels.decode_packed_maps(pl8, wh8, bl8, thr, **pkw),
+                            API_PACKED_REPS, "decode_packed_kernel")
+    med = float(np.median(times))
+    print(json.dumps({"api": "17(c) decode_packed_np", "bit_equal": same,
+                      "numpy_s": np_s, "kernel_ms_one_view": one_ms, "launches": counts,
+                      "points_masked": int(host.mask.sum()), "card": card}), flush=True)
+    print(json.dumps({"api": "17(c) decode_packed device time", "views": v,
+                      "shape": list(pl8.shape), "launches_timed": len(times),
+                      "median_ms": med, "min_ms": min(times), "max_ms": max(times),
+                      "p10_ms": float(np.percentile(times, 10)),
+                      "p90_ms": float(np.percentile(times, 90)),
+                      "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / med,
+                      "clocks": clocks(), "card": card}), flush=True)
+    check(counts == {"decode_packed_maps": 1},
+          f"17(c) decode_packed launched {counts}, not decode_packed_maps once")
+    check(same, "17(c) decode_packed_np differs from the packed decode kernel")
+    del frames, planes, white, black, card_out, pl8, wh8, bl8
+
+    # (d) preprocess_for_registration against prep_view, knn_binmin launched
+    voxel = Config().merge.voxel_size
+    views = read_clouds(ply_dir)
+    for i in range(API_PREP_VIEWS):
+        pts, cols = views[i * (len(views) // API_PREP_VIEWS)]
+        alone = recon.prep_view(pts, voxel, device=dev)
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = recon.preprocess_for_registration(pts, cols, np.ones(len(pts), bool), voxel,
+                                                device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: n for k, n in kernels.launch_counts().items() if n}
+        n = int(alone.valid.sum())
+        same = {"bucket": [int(alone.points.shape[0]), int(got.points.shape[0])],
+                "valid": n == int(got.valid.sum()),
+                **{k: bool(torch.equal(getattr(alone, k)[:n], getattr(got, k)[:n]))
+                   for k in ("points", "normals", "features")}}
+        print(json.dumps({"api": "17(d) preprocess_for_registration", "view": i,
+                          "points_in": len(pts), "prep_points": n, "equal": same,
+                          "launches": counts, "wall_s": wall, "card": card}), flush=True)
+        check(counts.get("knn_binmin", 0) > 0,
+              f"17(d) view {i}: preprocess_for_registration launched {counts}, no knn_binmin")
+        check(same["valid"] and all(same[k] for k in ("points", "normals", "features")),
+              f"17(d) view {i}: preprocess_for_registration differs from prep_view: {same}")
+        del alone, got
+    torch.cuda.empty_cache()
+    print(json.dumps({"api": "17 wall", "wall_s": time.perf_counter() - t_phase,
+                      "card": card}), flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -5408,6 +5658,7 @@ def main() -> int:
         lines += merge_kernel_phase(dev, ply_dir, poses, card)
         merge_launches, merge_runs = merge_phase(dev, ply_dir, poses, pose_dir, root, card)
         launches.update(merge_launches)
+        api_phase(dev, rig, stacks, ply_dir, card)
         artifacts_phase(dev, ply_dir, root, merge_runs["host"], card)
         posegraph_phase(dev, ply_dir, pose_dir, poses, root, card)
         standalone_phase(dev, ply_dir, pose_dir, poses, card)

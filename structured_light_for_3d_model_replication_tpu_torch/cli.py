@@ -17,8 +17,8 @@
   python -m structured_light_for_3d_model_replication_tpu_torch pipeline \\
       <scan root> --calib calib.mat --out <dir> [--steps ...] \\
       [--compute-batch N] [--packed-ingest] [--no-cache] [--no-stream] \\
-      [--pair-batch N] [--trace] [--run-budget S] [--no-deadlines] \\
-      [--workers N] [--device cuda|cpu]
+      [--pair-batch N] [--view-plys] [--no-incremental] [--trace] \\
+      [--run-budget S] [--no-deadlines] [--workers N] [--device cuda|cpu]
   python -m structured_light_for_3d_model_replication_tpu_torch worker \\
       --spec <out>/.coord/worker0.json
   python -m structured_light_for_3d_model_replication_tpu_torch report \\
@@ -186,6 +186,9 @@ def _parser() -> argparse.ArgumentParser:
                    help="clean-chain steps per view (comma list; empty string "
                         "disables cleaning)")
     p.add_argument("--stl-name", default="model.stl")
+    p.add_argument("--view-plys", action="store_true",
+                   help="pipeline.write_view_plys: also write each cleaned view as "
+                        "<out>/views/*.ply (on the writeback queue; always binary)")
     p.add_argument("--ascii", action="store_true",
                    help="write the final merged PLY in ASCII (pipeline.ascii_output: "
                         "the reference's %%.4f layout, lossy); intermediates stay "
@@ -209,6 +212,15 @@ def _parser() -> argparse.ArgumentParser:
                         "(the same bytes)")
     p.add_argument("--pair-batch", type=int, default=None,
                    help="pairs per registration launch group (merge.pair_batch)")
+    p.add_argument("--incremental", dest="incremental", action="store_true",
+                   default=None,
+                   help="merge.incremental (coordinated runs with the streamed merge): "
+                        "fold cleaned views and pair transforms into the merged "
+                        "cloud as items settle, so only the postprocess remains "
+                        "after the last item; the same bytes as the barrier assembly")
+    p.add_argument("--no-incremental", dest="incremental", action="store_false",
+                   help="the one assembly pass after the last item "
+                        "(merge.incremental=false)")
     p.add_argument("--packed-ingest", dest="packed_ingest", action="store_true",
                    default=None, help="decode from packed bit-planes "
                                       "(pipeline.packed_ingest)")
@@ -899,7 +911,7 @@ def _warmup(args, cfg) -> int:
     cb = args.compute_batch if args.compute_batch is not None else cfg.parallel.compute_batch
     if cb > 1:
         stack = np.stack([np.roll(frames, 7 * i, axis=2) for i in range(cb)])
-        res = step(f"batched lane[{cb}]", lambda: sc.forward_views(stack, **kw))
+        res = step(f"batched lane[{cb}]", lambda: sc.forward_views_batched(stack, **kw))
         step(f"fused_clean[{cb}]", lambda: fvlib.fused_clean_views(
             res.points, res.colors, res.valid, cfg.clean, stages.CLEAN_STEPS))
         packed = [imio.pack_stack(v) for v in stack]
@@ -1081,6 +1093,8 @@ def main(argv: list[str] | None = None) -> int:
             cfg.parallel.prefetch_depth = args.prefetch_depth
         if args.compute_batch is not None:
             cfg.parallel.compute_batch = args.compute_batch
+        if args.view_plys:
+            cfg.pipeline.write_view_plys = True
         if args.ascii:
             cfg.pipeline.ascii_output = True
         if args.fused_clean is not None:
@@ -1089,6 +1103,8 @@ def main(argv: list[str] | None = None) -> int:
             cfg.merge.stream = args.stream
         if args.pair_batch is not None:
             cfg.merge.pair_batch = args.pair_batch
+        if args.incremental is not None:
+            cfg.merge.incremental = args.incremental
         if args.packed_ingest is not None:
             cfg.pipeline.packed_ingest = args.packed_ingest
         if args.trace:

@@ -29,7 +29,8 @@ import numpy as np
 __all__ = ["list_frame_files", "load_stack", "save_stack", "save_image", "load_gray",
            "load_color",
            "PackedStack", "pack_stack", "unpack_stack", "save_packed_stack",
-           "load_packed_stack", "probe_packed", "packed_file", "count_frames",
+           "load_packed_stack", "probe_packed", "packed_file", "is_packed_source",
+           "count_frames",
            "pack_scan_folder", "PACKED_NAME"]
 
 _EXTS = (".bmp", ".png", ".jpg", ".jpeg", ".ppm", ".pgm")
@@ -121,11 +122,13 @@ def list_frame_files(source) -> list[str]:
     raise FileNotFoundError(f"no frames ({'/'.join(_EXTS)}) in {source}")
 
 
-def load_stack(source, io_workers: int | None = None):
+def load_stack(source, expected: int | None = None, io_workers: int | None = None):
     """Load a capture folder/list -> (frames u8 [F,H,W], texture u8 [H,W,3]).
 
-    The texture is the white frame in color. A packed container unpacks
-    (lossless for decode). PNG frames go through the native stack decoder
+    ``expected``: the capture contract's frame count; a source with fewer
+    frames raises ValueError before any frame is decoded. The texture is
+    the white frame in color. A packed container unpacks (lossless for
+    decode). PNG frames go through the native stack decoder
     when it is built (byte-exact on gray PNGs; on color PNGs its BT.601
     gray may differ from cv2's by one level, as in the JAX package). Else
     ``io_workers`` > 1 decodes the frames on a thread pool; the arrays are
@@ -135,7 +138,12 @@ def load_stack(source, io_workers: int | None = None):
 
     files = list_frame_files(source)
     if len(files) == 1 and files[0].endswith(PACKED_EXT):
-        return unpack_stack(load_packed_stack(files[0]))
+        ps = load_packed_stack(files[0])
+        if expected is not None and ps.n_frames < expected:
+            raise ValueError(f"{source}: expected >= {expected} frames, found {ps.n_frames}")
+        return unpack_stack(ps)
+    if expected is not None and len(files) < expected:
+        raise ValueError(f"{source}: expected >= {expected} frames, found {len(files)}")
     if len(files) < 4:
         raise ValueError(f"{source}: need at least 4 frames, found {len(files)}")
     probe = native.probe_png(files[0])
@@ -210,6 +218,11 @@ class PackedStack:
         """The raw stack's [F, H, W]."""
         return (self.n_frames,) + self.white.shape
 
+    @property
+    def nbytes(self) -> int:
+        """Wire size: the bytes a device upload of this stack moves."""
+        return self.planes.nbytes + self.white.nbytes + self.black.nbytes
+
 
 def pack_stack(frames: np.ndarray, texture: np.ndarray | None = None) -> PackedStack:
     """Pack a raw [F, H, W] u8 stack to bit-planes (lossless for decode)."""
@@ -256,6 +269,11 @@ def packed_file(source) -> str | None:
         return source
     p = os.path.join(source, PACKED_NAME)
     return p if os.path.isfile(p) else None
+
+
+def is_packed_source(source) -> bool:
+    """True where ``source`` resolves to a packed container."""
+    return packed_file(source) is not None
 
 
 def count_frames(source) -> int:

@@ -10,7 +10,9 @@ where it is built, as in the JAX package: the same records, and a
 ``comment slio native writer`` line in the header.
 
 ``WritebackQueue`` takes PLY writes off a producer's critical path: one
-writer thread, submission order kept, a future per write that re-raises.
+writer thread, submission order kept, a future per write that re-raises;
+``drain`` waits for every write under one shared deadline and raises every
+failure together as one ``PlyWriteError``.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ from structured_light_for_3d_model_replication_tpu_torch.io.atomic import (
 from structured_light_for_3d_model_replication_tpu_torch.utils import deadline as dl
 from structured_light_for_3d_model_replication_tpu_torch.utils import faults
 
-__all__ = ["write_ply", "read_ply", "write_mesh_ply", "WritebackQueue"]
+__all__ = ["write_ply", "read_ply", "write_mesh_ply", "WritebackQueue", "PlyWriteError"]
 
 _PLY_DTYPES = {
     "float": "<f4", "float32": "<f4", "double": "<f8", "float64": "<f8",
@@ -110,6 +112,17 @@ def _write_ply_py(path: str, points: np.ndarray, colors, normals, binary: bool) 
         rec.tofile(f)
 
 
+class PlyWriteError(RuntimeError):
+    """Every write failure of one ``WritebackQueue.drain``, raised together,
+    so a later failure is never hidden behind the first: ``errors`` holds
+    (path, exception) pairs in submission order."""
+
+    def __init__(self, errors: list[tuple[str, Exception]]):
+        self.errors = errors
+        detail = "; ".join(f"{p}: {type(e).__name__}: {e}" for p, e in errors)
+        super().__init__(f"{len(errors)} PLY write(s) failed: {detail}")
+
+
 class WritebackQueue:
     """Background PLY writes: one writer thread, so writes land on disk in
     submission order (a crash leaves a clean prefix). ``submit`` returns a
@@ -155,6 +168,46 @@ class WritebackQueue:
         self._pending.append((path, fut))
         return fut
 
+    @property
+    def backlog(self) -> int:
+        """Writes submitted and not yet finished (the queue-depth gauge)."""
+        return sum(1 for _, f in self._pending if not f.done())
+
+    def drain(self, timeout_s: float | None = None) -> list[str]:
+        """Wait for every submitted write; returns the paths written. Every
+        write error is raised together as one :class:`PlyWriteError`.
+
+        ``timeout_s`` bounds the whole drain (one monotonic deadline shared
+        by every write): a write still pending when it runs out joins the
+        same ``PlyWriteError`` as a :class:`~.utils.deadline.DeadlineExceeded`
+        for its path. None waits without bound."""
+        out: list[str] = []
+        errors: list[tuple[str, Exception]] = []
+        deadline = dl.Deadline.after(timeout_s, "writeback drain")
+        for path, f in self._pending:
+            try:
+                # a spent budget means expired, never unbounded
+                rem = deadline.remaining() if deadline is not None else None
+                if rem is None:
+                    f.exception()   # waits without raising; result() below
+                    settled = True
+                elif rem <= 0:
+                    settled = f.done()
+                else:
+                    settled = dl.wait_settled(f, rem)
+                if settled:
+                    out.append(f.result())
+                else:
+                    errors.append((path, dl.DeadlineExceeded(
+                        f"write still pending after the {timeout_s:g}s drain budget "
+                        f"(stalled writer thread?)")))
+            except Exception as e:
+                errors.append((path, e))
+        self._pending.clear()
+        if errors:
+            raise PlyWriteError(errors)
+        return out
+
     def close(self, wait: bool = True, timeout_s: float | None = None) -> None:
         """Shut the writer down. With ``wait`` and ``timeout_s`` the pending
         writes share one deadline; past it the queued tail is cancelled and
@@ -178,19 +231,33 @@ class WritebackQueue:
         self.close(wait=exc_type is None)
 
 
-def write_mesh_ply(path: str, vertices: np.ndarray, faces: np.ndarray) -> None:
+def write_mesh_ply(path: str, vertices: np.ndarray, faces: np.ndarray,
+                   colors: np.ndarray | None = None,
+                   normals: np.ndarray | None = None) -> None:
     """Write a binary triangle mesh: vertices [N, 3] float, faces [M, 3]
-    int. Crash-safe (tmp + fsync + rename); fires ``ply.write``."""
+    int, optional per-vertex normals [N, 3] float and colors [N, 3] uint8
+    RGB. Crash-safe (tmp + fsync + rename); fires ``ply.write``."""
     faults.fire("ply.write", item=path)
     vertices = np.asarray(vertices, np.float32)
     faces = np.asarray(faces, np.int32)
+    has_c = colors is not None
+    has_n = normals is not None
     n, m = vertices.shape[0], faces.shape[0]
     header = ["ply", "format binary_little_endian 1.0", f"element vertex {n}",
-              "property float x", "property float y", "property float z",
-              f"element face {m}", "property list uchar int vertex_indices",
-              "end_header"]
-    rec = np.empty(n, _vertex_dtype(False, False))
+              "property float x", "property float y", "property float z"]
+    if has_n:
+        header += ["property float nx", "property float ny", "property float nz"]
+    if has_c:
+        header += ["property uchar red", "property uchar green", "property uchar blue"]
+    header += [f"element face {m}", "property list uchar int vertex_indices", "end_header"]
+    rec = np.empty(n, _vertex_dtype(has_c, has_n))
     rec["x"], rec["y"], rec["z"] = vertices[:, 0], vertices[:, 1], vertices[:, 2]
+    if has_n:
+        nrm = np.asarray(normals, np.float32)
+        rec["nx"], rec["ny"], rec["nz"] = nrm[:, 0], nrm[:, 1], nrm[:, 2]
+    if has_c:
+        col = np.asarray(colors, np.uint8)
+        rec["red"], rec["green"], rec["blue"] = col[:, 0], col[:, 1], col[:, 2]
     frec = np.empty(m, np.dtype([("k", "u1"), ("a", "<i4"), ("b", "<i4"), ("c", "<i4")]))
     frec["k"] = 3
     frec["a"], frec["b"], frec["c"] = faces[:, 0], faces[:, 1], faces[:, 2]

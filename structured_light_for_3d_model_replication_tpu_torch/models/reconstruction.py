@@ -21,6 +21,10 @@ package:
                ``_device_accumulate_ok`` holds; its output is not
                byte-identical to the host-list arm's.
 
+``preprocess_for_registration`` is the public one-cloud prep (the
+reference's ``preprocess_point_cloud``): a masked cloud compacted, voxel
+downsampled and padded to ``pad_to`` rows, then ``prep_view``'s features.
+
 ``merge_360_posegraph`` registers the odometry edges and a first<->last
 loop closure in one ``_register_chain_batched`` call and solves the pose
 graph (``ops/posegraph.py``).
@@ -59,6 +63,7 @@ from structured_light_for_3d_model_replication_tpu_torch.utils.device import (
 
 __all__ = ["merge_360", "merge_360_posegraph", "DeviceClouds", "compact_views_device",
            "stack_views_device", "prep_view", "prep_view_device", "prep_from_reference",
+           "preprocess_for_registration",
            "device_clouds_from_reference", "register_prep_pairs",
            "finalize_chain", "transform_views_batched", "chamfer_distance",
            "FEAT_K", "NORMALS_K", "FEAT_RADIUS_SCALE"]
@@ -213,6 +218,21 @@ def _prep_features(p: torch.Tensor, v: torch.Tensor, feat_radius: float):
     return nr, feat
 
 
+def _voxel_survivors(p: np.ndarray, voxel: float, dev: torch.device):
+    """A compact host cloud's voxel means on ``dev``: the rows padded to a
+    multiple of 8192 (pad rows at 1e9, invalid), voxel downsampled, the
+    survivors a prefix. Returns (means [n_raw, 3], survivor count, n_raw)."""
+    n = len(p)
+    n_raw = -(-max(n, 1) // 8192) * 8192
+    pts = np.full((n_raw, 3), 1e9, np.float32)
+    pts[:n] = p
+    pts_t = torch.from_numpy(pts).to(dev)
+    valid = torch.arange(n_raw, device=dev) < n
+    p_all, _, v_all = pc.voxel_downsample(
+        pts_t, torch.zeros((n_raw, 3), dtype=torch.uint8, device=dev), valid, voxel)
+    return p_all, int(v_all.sum()), n_raw
+
+
 def prep_view(points, voxel: float, sample_before: int = 0, device=None) -> _Prep:
     """Per-view registration prep at shapes derived from this view alone:
     raw points padded to a multiple of 8192 (pad rows at 1e9, invalid),
@@ -223,19 +243,47 @@ def prep_view(points, voxel: float, sample_before: int = 0, device=None) -> _Pre
     p = np.asarray(points, np.float32)
     if sample_before and sample_before > 1:
         p = p[::sample_before]
-    n = len(p)
-    n_raw = -(-max(n, 1) // 8192) * 8192
-    pts = np.full((n_raw, 3), 1e9, np.float32)
-    pts[:n] = p
-    pts_t = torch.from_numpy(pts).to(dev)
-    valid = torch.arange(n_raw, device=dev) < n
-    p_all, _, v_all = pc.voxel_downsample(
-        pts_t, torch.zeros((n_raw, 3), dtype=torch.uint8, device=dev), valid, voxel)
-    cnt = int(v_all.sum())
+    p_all, cnt, n_raw = _voxel_survivors(p, voxel, dev)
     bucket = _bucket_pad(cnt, n_raw)
     p_c = p_all[:bucket].contiguous()
     v_c = torch.arange(bucket, device=dev) < cnt
     nr, feat = _prep_features(p_c, v_c, float(np.float32(FEAT_RADIUS_SCALE * voxel)))
+    return _Prep(p_c, v_c, nr, feat)
+
+
+def _host_array(x, dtype) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x, dtype)
+
+
+def preprocess_for_registration(points, colors, valid, voxel_size: float,
+                                pad_to: int | None = None, device=None) -> _Prep:
+    """Voxel downsample -> normals -> FPFH (r = 5 * voxel) of one cloud, the
+    reference's ``preprocess_point_cloud``, with ``points`` [N, 3] and its
+    ``valid`` [N] mask (numpy or tensors; ``colors`` is not read). The valid
+    rows are compacted on the host, voxel downsampled as ``prep_view``
+    does, and the survivors padded to ``pad_to`` rows (default the next
+    multiple of 2048) at 1e9, invalid, before the feature stages, so their
+    cost follows the downsampled count. A ``pad_to`` below the survivor
+    count raises ValueError. On the valid rows the result is
+    ``prep_view``'s of the same points. ``device``: None keeps a tensor
+    input's device, else cuda."""
+    dev = _device_of(points, device)
+    reg.exact_f32_products()
+    p = _host_array(points, np.float32)
+    if valid is not None:
+        p = p[_host_array(valid, bool)]
+    p_all, cnt, _ = _voxel_survivors(p, voxel_size, dev)
+    total = pad_to if pad_to is not None else _bucket_pad(cnt)
+    if cnt > total:
+        raise ValueError(
+            f"pad_to={total} is smaller than the downsampled cloud ({cnt} "
+            f"points); raise pad_to or the voxel size")
+    p_c = torch.cat([p_all[:cnt], torch.full((total - cnt, 3), 1e9, dtype=torch.float32,
+                                             device=dev)]).contiguous()
+    v_c = torch.arange(total, device=dev) < cnt
+    nr, feat = _prep_features(p_c, v_c, float(np.float32(FEAT_RADIUS_SCALE * voxel_size)))
     return _Prep(p_c, v_c, nr, feat)
 
 
@@ -281,21 +329,22 @@ def _prep_to_bucket(prep: _Prep, bucket: int):
 
 
 def register_prep_pairs(pairs, pair_ids, cfg: MergeConfig, voxel: float,
-                        samples=None, feat_bf16: bool | None = None, mesh=None):
+                        samples=None, feat_bf16: bool | None = None, mesh=None,
+                        batch: int | None = None):
     """Register (prep_src, prep_dst) pairs: grouped by pair bucket (the
-    larger of the two views' buckets), ``cfg.pair_batch`` pairs a launch
-    group, whose ICP always runs on ``cfg.pair_batch`` lanes (a short group,
-    a ragged tail or a worker's one pair, padded with copies of its last
-    pair), so a pair gives the same bytes in every group. ``pair_ids`` are
-    each pair's global chain position, the seed of its draws; ``samples``
-    an optional {pair index: [trials, 3]} of given draws; ``feat_bf16`` as
-    in ``registration.register_pairs``. ``mesh``: a group holds
-    ``pair_batch`` pairs per mesh slot and shards over the mesh
-    (``register_pairs_sharded``), each slot's ICP still on ``pair_batch``
-    lanes: the same bytes.
+    larger of the two views' buckets), ``batch`` pairs a launch group
+    (None: ``cfg.pair_batch``), whose ICP always runs on ``batch`` lanes (a
+    short group, a ragged tail or a worker's one pair, padded with copies of
+    its last pair), so a pair gives the same bytes in every group of one
+    ``batch``. ``pair_ids`` are each pair's global chain position, the seed
+    of its draws; ``samples`` an optional {pair index: [trials, 3]} of
+    given draws; ``feat_bf16`` as in ``registration.register_pairs``.
+    ``mesh``: a group holds ``batch`` pairs per mesh slot and shards over
+    the mesh (``register_pairs_sharded``), each slot's ICP still on
+    ``batch`` lanes: the same bytes.
     Returns host (T [P, 4, 4], gfit, ifit, irmse) in input order."""
     n_pairs = len(pairs)
-    batch = max(1, int(cfg.pair_batch))
+    batch = max(1, int(batch if batch is not None else cfg.pair_batch))
     group = batch * (mesh.size if mesh is not None else 1)
     T = np.zeros((n_pairs, 4, 4), np.float32)
     gf, fi, ir = (np.zeros(n_pairs, np.float32) for _ in range(3))

@@ -20,6 +20,11 @@ Texture is one gray channel (frame 0), replicated to RGB at compaction.
 mesh slot: each shard runs the same route on its device (a replica of the
 calibration buffers there) and the clouds are gathered on the scanner's
 device, so a sharded call returns the unsharded call's bytes.
+
+``forward_async`` is ``forward`` with no host wait: the frames reach the
+card through pinned memory by a copy queued on the current stream, and the
+call returns with the launch in flight. ``forward_views_batched`` is the
+batched executor's compute lane (one launch a batch, optionally sharded).
 """
 from __future__ import annotations
 
@@ -113,6 +118,20 @@ class SLScanner(nn.Module):
             return x.to(self.device).contiguous()
         return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
 
+    def _staged(self, x) -> torch.Tensor:
+        """``x`` on this scanner's device without a host wait: a tensor
+        already there as it is; on a card, host data through pinned memory
+        (a host copy where it is pageable) and a copy queued on the current
+        stream."""
+        if isinstance(x, torch.Tensor) and x.device == self.device:
+            return x.contiguous()
+        if self.device.type != "cuda":
+            return self._on_device(x)
+        t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(x))
+        if t.device.type == "cpu" and not t.is_pinned():
+            t = t.contiguous().pin_memory()
+        return t.to(self.device, non_blocking=True).contiguous()
+
     def _fuse_capable(self, frames_v: torch.Tensor) -> bool:
         """The fused kernel takes quadratic plane eval, row_mode 0/1, uint8
         stacks of the full sequence at the calibrated camera size. It masks
@@ -151,6 +170,22 @@ class SLScanner(nn.Module):
         out = self.forward_views(self._on_device(frames)[None], thresh_mode,
                                  shadow_val, contrast_val)
         return tri.CloudResult(out.points[0], out.colors[0], out.valid[0])
+
+    def forward_async(self, frames, thresh_mode: str = "otsu",
+                      shadow_val: float = 40.0, contrast_val: float = 10.0
+                      ) -> tri.CloudResult:
+        """Non-blocking ``forward``: queue the upload and the kernel on the
+        current stream and return with them in flight. A CUDA tensor is used
+        where it is; pinned host frames are copied at once, pageable ones
+        are first copied into pinned memory (a host copy, not a wait on the
+        card). The caller overlaps its next load with this view and waits
+        only where it reads the result (``torch.cuda.synchronize``, or a
+        copy to the host). The same program and bytes as ``forward``.
+
+        ``thresh_mode="otsu"`` needs the frames' histograms on the host to
+        pick the thresholds, so that mode waits for the upload and the
+        histogram as ``forward`` does; ``"manual"`` waits nowhere."""
+        return self.forward(self._staged(frames), thresh_mode, shadow_val, contrast_val)
 
     def _replica(self, dev: torch.device) -> "SLScanner":
         """This scanner with its buffers on ``dev`` (itself on its own
@@ -211,6 +246,19 @@ class SLScanner(nn.Module):
         col, row, mask = graycode.decode_views(
             frames_v, thr_v, self._plan(frames_v.shape[1]))
         return self._triangulate(col, row, mask, frames_v[:, 0, ..., None])
+
+    def forward_views_batched(self, frames_v, thresh_mode: str = "otsu",
+                              shadow_val: float = 40.0, contrast_val: float = 10.0,
+                              mesh=None) -> tri.CloudResult:
+        """The batched executor's compute lane: uint8 [V, F, H, W] -> one
+        launch for the whole batch (the fused kernel wherever
+        ``_fuse_capable`` holds, else the decode kernel), the same bytes as
+        ``forward_views`` and as ``forward`` view by view. ``mesh``: a
+        DeviceMesh shards the views over its slots, one launch a slot; V
+        must be a multiple of the mesh's size (the executor pads its
+        buckets to it), else ValueError before any launch."""
+        return self.forward_views(frames_v, thresh_mode=thresh_mode, shadow_val=shadow_val,
+                                  contrast_val=contrast_val, mesh=mesh)
 
     def forward_views_packed(self, planes_v, white_v, black_v, *,
                              n_frames: int, thresh_mode: str = "otsu",

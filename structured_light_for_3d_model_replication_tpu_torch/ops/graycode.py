@@ -15,7 +15,8 @@ so every backend picks the same bin.
 
 ``decode_stack_np`` is the all-host decode of the ``parallel.backend =
 'numpy'`` reference path: the JAX package's NumPy arithmetic, bit-equal to
-its ``decode_stack_np`` (and to the decode kernel).
+its ``decode_stack_np`` (and to the decode kernel). ``decode_packed_np`` is
+its twin on packed bit-planes, and ``otsu_threshold_np`` the host Otsu.
 """
 from __future__ import annotations
 
@@ -30,8 +31,9 @@ from structured_light_for_3d_model_replication_tpu_torch.utils.device import (
 )
 
 __all__ = ["gray_bits", "generate_pattern_stack", "frames_per_view",
-           "otsu_threshold", "resolve_thresholds", "resolve_thresholds_views",
-           "decode_stack", "decode_packed", "decode_stack_np", "DecodeResult"]
+           "otsu_threshold", "otsu_threshold_np", "resolve_thresholds",
+           "resolve_thresholds_views", "decode_stack", "decode_packed",
+           "decode_stack_np", "decode_packed_np", "DecodeResult"]
 
 
 def _n_bits(size: int) -> int:
@@ -125,6 +127,11 @@ def otsu_threshold(img_u8: torch.Tensor) -> int:
     return _otsu_from_hist(_hists(img_u8[None])[0])
 
 
+def otsu_threshold_np(img_u8: np.ndarray) -> int:
+    """Otsu threshold of one uint8 image on the host (numpy)."""
+    return _otsu_from_hist(np.bincount(np.asarray(img_u8).reshape(-1), minlength=256)[:256])
+
+
 def resolve_thresholds_views(frames_v: torch.Tensor, thresh_mode: str,
                              shadow_val: float, contrast_val: float
                              ) -> tuple[np.ndarray, np.ndarray]:
@@ -152,9 +159,14 @@ def resolve_thresholds(frames: torch.Tensor, thresh_mode: str, shadow_val: float
 
 def threshold_tensor(ss: np.ndarray, cs: np.ndarray,
                      device: torch.device) -> torch.Tensor:
-    """The kernels' f32 [V, 2] (shadow, contrast) tensor on ``device``."""
-    thr = np.stack([np.asarray(ss, np.float32), np.asarray(cs, np.float32)], 1)
-    return torch.from_numpy(thr).to(device)
+    """The kernels' f32 [V, 2] (shadow, contrast) tensor on ``device``. A
+    card gets it from pinned memory by a copy queued on its current stream:
+    a copy from pageable memory would make the host wait for the stream."""
+    thr = torch.from_numpy(np.stack([np.asarray(ss, np.float32),
+                                     np.asarray(cs, np.float32)], 1))
+    if torch.device(device).type == "cuda":
+        return thr.pin_memory().to(device, non_blocking=True)
+    return thr.to(device)
 
 
 # ---------------------------------------------------------------------------
@@ -353,5 +365,56 @@ def decode_stack_np(frames: np.ndarray, texture: np.ndarray | None = None, *,
                               n_frames) * downsample
     row_map = _decode_axis_np(fr, 2 + 2 * plan.n_bits_col, plan.n_bits_row,
                               plan.n_use_row, n_frames) * downsample
+    return DecodeResult(col_map.astype(np.int32), row_map.astype(np.int32), mask,
+                        texture)
+
+
+def _decode_axis_packed_np(planes, pair_start: int, max_bits: int, n_use: int,
+                           n_pairs=None):
+    """``_decode_axis_np`` on packed bit-planes: pair p's comparison bit is
+    bit p%8 of plane byte p//8, so the axis is a shift-and-mask of the
+    planes feeding the same weights, Gray -> binary and rescale.
+    ``pair_start`` counts pairs (frame 2 + 2 * pair_start); pairs past
+    ``n_pairs`` (a truncated stack) read as 0."""
+    avail = n_use if n_pairs is None else max(0, min(n_use, n_pairs - pair_start))
+    if avail == 0:
+        gray = np.zeros(planes.shape[1:], np.int32)
+    else:
+        p = np.arange(pair_start, pair_start + avail)
+        shifts = (p & 7).astype(np.uint8)[:, None, None]
+        bits = ((planes[p >> 3] >> shifts) & 1).astype(np.int32)
+        weights = (1 << np.arange(n_use - 1, n_use - 1 - avail, -1, dtype=np.int32))
+        gray = np.sum(bits * weights[:, None, None], axis=0)
+    return _gray_to_binary_np(gray) * (1 << (max_bits - n_use))
+
+
+def decode_packed_np(planes: np.ndarray, white: np.ndarray, black: np.ndarray,
+                     texture: np.ndarray | None = None, *, n_frames: int,
+                     n_cols: int = 1920, n_rows: int = 1080, n_sets_col: int = 11,
+                     n_sets_row: int = 11, thresh_mode: str = "otsu",
+                     shadow_val: float = 40.0, contrast_val: float = 10.0,
+                     downsample: int = 1,
+                     skip_remaining_before_row: bool = False) -> DecodeResult:
+    """Decode a packed bit-plane stack (``io.images.pack_stack`` layout) on
+    the host: bit-identical to ``decode_stack_np`` on the raw stack the
+    planes were packed from, since thresholds and mask read only the
+    verbatim white/black frames and the stored bits are the comparisons
+    decode computes."""
+    if texture is None:
+        texture = np.repeat(white[..., None], 3, axis=-1).astype(np.uint8)
+    shadow, contrast = _resolve_thresholds_np(np.stack([white, black]), thresh_mode,
+                                              shadow_val, contrast_val)
+    plan = decode_plan(n_frames, n_cols=n_cols, n_rows=n_rows,
+                       n_sets_col=n_sets_col, n_sets_row=n_sets_row,
+                       downsample=downsample,
+                       skip_remaining_before_row=skip_remaining_before_row)
+    need = 2 + 2 * (plan.n_bits_col + plan.n_bits_row)
+    n_pairs = (n_frames - 2) // 2 if n_frames < need else None
+    w16, b16 = white.astype(np.int16), black.astype(np.int16)
+    mask = (w16 > shadow) & ((w16 - b16) > contrast)
+    col_map = _decode_axis_packed_np(planes, 0, plan.n_bits_col, plan.n_use_col,
+                                     n_pairs) * downsample
+    row_map = _decode_axis_packed_np(planes, plan.n_bits_col, plan.n_bits_row,
+                                     plan.n_use_row, n_pairs) * downsample
     return DecodeResult(col_map.astype(np.int32), row_map.astype(np.int32), mask,
                         texture)

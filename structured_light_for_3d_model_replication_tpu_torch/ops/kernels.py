@@ -309,10 +309,11 @@ def scan_scalars(oc: torch.Tensor, poly_col: torch.Tensor,
                  poly_row: torch.Tensor, epipolar_tol: float) -> torch.Tensor:
     """The fused kernel's f32[32] scalars on ``oc``'s device: oc xyz @0..2,
     epipolar tolerance @3, column-plane quadratic @4..15, row-plane
-    quadratic @16..27 (each [3, 4] row-major: rows A, B, C of (nx, ny, nz, d))."""
+    quadratic @16..27 (each [3, 4] row-major: rows A, B, C of (nx, ny, nz, d)).
+    Built by device ops alone (no host copy), so the host never waits."""
     f32 = torch.float32
     return torch.cat([oc.reshape(3).to(f32),
-                      oc.new_tensor([epipolar_tol], dtype=f32),
+                      oc.new_full((1,), epipolar_tol, dtype=f32),
                       poly_col.reshape(12).to(f32), poly_row.reshape(12).to(f32),
                       oc.new_zeros(4, dtype=f32)])
 

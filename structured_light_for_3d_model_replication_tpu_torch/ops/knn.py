@@ -11,7 +11,9 @@
   kdtree_build,     scipy ``cKDTree`` on the host: the exact complement of
   kdtree_distances_rows  the outlier pass's uncertified rows
   knn_np,           the same on numpy arrays (cKDTree), the numpy backend's
-  radius_count_np   clean chain (``pointcloud.clean_chain_np``)
+  radius_count_np   clean chain (``pointcloud.clean_chain_np``); self
+                    excluded unless ``exclude_self=False``
+  pad_points        numpy rows padded to a multiple with FAR, invalid rows
 
 ``knn`` takes the JAX package's engine (its ``ops/knn.py:91-142``):
 
@@ -47,8 +49,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["FAR", "sq_dist", "knn", "knn_dense_approx", "radius_count", "kdtree_build",
-           "kdtree_distances_rows", "knn_np", "radius_count_np"]
+__all__ = ["FAR", "pad_points", "sq_dist", "knn", "knn_dense_approx", "radius_count",
+           "kdtree_build", "kdtree_distances_rows", "knn_np", "radius_count_np"]
 
 FAR = 1e9  # coordinate of invalid/padded points: far from everything
 _BLOCK = 1 << 22  # elements of one [queries, base] distance block
@@ -61,6 +63,19 @@ _BINNED_CUDA = 1 << 26  # and on the card
 def _parked(points: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     return torch.where(valid[:, None], points.to(torch.float32),
                        torch.tensor(FAR, dtype=torch.float32, device=points.device))
+
+
+def pad_points(points: np.ndarray, valid: np.ndarray | None, multiple: int):
+    """Pad [N, 3] points (and their mask) to a multiple of ``multiple`` with
+    rows at FAR, invalid. Returns (points_p, valid_p, n_orig)."""
+    n = points.shape[0]
+    n_pad = (-n) % multiple
+    if valid is None:
+        valid = np.ones(n, bool)
+    if n_pad:
+        points = np.concatenate([points, np.full((n_pad, 3), FAR, points.dtype)], axis=0)
+        valid = np.concatenate([valid, np.zeros(n_pad, bool)])
+    return points, valid, n
 
 
 def sq_dist(q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -325,11 +340,13 @@ def kdtree_distances_rows(points: np.ndarray, valid: np.ndarray,
     return np.where(fill, last[:, None], out)
 
 
-def knn_np(points: np.ndarray, valid: np.ndarray | None, k: int):
+def knn_np(points: np.ndarray, valid: np.ndarray | None, k: int,
+           exclude_self: bool = True):
     """(indices i32 [N, k], squared distances f32 [N, k]) of each row's k
-    nearest OTHER valid rows by cKDTree (the JAX package's ``knn_np`` with
-    ``exclude_self``): with fewer than k others a row repeats its last
-    neighbour, with none it keeps index 0 at inf."""
+    nearest valid rows by cKDTree (the JAX package's ``knn_np``); with
+    ``exclude_self`` a row is not its own neighbour. With fewer than k
+    candidates a row repeats its last neighbour, with none it keeps index 0
+    at inf."""
     from scipy.spatial import cKDTree
 
     n = points.shape[0]
@@ -338,11 +355,11 @@ def knn_np(points: np.ndarray, valid: np.ndarray | None, k: int):
     vi = np.where(valid)[0]
     if len(vi) == 0:
         return np.zeros((n, k), np.int32), np.full((n, k), np.inf, np.float32)
-    kk = min(k + 1, len(vi))
+    kk = min(k + 1 if exclude_self else k, len(vi))
     d, j = cKDTree(points[vi]).query(points, k=kk, workers=-1)
     d = np.asarray(d).reshape(n, kk)
     j = np.asarray(j).reshape(n, kk)
-    if kk == k + 1:
+    if exclude_self and kk == k + 1:
         # d is sorted: inf the (at most one) self entry, take the k smallest
         cand = vi[j]
         dd = np.where(cand == np.arange(n)[:, None], np.inf, d)
@@ -350,11 +367,16 @@ def knn_np(points: np.ndarray, valid: np.ndarray | None, k: int):
         rows = np.arange(n)[:, None]
         return (cand[rows, order].astype(np.int32),
                 dd[rows, order].astype(np.float32) ** 2)
+    if not exclude_self and kk == k:
+        return vi[j].astype(np.int32), d.astype(np.float32) ** 2
     idx = np.zeros((n, k), np.int32)
     d2 = np.full((n, k), np.inf, np.float32)
     for row in range(n):
-        keep = vi[j[row]] != row
-        cand, dd = vi[j[row]][keep][:k], d[row][keep][:k]
+        cand, dd = vi[j[row]], d[row]
+        if exclude_self:
+            keep = cand != row
+            cand, dd = cand[keep], dd[keep]
+        cand, dd = cand[:k], dd[:k]
         idx[row, :len(cand)] = cand
         d2[row, :len(dd)] = dd.astype(np.float32) ** 2
         if 0 < len(cand) < k:
@@ -363,10 +385,11 @@ def knn_np(points: np.ndarray, valid: np.ndarray | None, k: int):
     return idx, d2
 
 
-def radius_count_np(points: np.ndarray, valid: np.ndarray | None,
-                    radius: float) -> np.ndarray:
-    """Number of OTHER valid rows within ``radius`` of each row, i32 [N],
-    by cKDTree (the JAX package's ``radius_count_np``)."""
+def radius_count_np(points: np.ndarray, valid: np.ndarray | None, radius: float,
+                    exclude_self: bool = True) -> np.ndarray:
+    """Number of valid rows within ``radius`` of each row, i32 [N], by
+    cKDTree (the JAX package's ``radius_count_np``); with ``exclude_self``
+    a valid row does not count itself."""
     from scipy.spatial import cKDTree
 
     n = points.shape[0]
@@ -377,4 +400,6 @@ def radius_count_np(points: np.ndarray, valid: np.ndarray | None,
         return np.zeros(n, np.int32)
     counts = np.asarray(cKDTree(points[vi]).query_ball_point(points, radius,
                                                               return_length=True), np.int32)
-    return counts - valid.astype(np.int32)
+    if exclude_self:
+        counts = counts - valid.astype(np.int32)
+    return counts

@@ -1,15 +1,18 @@
 """Normal estimation: PCA over k-neighbourhoods with a closed-form 3x3
 eigensolver, and orientation away from the cloud's centre (the JAX
-package's ``ops/normals.py``)."""
+package's ``ops/normals.py``). ``estimate_normals_np`` is the host
+reference: cKDTree neighbourhoods and numpy's ``eigh``."""
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from structured_light_for_3d_model_replication_tpu_torch.ops import knn as knnlib
 
-__all__ = ["smallest_eigvec_sym3", "estimate_normals", "orient_normals"]
+__all__ = ["smallest_eigvec_sym3", "estimate_normals", "estimate_normals_np",
+           "orient_normals"]
 
 
 def smallest_eigvec_sym3(cov: torch.Tensor) -> torch.Tensor:
@@ -60,6 +63,32 @@ def estimate_normals(points: torch.Tensor, valid: torch.Tensor, k: int = 30,
     d = (neigh - mean[:, None, :]) * w
     cov = torch.einsum("nki,nkj->nij", d, d) / cnt[..., None]
     return smallest_eigvec_sym3(cov)
+
+
+def estimate_normals_np(points, valid, k: int = 30, radius: float | None = None):
+    """Host reference of ``estimate_normals``: each valid row's normal is
+    the eigenvector of the least eigenvalue of its k nearest valid
+    neighbours' covariance (``np.cov``, ``np.linalg.eigh``); with ``radius``
+    only the neighbours within it count. A row with fewer than 3 such
+    neighbours, or invalid, gets (0, 0, 1). f32 [N, 3], unoriented."""
+    if valid is None:
+        valid = np.ones(points.shape[0], bool)
+    idx, d2 = knnlib.knn_np(points, valid, k)
+    normals = np.zeros((points.shape[0], 3), np.float32)
+    for i in range(points.shape[0]):
+        if not valid[i]:
+            normals[i] = (0, 0, 1)
+            continue
+        keep = valid[idx[i]]
+        if radius is not None:
+            keep = keep & (d2[i] <= radius * radius)
+        nb = points[idx[i]][keep]
+        if nb.shape[0] < 3:
+            normals[i] = (0, 0, 1)
+            continue
+        _, vecs = np.linalg.eigh(np.cov(nb.T))
+        normals[i] = vecs[:, 0]
+    return normals
 
 
 def orient_normals(points: torch.Tensor, normals: torch.Tensor,

@@ -54,8 +54,8 @@ import torch
 from structured_light_for_3d_model_replication_tpu_torch.ops import kernels
 from structured_light_for_3d_model_replication_tpu_torch.ops import knn as knnlib
 
-__all__ = ["voxel_downsample", "statistical_outlier_mask", "DENSE_MAX",
-           "radius_outlier_mask", "segment_plane", "cluster_labels",
+__all__ = ["voxel_downsample", "voxel_downsample_np", "statistical_outlier_mask",
+           "DENSE_MAX", "radius_outlier_mask", "segment_plane", "cluster_labels",
            "largest_cluster_mask", "CLEAN_STEPS", "chain_params", "clean_chain",
            "statistical_outlier_mask_np", "radius_outlier_mask_np", "segment_plane_np",
            "cluster_labels_np", "largest_cluster_mask_np", "clean_chain_np"]
@@ -631,6 +631,32 @@ def clean_chain(points: torch.Tensor, valid: torch.Tensor, cfg,
 # ---------------------------------------------------------------------------
 # The numpy backend's chain, on the host
 # ---------------------------------------------------------------------------
+
+def voxel_downsample_np(points, colors, valid, voxel_size):
+    """Host reference of ``voxel_downsample``: the mean of each occupied
+    voxel (Open3D's semantics), compact: (points f32 [M, 3], colors u8
+    [M, 3] or None, valid bool [M] all True), in ascending cell order."""
+    if valid is None:
+        valid = np.ones(points.shape[0], bool)
+    pts = points[valid]
+    cols = colors[valid] if colors is not None else None
+    origin = pts.min(axis=0)
+    # divide in f32, as the device path does: a float64 divisor could move
+    # a point on a voxel boundary into the next cell
+    ijk = np.floor((pts - origin) / np.float32(voxel_size)).astype(np.int64)
+    _, inv, cnt = np.unique(ijk, axis=0, return_inverse=True, return_counts=True)
+    inv = inv.reshape(-1)
+    m = cnt.shape[0]
+    out_p = np.zeros((m, 3), np.float64)
+    np.add.at(out_p, inv, pts)
+    out_p /= cnt[:, None]
+    out_c = None
+    if cols is not None:
+        out_c = np.zeros((m, 3), np.float64)
+        np.add.at(out_c, inv, cols)
+        out_c = (out_c / cnt[:, None]).astype(np.uint8)
+    return out_p.astype(np.float32), out_c, np.ones(m, bool)
+
 
 def statistical_outlier_mask_np(points: np.ndarray, valid: np.ndarray,
                                 nb_neighbors: int = 20, std_ratio: float = 2.0) -> np.ndarray:

@@ -755,25 +755,30 @@ def _reconstruct_serial(sources, cfg, scanner, report, log, stats, tail: _Tail) 
     """The reference-shaped loop: load, compute, clean, write, collect, one
     view at a time on the calling thread (``io_workers <= 1``, or one
     source). A view that fails after its retries is recorded and the loop
-    goes on."""
+    goes on. Each view is timed under a ``StageTimer``, whose report goes to
+    the framework log at DEBUG (``SL3D_LOG=DEBUG``)."""
     policy = _retry_policy(cfg)
+    timer = prof.StageTimer()
     for idx, src in enumerate(sources):
         _budget_check("reconstruct")
         name = _item_name(src)
         retry = _stage_retry(policy, stats, log, name)
         try:
-            t0 = time.perf_counter()
-            frames, texture = retry("load", lambda: _load_fired(src, cfg))
-            stats.add("load", time.perf_counter() - t0, view=name)
-            t0 = time.perf_counter()
-            pts, cols = retry("compute", lambda: _compute_fired(
-                scanner, frames, cfg, src, texture=texture, tail=tail))
-            report.launches += 1
-            stats.add("compute", time.perf_counter() - t0, items=1, view=name)
-            out_path, n_pts, _ = _finish_view(idx, src, pts, cols, cfg, tail, stats, retry)
+            with timer.stage(name):
+                t0 = time.perf_counter()
+                frames, texture = retry("load", lambda: _load_fired(src, cfg))
+                stats.add("load", time.perf_counter() - t0, view=name)
+                t0 = time.perf_counter()
+                pts, cols = retry("compute", lambda: _compute_fired(
+                    scanner, frames, cfg, src, texture=texture, tail=tail))
+                report.launches += 1
+                stats.add("compute", time.perf_counter() - t0, items=1, view=name)
+                out_path, n_pts, _ = _finish_view(idx, src, pts, cols, cfg, tail, stats,
+                                                  retry)
             _view_done(report, name, out_path, n_pts, tail.write_plys, log)
         except Exception as e:
             _record_failure(report, src, name, e, log, stats)
+    prof.get_logger().debug("reconstruct stage timing:\n%s", timer.report())
     return {}
 
 
@@ -928,9 +933,10 @@ def _reconstruct_batched(sources, cfg, scanner, report, log, stats, tail: _Tail,
       transfer  the main thread queues the batch's copy on the upload
                 stream (raw) or stacks the views on the card (packed); the
                 compute stream waits on the copies' events
-      compute   one ``forward_views`` (``forward_views_packed``) launch a
-                batch, dispatched while the previous batch still drains; at
-                most two batches are dispatched and not yet drained
+      compute   one ``forward_views_batched`` (``forward_views_packed``)
+                launch a batch, dispatched while the previous batch still
+                drains; at most two batches are dispatched and not yet
+                drained
       drain     one worker (``sl3d-drain``, its own stream, after the
                 batch's launch event): one copy of the batch to the host,
                 per-view compaction (``tri.compact_cloud``), then each
@@ -943,7 +949,8 @@ def _reconstruct_batched(sources, cfg, scanner, report, log, stats, tail: _Tail,
     early. The kernels take any V, so the view axis is not padded, except
     over a views mesh (``parallel.shard_views`` with >= 2 cards): the batch
     pads to a multiple of the card count with copies of its last view,
-    shards over the cards (``forward_views(mesh=)``) and drops the copies.
+    shards over the cards (``forward_views_batched(mesh=)``) and drops the
+    copies.
     ``compute.view`` fires per view at assembly; a fault there, or a fault
     injected at the fused drain's ``clean.fused`` site, re-runs the batch's
     views one at a time under the retry budget (a packed stack unpacks for
@@ -1135,8 +1142,8 @@ def _reconstruct_batched(sources, cfg, scanner, report, log, stats, tail: _Tail,
                         stats.add("transfer", time.perf_counter() - t0)
                         stats.add_transfer(frames=sum(int(it[2].nbytes) for it in items))
                         t0 = time.perf_counter()
-                        cloud = scanner.forward_views(_pad_views(frames, bucket), mesh=mesh,
-                                                      **_forward_kw(cfg))
+                        cloud = scanner.forward_views_batched(
+                            _pad_views(frames, bucket), mesh=mesh, **_forward_kw(cfg))
                     if bucket > v:
                         cloud = tri.CloudResult(*(a[:v] for a in cloud))
                     count_launch()
@@ -1265,6 +1272,10 @@ def _reconstruct_lane(sources, cfg, scanner, report, log, stats, tail: _Tail) ->
             extra = _reconstruct_batched(sources, cfg, scanner, report, log, stats, tail,
                                          packed=lane == "packed")
     stats.finish(time.perf_counter() - t0)
+    if lane != "serial":
+        prof.get_logger().debug("reconstruct %s overlap: %s",
+                                "pipeline" if lane == "pipelined" else "batched",
+                                stats.summary())
     report.overlap = {**stats.as_dict(), **extra}
     report.retries += _lane_retries(stats) - before
 

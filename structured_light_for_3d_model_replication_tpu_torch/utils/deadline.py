@@ -73,7 +73,7 @@ __all__ = [
     "DeadlineExceeded", "Cancelled", "Deadline", "CancelToken",
     "wait_future", "wait_settled", "sleep_cancellable", "Watchdog",
     "RunContext", "activate", "deactivate", "current", "beat",
-    "watchdog_suspend", "STALLS_SCHEMA",
+    "watchdog_suspend", "watchdog_resume", "STALLS_SCHEMA",
 ]
 
 STALLS_SCHEMA = "sl3d-stalls-v1"
@@ -299,6 +299,15 @@ class Watchdog:
         with self._lock:
             self._suspended += 1
 
+    def resume(self) -> None:
+        """End one ``suspend``. The suspended time is not silence: the age
+        clock restarts, and a breach fires again on a new stall."""
+        with self._lock:
+            self._suspended = max(0, self._suspended - 1)
+            self._t_resume = time.monotonic()
+            self._soft_fired = False
+            self._hard_fired = False
+
     # -- lifecycle ---------------------------------------------------------
 
     def start(self) -> None:
@@ -480,3 +489,11 @@ def watchdog_suspend() -> None:
     ctx = _CTX
     if ctx is not None and ctx.watchdog is not None:
         ctx.watchdog.suspend()
+
+
+def watchdog_resume() -> None:
+    """End the ambient watchdog's pause (see :meth:`Watchdog.resume`); no-op
+    when none is armed."""
+    ctx = _CTX
+    if ctx is not None and ctx.watchdog is not None:
+        ctx.watchdog.resume()

@@ -1,5 +1,12 @@
-"""Lane overlap accounting and the device profiler hook.
+"""Stage timing, the framework logger, lane overlap accounting and the
+device profiler hook.
 
+  - ``StageTimer``: nested, context-managed stage timing with a report
+    (the serial reconstruct lane times each view under one).
+  - ``get_logger``: the ``sl3d`` stdlib logger, its level from ``SL3D_LOG``
+    (DEBUG / INFO / WARNING, default INFO); ``attach_callback`` forwards it
+    to a reference-style ``log_callback(str)`` sink, ``attached_callback``
+    is the scoped form that always detaches.
   - ``OverlapStats``: per-lane wall accounting of the reconstruct lanes
     (load, transfer, compute, clean, write) and the streaming register
     lane, the prefetch window's depth, device<->host bytes and kernel-lane
@@ -14,16 +21,19 @@
 from __future__ import annotations
 
 import contextlib
+import logging
 import os
 import threading
 import time
+from dataclasses import dataclass, field
 
 from structured_light_for_3d_model_replication_tpu_torch.utils import (
     deadline as _deadline,
 )
 from structured_light_for_3d_model_replication_tpu_torch.utils import telemetry
 
-__all__ = ["OverlapStats", "trace", "set_heartbeat_hook"]
+__all__ = ["StageTimer", "OverlapStats", "trace", "get_logger", "attach_callback",
+           "attached_callback", "detach_callback", "set_heartbeat_hook"]
 
 # ambient progress-heartbeat hook: a coordinated-run worker installs its
 # lease renewal here, so every ``OverlapStats.add`` (the call that adds a
@@ -40,6 +50,120 @@ def set_heartbeat_hook(hook):
     prev = _HEARTBEAT
     _HEARTBEAT = hook
     return prev
+
+
+_LOGGER_NAME = "sl3d"
+
+
+def get_logger(name: str = _LOGGER_NAME) -> logging.Logger:
+    """Framework logger; level from SL3D_LOG (DEBUG/INFO/WARNING, default INFO)."""
+    logger = logging.getLogger(name)
+    if not getattr(logger, "_sl3d_configured", False):
+        handler = logging.StreamHandler()
+        handler.setFormatter(logging.Formatter(
+            "%(asctime)s %(levelname).1s %(name)s: %(message)s", "%H:%M:%S"))
+        logger.addHandler(handler)
+        logger.setLevel(os.environ.get("SL3D_LOG", "INFO").upper())
+        logger.propagate = False
+        logger._sl3d_configured = True
+    return logger
+
+
+class _CallbackHandler(logging.Handler):
+    def __init__(self, callback):
+        super().__init__()
+        self._cb = callback
+
+    def emit(self, record):
+        self._cb(self.format(record))
+
+
+def attach_callback(callback, level=logging.INFO) -> logging.Handler:
+    """Forward the framework log to a ``log_callback(str)`` sink (the
+    reference's Tk text-widget pattern). Returns the handler for
+    ``detach_callback``; ``attached_callback`` is the form that cannot leak.
+    Re-attaching an equal callback (``==``: a bound method is a new object on
+    every access) replaces its handler rather than adding a second one."""
+    logger = get_logger()
+    for h in list(logger.handlers):
+        if isinstance(h, _CallbackHandler) and h._cb == callback:
+            logger.removeHandler(h)
+            h.close()
+    h = _CallbackHandler(callback)
+    h.setLevel(level)
+    h.setFormatter(logging.Formatter("%(message)s"))
+    logger.addHandler(h)
+    return h
+
+
+def detach_callback(handler: logging.Handler) -> None:
+    """Remove a handler returned by :func:`attach_callback`."""
+    get_logger().removeHandler(handler)
+    handler.close()
+
+
+@contextlib.contextmanager
+def attached_callback(callback, level=logging.INFO):
+    """Scoped :func:`attach_callback`: the handler is detached however the
+    block leaves."""
+    h = attach_callback(callback, level)
+    try:
+        yield h
+    finally:
+        detach_callback(h)
+
+
+@dataclass
+class _Record:
+    name: str
+    elapsed_s: float
+    depth: int
+
+
+@dataclass
+class StageTimer:
+    """Nested stage timing::
+
+        timer = StageTimer()
+        with timer.stage("decode"):
+            ...
+        with timer.stage("merge"):
+            with timer.stage("merge/icp"):
+                ...
+        print(timer.report())
+
+    A record is appended when its stage ends (innermost first), with its
+    nesting depth (1 at the top level)."""
+
+    records: list[_Record] = field(default_factory=list)
+    _depth: int = 0
+
+    @contextlib.contextmanager
+    def stage(self, name: str, log=None):
+        t0 = time.perf_counter()
+        self._depth += 1
+        try:
+            yield self
+        finally:
+            self._depth -= 1
+            dt = time.perf_counter() - t0
+            self.records.append(_Record(name, dt, self._depth))
+            if log is not None:
+                log(f"[timing] {name}: {dt:.3f}s")
+
+    def total(self, name: str) -> float:
+        return sum(r.elapsed_s for r in self.records if r.name == name)
+
+    def as_dict(self) -> dict[str, float]:
+        out: dict[str, float] = {}
+        for r in self.records:
+            out[r.name] = out.get(r.name, 0.0) + r.elapsed_s
+        return out
+
+    def report(self) -> str:
+        """One line a record, in completion order, indented by depth."""
+        return "\n".join(f"{'  ' * r.depth}{r.name:<32} {r.elapsed_s:9.3f}s"
+                         for r in self.records)
 
 
 class OverlapStats:
@@ -355,6 +479,26 @@ class OverlapStats:
         out["transfer_per_item_s"] = (round(self._stage_s["transfer"] / items, 4)
                                       if items else None)
         return out
+
+    def summary(self) -> str:
+        """One line of the lanes against the critical path (the DEBUG log)."""
+        d = self.as_dict()
+        clean = f" + clean {d['clean_s']}s" if d["clean_s"] else ""
+        xfer = f" + transfer {d['transfer_s']}s" if d["transfer_s"] else ""
+        resil = ""
+        if d["retry_total"] or d["failure_total"]:
+            resil = f", {d['retry_total']} retries / {d['failure_total']} failures"
+        batched = ""
+        if d["launches"]:
+            batched = (f", {d['views_dispatched']} views in {d['launches']} launches "
+                       f"(mean {d['mean_views_per_launch']}/launch)")
+        if d["pair_launches"]:
+            batched += (f", {d['pairs_dispatched']} pairs in {d['pair_launches']} "
+                        f"register launches (register {d['register_s']}s)")
+        return (f"load {d['load_s']}s{xfer} + compute {d['compute_s']}s{clean} + write "
+                f"{d['write_s']}s = {d['serial_sum_s']}s serial-equivalent in "
+                f"{d['critical_path_s']}s wall (overlap x{d['overlap_ratio']}, queue depth "
+                f"max {d['max_queue_depth']} mean {d['mean_queue_depth']}{batched}{resil})")
 
 
 # torch.profiler runs one profile per process at a time, and the lanes

@@ -231,6 +231,11 @@ class MetricsRegistry:
                 })
         return out
 
+    def to_prometheus(self) -> str:
+        """Prometheus exposition text of the live registry
+        (``prometheus_text`` of ``as_dict``)."""
+        return prometheus_text(self.as_dict())
+
 
 # ---------------------------------------------------------------------------
 # the tracer
